@@ -1,0 +1,69 @@
+"""On-device compaction of the kernel's K-slot buffers.
+
+Counterpart of ``fdreadoutlibs_tpu/ops/hits.py::compact_slot_words`` and
+``compact_pallas_slots`` (there an XLA ``lax.top_k``, not a Pallas kernel,
+so the port keeps it plain torch).  A fixed-size ``torch.topk`` replaces
+the variable-size ``torch.nonzero`` on purpose: nonzero syncs the host,
+and the compaction must stay one asynchronous device pass ending in ONE
+device->host fetch (``ops/ingest.py::unpack_compact``).
+
+Keys are int64 ``end*C + chan``, so the canonical (end_tick, channel)
+order holds at any T·C (the JAX package's int32 key wraps once
+T·C >= 2**31).  The host-side decode is the JAX package's own
+``hits_from_compact`` (``ops/ingest.py::unpack_compact``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_INVALID = torch.iinfo(torch.int64).max
+
+
+def compact_slot_words(w0, w1, w2, max_hits: int, channel_base: int = 0,
+                       tick_offset: int = 0):
+    """K-slot record words -> ((max_hits, 6) int32 hits [channel, end_tick,
+    charge, tover, peak_adc, peak_time] in canonical (end_tick, channel)
+    order, valid count as a 0-d tensor).
+
+    w0/w2: (K, C) packed words ([charge<<16|tover], [end_tick+1]); ``w1``
+    may be None (no-peak record layout) — peak fields emit as zero.
+    """
+    K, C = w2.shape
+    dev = w2.device
+    valid = (w2 != 0).reshape(-1)
+    chan = torch.arange(C, dtype=torch.int32, device=dev).repeat(K)
+    end = (w2 - 1).reshape(-1)
+    if w1 is None:
+        w1 = torch.zeros_like(w0)
+    # valid keys are unique (a hit closes once per channel per tick), so
+    # ties only ever occur among the invalid keys, whose rows are zeroed
+    key = torch.where(valid, end.long() * C + chan.long(), _INVALID)
+    take = min(max_hits, K * C)
+    order = torch.topk(key, take, largest=False, sorted=True).indices
+    valid_t = valid[order]
+    w0o = w0.reshape(-1)[order]
+    w1o = w1.reshape(-1)[order]
+    fields = torch.stack([chan[order] + channel_base,
+                          end[order] + tick_offset,
+                          w0o >> 16, w0o & 0xFFFF,
+                          w1o >> 16, w1o & 0xFFFF], dim=-1)
+    n = valid.sum(dtype=torch.int32)
+    out = torch.zeros((max_hits, 6), dtype=torch.int32, device=dev)
+    out[:take] = torch.where(valid_t[:, None], fields, 0)
+    return out, torch.clamp(n, max=max_hits)
+
+
+def compact_slots(slots, nclose, max_hits: int, tick_offset: int = 0):
+    """``process_window`` outputs -> ((max_hits, 6) canonical hits, valid
+    count, dropped count), entirely on device.  Dropped = closes beyond
+    K per channel per chunk + valid hits beyond ``max_hits``."""
+    nch, K, nw, C = slots.shape
+    flat = slots.reshape(nch * K, nw, C)       # chunk-major slot axis
+    w1 = flat[:, 1] if nw == 3 else None
+    out, n = compact_slot_words(flat[:, 0], w1, flat[:, -1], max_hits,
+                                tick_offset=tick_offset)
+    dropped = torch.clamp(nclose - K, min=0).sum()
+    total_valid = (flat[:, -1] != 0).sum()
+    dropped = dropped + torch.clamp(total_valid - max_hits, min=0)
+    return out, n, dropped
