@@ -9,9 +9,11 @@ are imported from it, and the host modules whose JAX-package import chain
 pulls in jax are carried here as copies (each cites its original).
 
 Slice 1 ports the production APA application's main path: the time2 host
-feed through the hand-written Hopper TPG kernel (``csrc/tpg_time2.cu``,
-wrapped by ``ops.tpg.process_window``), on-device compaction, and the host
-TP tail (``apps.apa_readout.APAReadoutApp``).
+feed through the hand-written Hopper TPG kernel (``csrc/tpg.cu``, wrapped by
+``ops.tpg.process_window``), on-device compaction, and the host TP tail
+(``apps.apa_readout.APAReadoutApp``).  Slice 2 ports the per-link frame
+processors (``stream.WIBEthFrameProcessor``, ``stream.WIB2FrameProcessor``)
+with the packed device ingest and the FIR family on the same kernel.
 """
 
 __version__ = "0.1.0"

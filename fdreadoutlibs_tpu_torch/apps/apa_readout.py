@@ -20,7 +20,8 @@ configuration, the time2 feed.  Every host stage is the JAX package's code
 card; ``device="cpu"`` runs the kernel's plain version (the CPU tests).
 Nothing falls back from one to the other.
 
-Not ported yet: the plain packed-frames feed (K2), the fused in-kernel
+Not ported yet: the app's packed-frames feed (its kernel, K2, is ported
+and runs the per-link processors' packed ingest), the fused in-kernel
 unpack feeds (K4: ``fused_unpack``/``words14_feed``) and Fragment
 recording (``record_fragment``).
 
@@ -88,8 +89,8 @@ class APAReadoutApp:
                  device="cuda"):
         if not time2_feed:
             raise NotImplementedError(
-                "only the time2 feed (time2_feed=True) is ported; the plain "
-                "packed-frames feed needs the K2 kernel (ROADMAP.md)")
+                "only the time2 feed (time2_feed=True) of the APA app is "
+                "ported; its packed-frames feed is not (ROADMAP.md)")
         self.device = resolve_device(device)
         self.n_links = n_links
         self.run_number = run_number
@@ -103,7 +104,7 @@ class APAReadoutApp:
         # 441-450).
         self.procs = []
         for link in range(n_links):
-            p = WIBEthFrameProcessor(tp_sink=self.tp_q)
+            p = WIBEthFrameProcessor(tp_sink=self.tp_q, device=self.device)
             p.conf({"source_id": link, "crate_id": 1, "slot_id": link // 8,
                     "link_id": link % 8, "enable_tpg": True,
                     "tpg_algorithm": algorithm, "tpg_threshold": threshold,

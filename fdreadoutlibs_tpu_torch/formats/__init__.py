@@ -1,6 +1,7 @@
-"""L1 — frame formats of the port (numpy parts only).
+"""L1 — frame formats of the port (WIBEth, WIB2).
 
-Copies of the JAX package's jax-free format code: the JAX package's
-``formats/__init__.py`` imports its jnp device unpacks, so nothing under
-``fdreadoutlibs_tpu.formats`` can be imported without jax.
+Copies of the JAX package's format code with torch device unpacks in place
+of its jnp ones: the JAX package's ``formats/__init__.py`` imports those jnp
+unpacks, so nothing under ``fdreadoutlibs_tpu.formats`` can be imported
+without jax.
 """

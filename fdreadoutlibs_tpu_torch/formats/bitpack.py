@@ -1,9 +1,9 @@
 """Bit-packing codecs for densely packed little-endian ADC words.
 
 Port copy of ``fdreadoutlibs_tpu/formats/bitpack.py``: the same code apart
-from imports, without the jnp device unpack ``unpack_14bit_jnp``. It is
-carried here because importing the original pulls in jax through its
-package's ``__init__``.
+from imports, with :func:`unpack_14bit_torch` in place of the jnp device
+unpack ``unpack_14bit_jnp`` (:88). It is carried here because importing the
+original pulls in jax through its package's ``__init__``.
 
 The WIB frame families pack N-bit ADCs back-to-back, little-endian, into
 64-bit words: channel ``c`` occupies bits ``[N*c, N*(c+1))`` of the ADC
@@ -17,17 +17,21 @@ Two implementations are provided:
 
 * numpy (host side, uses uint64 intermediates) — used by frame writers,
   emulators and tests;
-* jnp (device side, uint32-only, static shifts) — used in the ingest path
-  before the Pallas TPG kernel.
+* torch (device side, int32-only, static shifts) — used in the ingest path
+  before the TPG kernel.
 
 Both are bit-exact against each other (round-trip tested).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import math
 
-__all__ = ["pack_14bit", "unpack_14bit", "words_per_row"]
+import numpy as np
+import torch
+
+__all__ = ["pack_14bit", "unpack_14bit", "unpack_14bit_torch",
+           "words_per_row"]
 
 
 def words_per_row(n_channels: int, bits: int = 14, word_bits: int = 32) -> int:
@@ -88,3 +92,42 @@ def dump_registers(adcs, per_register: int = 16, fmt: str = "dec") -> str:
         lines.append(f"reg {r // per_register:3d}: {body}")
     return "\n".join(lines)
 
+
+def unpack_14bit_torch(words: torch.Tensor, n_channels: int,
+                       bits: int = 14) -> torch.Tensor:
+    """Unpack little-endian `bits`-bit ADCs from 32-bit words (torch, on
+    the words' device) — the counterpart of ``unpack_14bit_jnp``.
+
+    words: (..., W) int32 (or uint32) tensor.  Returns (..., n_channels)
+    int32.  Torch has no logical right shift on int32, so every shift is
+    static and arithmetic, followed by an explicit mask of the bits it
+    keeps.  ``lcm(bits, 32) / bits`` channels (16 for 14-bit) span a whole
+    number of words, so channel ``g * per + r`` has the same word offset
+    and shift in every group ``g``: ``per`` extracts over (..., G) slices
+    unpack the whole row (the JAX package's ``impl="classes"``).
+    """
+    if words.dtype == torch.uint32:
+        words = words.view(torch.int32)
+    if words.dtype != torch.int32:
+        raise ValueError(f"expected int32 words, got {words.dtype}")
+    per = math.lcm(bits, 32) // bits
+    wpg = bits * per // 32
+    if n_channels % per:
+        raise ValueError(f"{n_channels} channels is not a whole number of "
+                         f"{per}-channel word groups")
+    G = n_channels // per
+    if words.shape[-1] < G * wpg:
+        raise ValueError(f"{words.shape[-1]} words hold fewer than "
+                         f"{n_channels} {bits}-bit channels")
+    w = words[..., :G * wpg].reshape(*words.shape[:-1], G, wpg)
+    cols = []
+    for r in range(per):
+        wi, sh = divmod(r * bits, 32)
+        lo = w[..., wi] >> sh if sh else w[..., wi]
+        if sh + bits > 32:
+            n_lo = 32 - sh                    # bits taken from word wi
+            hi = (w[..., wi + 1] & ((1 << (sh + bits - 32)) - 1)) << n_lo
+            cols.append((lo & ((1 << n_lo) - 1)) | hi)
+        else:
+            cols.append(lo & ((1 << bits) - 1))
+    return torch.stack(cols, dim=-1).reshape(*words.shape[:-1], n_channels)

@@ -1,9 +1,9 @@
 """WIBEth frame format (DUNE FD horizontal-drift Ethernet readout).
 
 Port copy of ``fdreadoutlibs_tpu/formats/wibeth.py``: the same code apart
-from imports, without the jnp device unpack ``unpack_frames_jnp``. It is
-carried here because importing the original pulls in jax through its
-package's ``__init__``.
+from imports, with the torch device unpack :func:`unpack_frames` in place
+of the jnp ``unpack_frames_jnp`` (:155-164). It is carried here because
+importing the original pulls in jax through its package's ``__init__``.
 
 Geometry (reference: include/fdreadoutlibs/DUNEWIBEthTypeAdapter.hpp:18-99 and
 fddetdataformats WIBEthFrame as exercised by wibeth/tpg/FrameExpand.hpp:192-246):
@@ -31,7 +31,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from .bitpack import pack_14bit, unpack_14bit
+import torch
+
+from .bitpack import pack_14bit, unpack_14bit, unpack_14bit_torch
 
 # ---- geometry / adapter traits -------------------------------------------------
 FRAME_SIZE = 7200                  # bytes
@@ -152,6 +154,15 @@ def fake_seq_ids(frames: np.ndarray, first_seq_id: int = 0) -> None:
     n = frames.shape[0] if frames.ndim > 1 else 1
     seq = (np.uint64(first_seq_id) + np.arange(n, dtype=np.uint64)) & np.uint64(0xFFF)
     set_header_field(frames, "seq_id", seq.reshape(frames.shape[:-1]))
+
+
+# ---- device-side unpack (ingest path) -----------------------------------------
+
+def unpack_frames(words: torch.Tensor) -> torch.Tensor:
+    """Device unpack: (..., T, 28) int32 ADC words -> (..., T, 64) int32
+    ADCs in natural frame-channel order (expand_wibeth_adcs,
+    FrameExpand.hpp:192-246, without the AVX register permutation)."""
+    return unpack_14bit_torch(words, N_CHANNELS, ADC_BITS)
 
 
 # ---- host views (ingest path) -------------------------------------------------

@@ -1,46 +1,43 @@
 """Torch array namespace for the shared SWTPG tick.
 
-``fdreadoutlibs_tpu.ops.step.tpg_tick`` is written once against an array
-namespace ``xp`` and a fixed-point helper ``fx`` (``fixedpoint.I32Fx.make``);
-numpy, XLA and Pallas all run that one function.  :class:`TorchXP` is the
-namespace for int32 torch tensors on one device, so the port runs the same
-tick unchanged (one source of tick semantics for every backend) as the plain
-version of its hand-written kernel, and :func:`make_fx` builds the I32Fx
-helper over it.
+``fdreadoutlibs_tpu.ops.step.dispatch_tick`` (``step.tpg_tick`` for the
+threshold/RS families, ``fir.tpg_tick_fir`` for FIR) is written once
+against an array namespace ``xp`` and a fixed-point helper ``fx``
+(``fixedpoint.I32Fx.make``); numpy, XLA and Pallas all run that one
+function.  :class:`TorchXP` is the namespace for int32 torch tensors on one
+device, so the port runs the same tick unchanged (one source of tick
+semantics for every backend) as the plain version of its hand-written
+kernel, and :func:`make_fx` builds the I32Fx helper over it.
 
-Scalars that ``tpg_tick`` hands to ``where``/``minimum``/``maximum`` as
-python ints stay int32, so every intermediate keeps the int32 dtype the JAX
-package computes in.  The float RS variant (``rs_float=True``) and the FIR
-family are refused by :func:`check_supported`: ``step.py`` needs
-``.astype`` for the former, and the FIR tick (K3) is not ported yet.
+Scalars that the tick hands to ``where``/``minimum``/``maximum`` as python
+ints stay int32, so every intermediate keeps the int32 dtype the JAX
+package computes in.  :func:`check_supported` refuses what the port does
+not run: the float RS variant (``rs_float=True``; ``step.py`` needs
+``.astype`` for it) and the native int16 state mode (K2b in ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import torch
 
-from fdreadoutlibs_tpu.ops.config import Algorithm, TPGConfig
+from fdreadoutlibs_tpu.ops.config import TPGConfig
 from fdreadoutlibs_tpu.ops.fixedpoint import I32Fx
 
-SUPPORTED = (Algorithm.SIMPLE_THRESHOLD, Algorithm.ABS_RS,
-             Algorithm.STANDARD_RS)
 
-
-def check_supported(cfg: TPGConfig) -> None:
+def check_supported(cfg: TPGConfig, state: torch.Tensor | None = None) -> None:
     """Refuse configurations the port does not run (never approximate)."""
-    if cfg.algorithm not in SUPPORTED:
-        raise NotImplementedError(
-            f"{cfg.algorithm.value} is not ported to torch yet (the FIR "
-            "tick, K3 in ROADMAP.md); supported: "
-            f"{[a.value for a in SUPPORTED]}")
     if cfg.rs_float:
         raise NotImplementedError(
             "rs_float=True (the naive float running sum) is not ported: "
             "ops/step.py needs .astype for it; use the x10 fixed point")
+    if state is not None and state.dtype == torch.int16:
+        raise NotImplementedError(
+            "the native int16 state mode (I16Fx, K2b in ROADMAP.md) is not "
+            "ported; pack the state as int32")
 
 
 class TorchXP:
-    """The subset of the numpy/jnp namespace ``tpg_tick`` uses, over int32
+    """The subset of the numpy/jnp namespace the tick uses, over int32
     tensors on ``device``."""
 
     def __init__(self, device):
@@ -68,6 +65,14 @@ class TorchXP:
     @staticmethod
     def abs(x):
         return torch.abs(x)
+
+    @staticmethod
+    def zeros_like(x):
+        return torch.zeros_like(x)
+
+    @staticmethod
+    def concatenate(arrays, axis=0):
+        return torch.cat(list(arrays), dim=axis)
 
 
 def make_fx(xp: TorchXP):

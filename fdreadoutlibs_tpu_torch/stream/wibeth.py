@@ -1,16 +1,19 @@
 """WIBEth frame processor — the flagship SWTPG pipeline.
 
 Port copy of ``fdreadoutlibs_tpu/stream/wibeth.py``: the same code apart
-from imports, without the per-link SWTPG (``find_hits`` raises
-NotImplementedError; the APA app runs the device path for all links at
-once). It is carried here because importing the original pulls in jax
-through its package's ``__init__``.
+from imports and the device seam.  It is carried here because importing
+the original pulls in jax through its package's ``__init__``.  The
+per-link SWTPG runs the port's kernel path: ``tpg_backend`` "pallas" or
+"auto" (the default) is the hand-written CUDA kernel on ``device="cuda"``
+(the default; no card raises) and its plain version on ``device="cpu"``;
+"reference" is the numpy oracle.  The JAX package's XLA "scan" backend has
+no counterpart.
 
 Equivalent of WIBEthFrameProcessor + WIBEthFrameHandler
 (src/wibeth/WIBEthFrameProcessor.cpp): preprocess = sequence_check +
 timestamp_check (cpp:299-405), postprocess = find_hits -> SWTPG ->
 process_swtpg_hits TP assembly (cpp:411-572) — vectorized over frame
-batches, with the hot path on device (Pallas kernel or XLA scan backend).
+batches, with the hot path on the device.
 """
 
 from __future__ import annotations
@@ -18,13 +21,20 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
+from fdreadoutlibs_tpu import native
 from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
 from fdreadoutlibs_tpu.ops.config import Algorithm, TPGConfig
+from fdreadoutlibs_tpu.ops.reference import process_window_reference
 from fdreadoutlibs_tpu.utils.channel_map import make_map
 
 from ..formats import wibeth
 from ..formats.trigprim import TP_DTYPE, TPAlgorithm, TPType, ts_to_i64
+from ..ops.ingest import collect_hits, process_packed_frames, \
+    process_time2_feed
+from ..ops.tpg import auto_tc, pack_state, unpack_state
+from ..utils.tuning import kernel_knobs
 from .errors import ErrorInterval, TPGAlgorithmInexistent
 from .processor import TaskRawDataProcessor
 from .transport import Sender
@@ -101,12 +111,19 @@ class WIBEthFrameProcessor(TaskRawDataProcessor):
 
     N_CHANNELS = wibeth.N_CHANNELS       # per link; subclasses override
 
-    def __init__(self, error_registry=None, tp_sink: Optional[Sender] = None):
+    def __init__(self, error_registry=None, tp_sink: Optional[Sender] = None,
+                 device="cuda"):
         super().__init__(error_registry)
+        # the apps module imports this one, so resolve_device comes late
+        from ..apps.apa_readout import resolve_device
+        self.device = resolve_device(device)
         self.tp_sink = tp_sink
         self.tpg_enabled = False
+        self.backend = "pallas"
         self._state = None
         self._first_hit = True
+        self._dev_state = None
+        self._state_stale = False
 
     # ------------------------------------------------------------------ conf
     def conf(self, config: dict) -> None:
@@ -138,6 +155,24 @@ class WIBEthFrameProcessor(TaskRawDataProcessor):
                 "tpg_frugal_streaming_accumulator_limit", 10),
         )
         self.tp_algo = _ALGO_ENUM[self.tpg_cfg.algorithm]
+        backend = config.get("tpg_backend", "auto")
+        if backend not in ("auto", "pallas", "reference"):
+            raise ValueError(f"tpg_backend {backend!r} is not ported; use "
+                             "'auto' or 'pallas' (the kernel path on "
+                             "self.device) or 'reference' (numpy oracle)")
+        self.backend = "reference" if backend == "reference" else "pallas"
+        # per-chunk hit capacity: k per tc ticks (the JAX processor's
+        # streaming default keeps headroom for pathological channels)
+        self.k_slots = config.get("tpg_k_slots", 4)
+        # compact the K-slot buffers to a hit list on the device (one small
+        # device->host fetch); tpg_max_hits bounds it per batch (None ->
+        # max(2048, 2x channels)), overflow counts as dropped
+        self._device_compact = bool(config.get("tpg_device_compact", True))
+        self._max_hits = config.get("tpg_max_hits")
+        # time2 feed: the HOST unpacks the 14-bit codec and pairs two ticks
+        # per int32 (native.relayout_time2, generic over ch_per_link); the
+        # device runs the time2 datapath
+        self._time2_feed = bool(config.get("tpg_time2_feed", False))
         self.error_counter_threshold = config.get("error_counter_threshold",
                                                   1000)
         self.add_preprocess_task(self.sequence_check)
@@ -157,6 +192,9 @@ class WIBEthFrameProcessor(TaskRawDataProcessor):
         self._first_seq_check = True
         self._first_hit = True
         self._state = None
+        self._dev_state = None
+        self._state_stale = False
+        self._t2_buf = native.FeedBuffer()    # time2 feed output reuse
         self.det_id = 0
         self._ts_problem_reported = False
         self._seq_problem_reported = False
@@ -270,11 +308,107 @@ class WIBEthFrameProcessor(TaskRawDataProcessor):
         self._first_hit = False
 
     def find_hits(self, frames: np.ndarray) -> None:
-        """Per-link unpack + SWTPG (cpp:411-476): not ported.  The APA app
-        runs the device path for all links at once (apps/apa_readout.py)."""
-        raise NotImplementedError(
-            "per-link find_hits is not ported to torch yet; use "
-            "fdreadoutlibs_tpu_torch.apps.apa_readout.APAReadoutApp")
+        """Unpack + SWTPG over the batch (cpp:411-476).
+
+        The kernel path ships only the packed ADC words to the device and
+        unpacks them there — or, with tpg_time2_feed, the host codec's
+        time2 feed."""
+        if frames.shape[0] == 0:
+            return
+        timestamp = int(wibeth.get_timestamp(frames)[0])
+        if self.backend == "pallas":
+            words = wibeth.frames_bytes_to_u32(frames)
+            if self._first_hit:
+                first = wibeth.get_adcs(frames[:1]) \
+                    .reshape(-1, wibeth.N_CHANNELS)[0].astype(np.int32)
+                self._first_frame_setup(frames, first)
+            if self._time2_feed:
+                T = words.shape[0] * wibeth.N_TIME_SAMPLES
+                hits = self._run_pallas_time2(words.reshape(1, T, -1))
+            else:
+                hits = self._run_pallas_packed(words)
+        else:
+            adcs = wibeth.get_adcs(frames).reshape(-1, wibeth.N_CHANNELS) \
+                .astype(np.int32)
+            if self._first_hit:
+                self._first_frame_setup(frames, adcs[0])
+            hits = self._run_backend(adcs)
+        self.metrics.inc("num_hits", len(hits))
+        self.process_swtpg_hits(hits, timestamp)
+
+    def _run_kernel(self, ingest, feed: torch.Tensor, T: int,
+                    even_tc: bool = False):
+        """One batch through ``ingest`` (an ``ops.ingest`` entry) with the
+        carried device state, then hit collection.  The state stays a
+        (KSTATE, C) tensor on self.device between batches."""
+        C = self.N_CHANNELS
+        if self._dev_state is None:
+            self._dev_state = pack_state(self._state, C, device=self.device)
+        tc = auto_tc(T, cap=kernel_knobs(self.tpg_cfg)["tc"])
+        # the time2 datapath consumes two ticks per word: tc must be even
+        # (T is even — 64 ticks/frame, 12/superchunk)
+        if even_tc and tc % 2:
+            tc = next((d for d in range(tc, 1, -1)
+                       if T % d == 0 and d % 2 == 0), T)
+        slots, nclose, self._dev_state = ingest(
+            feed, self._dev_state, self.tpg_cfg, C, tc=tc,
+            k_slots=self.k_slots)
+        hits, dropped = collect_hits(slots, nclose, C,
+                                     max_hits=self._max_hits,
+                                     device=self._device_compact)
+        if dropped:
+            self.metrics.inc("num_hits_dropped", dropped)
+        # the carried state lives on the device; current_state() unpacks
+        # it on demand (no device->host sync per batch)
+        self._state_stale = True
+        return hits
+
+    def _device_words(self, words: np.ndarray) -> torch.Tensor:
+        """Packed uint32 words -> the same bits as an int32 tensor on
+        self.device (one host->device copy)."""
+        return torch.from_numpy(
+            np.ascontiguousarray(words).view(np.int32)).to(self.device)
+
+    def _run_pallas_packed(self, words: np.ndarray):
+        """Packed device ingest for one link: (N, 64, 28) packed words."""
+        T = words.shape[0] * wibeth.N_TIME_SAMPLES
+        return self._run_kernel(
+            process_packed_frames,
+            self._device_words(words.reshape(1, T, 28)), T)
+
+    def _host_time2(self, words: np.ndarray) -> np.ndarray:
+        """The time2 feed's host codec: (1, T, nw) packed words -> (T/2,
+        ceil(C/128), 128) int32 (native.relayout_time2 with ch_per_link =
+        N_CHANNELS — WIBEth nw=28, WIB2 nw=112 — and unpadded rows)."""
+        C = self.N_CHANNELS
+        L, T, _ = words.shape
+        return native.relayout_time2(
+            words, ch_per_link=C, pad8=False,
+            out=self._t2_buf.get(native.time2_feed_shape(
+                L, T, ch_per_link=C, pad8=False)))
+
+    def _run_pallas_time2(self, words: np.ndarray):
+        """Time2 host feed for one link: the host pays the 14-bit unpack +
+        time pairing (:meth:`_host_time2`), the device runs the time2
+        datapath."""
+        feed = torch.from_numpy(self._host_time2(words)).to(self.device)
+        return self._run_kernel(process_time2_feed, feed, words.shape[1],
+                                even_tc=True)
+
+    def current_state(self):
+        """The live ChanState dict, materializing the device-resident state
+        lazily (any inspection path must use this, not ._state, after
+        kernel-path batches)."""
+        if self._state_stale and self._dev_state is not None:
+            self._state.update(unpack_state(self._dev_state))
+            self._state_stale = False
+        return self._state
+
+    def _run_backend(self, adcs: np.ndarray):
+        """The numpy oracle backend (tpg_backend="reference")."""
+        hits, self._state = process_window_reference(adcs, self._state,
+                                                     self.tpg_cfg)
+        return hits
 
     # ------------------------------------------------------- TP assembly
     def process_swtpg_hits(self, hits: np.ndarray, timestamp: int) -> None:

@@ -17,6 +17,7 @@ KNOBS = {
     Algorithm.SIMPLE_THRESHOLD: {"tc": 512},
     Algorithm.ABS_RS: {"tc": 256},
     Algorithm.STANDARD_RS: {"tc": 512},
+    Algorithm.FIR: {"tc": 256},
 }
 
 

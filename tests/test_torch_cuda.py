@@ -1,11 +1,14 @@
-"""The hand-written CUDA kernel against its plain version on the card, and
-the APA app on the card against the same app on the CPU.  Marked ``cuda``:
+"""The hand-written CUDA kernel against its plain version on the card (K1,
+K2 and K3: both datapaths, all four families), and the APA app and the WIB2
+processors on the card against the same on the CPU.  Marked ``cuda``:
 each test skips where torch finds no card.  This file imports no JAX, so on
 the machine with the card (which has none) run it without the suite's
 conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,7 +18,10 @@ from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
 from fdreadoutlibs_tpu.ops.config import Algorithm, TPGConfig
 from fdreadoutlibs_tpu_torch.apps.apa_readout import APAReadoutApp, make_batch
 from fdreadoutlibs_tpu_torch.ops import tpg
-from fdreadoutlibs_tpu_torch.testing import time2_words, tpg_stream
+from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor
+from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
+from fdreadoutlibs_tpu_torch.testing import fir_stream, time2_words, \
+    tpg_stream, wib2_superchunks
 
 pytestmark = pytest.mark.cuda
 
@@ -26,6 +32,14 @@ CONFIGS = [
     TPGConfig.from_raw("AbsRS", threshold=150),
     TPGConfig(algorithm=Algorithm.STANDARD_RS, threshold=150),
 ]
+_FIR = TPGConfig.from_raw("FIR", threshold=5)
+FIR_CONFIGS = [
+    dataclasses.replace(_FIR, track_peaks=False),
+    dataclasses.replace(_FIR, peak_gated=True),
+    dataclasses.replace(_FIR, fir_avx_semantics=False),
+    dataclasses.replace(_FIR, threshold=1000, track_peaks=False,
+                        taps=(3, -2, 9, 27, 9, -2, 3, 0)),
+]
 
 
 @pytest.fixture
@@ -35,25 +49,59 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("cfg", CONFIGS,
+@pytest.mark.parametrize("time_packed", [True, False],
+                         ids=["time2", "plain"])
+@pytest.mark.parametrize("cfg", CONFIGS + FIR_CONFIGS,
                          ids=["Simple", "Simple-gated-neg", "AbsRS",
-                              "StandardRS"])
-@pytest.mark.parametrize("C,stride", [(2560, 2560), (200, 256)])
-def test_kernel_matches_plain(card, cfg, C, stride):
-    T, tc, k = 1024, 256, 4
-    adcs, rmf = tpg_stream(T, C, tc, k, seed=C)
-    words = np.zeros((T // 2, stride), np.int32)
-    words[:, :C] = time2_words(adcs)
+                              "StandardRS", "FIR", "FIR-peaks-gated",
+                              "FIR-naive", "FIR-taps-wrapped-threshold"])
+@pytest.mark.parametrize("C,stride,T,tc", [(2560, 2560, 1024, 256),
+                                           (200, 256, 1000, 200)])
+def test_kernel_matches_plain(card, cfg, C, stride, T, tc, time_packed):
+    """tc=200 leaves an 8-tick tail group in every chunk (the FIR ring's
+    realignment); stride > C reads a padded feed."""
+    k = 4
+    if cfg.algorithm == Algorithm.FIR:
+        adcs, rmf = fir_stream(T, C, tc, k, seed=C), 0
+    else:
+        adcs, rmf = tpg_stream(T, C, tc, k, seed=C)
+    rows = time2_words(adcs) if time_packed else adcs
+    words = np.zeros((rows.shape[0], stride), np.int32)
+    words[:, :C] = rows
     feed = torch.from_numpy(words).to(card)
     state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], rmf),
                            C, device=card)
-    before = tpg.process_window.launches
-    got = tpg.process_window(feed, state, cfg, tc=tc, k_slots=k)
-    assert tpg.process_window.launches == before + 1
-    want = tpg.process_window_plain(feed, state, cfg, tc, k)
+    before = dict(tpg.process_window.kernel_launches)
+    got = tpg.process_window(feed, state, cfg, tc=tc, k_slots=k,
+                             time_packed=time_packed)
+    for name in tpg.kernels_of(cfg, time_packed):
+        assert tpg.process_window.kernel_launches[name] == before[name] + 1
+    want = tpg.process_window_plain(feed, state, cfg, tc, k, time_packed)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[1].max()) > k                  # drops exercised
+
+
+@pytest.mark.parametrize("time_packed", [True, False],
+                         ids=["time2", "plain"])
+@pytest.mark.parametrize("tc", [6, 12, 40])
+def test_kernel_short_chunks_match_plain(card, tc, time_packed):
+    """Chunks shorter than one 16-tick group (a WIB2 batch of one
+    superchunk is 12 ticks) or with a ragged tail: the FIR ring is
+    realigned after every chunk."""
+    C, T = 300, 240
+    adcs = fir_stream(T, C, 120, 1, seed=tc)
+    cfg = dataclasses.replace(_FIR, track_peaks=False)
+    feed = torch.from_numpy(time2_words(adcs) if time_packed
+                            else adcs).to(card)
+    state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], 0), C,
+                           device=card)
+    got = tpg.process_window(feed, state, cfg, tc=tc, k_slots=1,
+                             time_packed=time_packed)
+    want = tpg.process_window_plain(feed, state, cfg, tc, 1, time_packed)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0][:, :, -1] != 0).sum()) > 0
 
 
 def test_app_on_card_matches_cpu(card):
@@ -80,3 +128,34 @@ def test_app_on_card_matches_cpu(card):
         np.testing.assert_array_equal(ha, hb)
         assert da == db
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+
+
+def test_wib2_processors_on_card_match_cpu(card):
+    """Two WIB2 links, FIR, packed and time2 ingest, three batches with the
+    state carried on the device: the TPs and counters equal the same
+    processors' on the CPU (the plain version)."""
+    batches = [wib2_superchunks(2, 16, seed=b, ts0=0x1000000 + b * 16 * 384)[0]
+               for b in range(3)]
+    for time2 in (False, True):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            tps, counts = [], []
+            for link in range(2):
+                sink = QueueSender()
+                p = WIB2FrameProcessor(tp_sink=sink, device=dev)
+                p.conf({"crate_id": 1, "slot_id": 0, "link_id": link,
+                        "enable_tpg": True, "tpg_algorithm": "FIR",
+                        "tpg_threshold": 5, "tp_timeout": 100_000,
+                        "tpg_time2_feed": time2})
+                p.start()
+                for sc in batches:
+                    p.process(sc[link].copy())
+                tps.append(np.concatenate(sink.drain()))
+                counts.append({k: p.metrics.count(k) for k in (
+                    "num_hits", "num_hits_dropped", "num_tps_sent",
+                    "num_ts_errors")})
+            out[dev] = (tps, counts)
+        for a, b in zip(out["cuda"][0], out["cpu"][0]):
+            assert len(a) > 0
+            np.testing.assert_array_equal(a, b)
+        assert out["cuda"][1] == out["cpu"][1]

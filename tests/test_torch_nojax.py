@@ -33,6 +33,20 @@ for b in range(2):
     app.process_batch(make_batch(rng, 2, 2, b, 0x1000000 + 4096 * b)[0])
 info = app.get_info()
 assert info["total_hits"] > 0 and info["ts_errors"] == 0, info
+
+from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor
+from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
+from fdreadoutlibs_tpu_torch.testing import wib2_superchunks
+sc, _ = wib2_superchunks(1, 8, seed=2)
+for time2 in (False, True):
+    sink = QueueSender()
+    proc = WIB2FrameProcessor(tp_sink=sink, device="cpu")
+    proc.conf({"crate_id": 1, "slot_id": 0, "link_id": 0, "enable_tpg": True,
+               "tpg_algorithm": "FIR", "tpg_threshold": 5,
+               "tpg_time2_feed": time2})
+    proc.start()
+    proc.process(sc[0].copy())
+    assert proc.metrics.count("num_tps_sent") > 0
 assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")]
 
 if not torch.cuda.is_available():
@@ -44,10 +58,17 @@ if not torch.cuda.is_available():
         pass
     else:
         raise AssertionError("device='cuda' without a card did not raise")
+    try:
+        WIB2FrameProcessor(device="cuda")
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("a processor on 'cuda' without a card did not "
+                             "raise")
     feed = torch.zeros((32, 64), dtype=torch.int32)
     state = torch.zeros((tpg.KSTATE, 64), dtype=torch.int32)
     try:      # the kernel route never takes CPU tensors
-        tpg.launch_time2_kernel(feed, state, TPGConfig(), 64, 2)
+        tpg.launch_kernel(feed, state, TPGConfig(), 64, 2)
     except ValueError:
         pass
     else:

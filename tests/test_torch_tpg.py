@@ -97,8 +97,8 @@ def test_plain_matches_reference(cfg):
 
 
 def test_plain_unpacked_datapath_matches_reference():
-    """time_packed=False (one sample per row) on the CPU agrees with the
-    oracle too; its CUDA kernel is K2, not ported."""
+    """time_packed=False (one sample per row, the datapath of K2) on the
+    CPU agrees with the oracle too."""
     cfg = CONFIGS[1]
     adcs, rmf = tpg_stream(128, 64, 64, 2, seed=9)
     st = _seed(adcs, rmf)
@@ -139,15 +139,17 @@ def test_constants_match_jax():
             assert tpg.auto_tc(T_, cap) == jtpg.auto_tc(T_, cap)
 
 
-@pytest.mark.parametrize("cfg", [TPGConfig(algorithm=Algorithm.FIR),
-                                 TPGConfig(algorithm=Algorithm.ABS_RS,
-                                           rs_float=True)],
-                         ids=["FIR", "rs_float"])
-def test_unported_configs_refused(cfg):
+@pytest.mark.parametrize("cfg,state_dtype", [
+    (TPGConfig(algorithm=Algorithm.ABS_RS), torch.int16),
+    (TPGConfig(algorithm=Algorithm.ABS_RS, rs_float=True), torch.int32)],
+    ids=["int16-state", "rs_float"])
+def test_unported_configs_refused(cfg, state_dtype):
+    """The native int16 state mode (K2b) and the float RS are refused, on
+    the CPU as on the card."""
     feed = torch.zeros((32, 64), dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         tpg.process_window(feed, torch.zeros((tpg.KSTATE, 64),
-                                             dtype=torch.int32),
+                                             dtype=state_dtype),
                            cfg, tc=64, k_slots=2)
 
 
