@@ -14,13 +14,21 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    datapath) and K2 (plain-sample datapath) for SimpleThreshold, AbsRS and
    StandardRS, K3 (FIR, threshold 5) on both datapaths with and without
    peak tracking.  Slots, nclose and state must be bit-equal and some
-   chunk must close more than K hits (drops exercised); both are timed;
+   chunk must close more than K hits (drops exercised); both are timed.
+   K4 (the in-kernel 14-bit unpack) takes the same ADCs packed as frame
+   words (L, T, 28) and as words14 rows (T, WR, 7, 128) for the four
+   families: the torch unpack of each must give back the ADCs, so K4's
+   plain version is the plain result of K2 (K3 for FIR) on them, and K4's
+   slots, nclose and state must equal it bit for bit;
 4. apa slice — the production APA app (40 WIBEth links, AbsRS,
-   threshold-on-collection, time2 feed): one warm-up batch of 128 frames
-   per link (timed apart, as set-up), then a steady window of 32 batches
-   for the end-to-end RTF and ``latency_info``; K1 must have launched once
-   per batch, and the first 2 batches' hits must equal the kernel's plain
-   version plus the same compaction run on the same ADCs;
+   threshold-on-collection) on each of its four feeds: time2 (host codec,
+   K1), fused (frame words, K4), words14 (host relayout, K4) and packed
+   (device unpack, K2).  Per feed: one warm-up batch of 128 frames per link
+   (timed apart, as set-up), a steady window of 16 batches for the
+   end-to-end RTF and ``latency_info``, the feed's kernel launched once per
+   batch, the first 2 batches' hits equal to one shared plain result (the
+   kernel's plain version plus the same compaction on the same ADCs), and
+   a per-stage split of one batch;
 5. wib2 slice — 10 WIB2 links (2560 channels) through 10 per-link
    ``WIB2FrameProcessor``s, FIR threshold 5, batches of 512 superchunks
    per link (T = 6144 ticks = 3.146 ms), once with the packed ingest (device
@@ -49,15 +57,17 @@ import numpy as np
 import torch
 
 from fdreadoutlibs_tpu_torch.apps.apa_readout import APAReadoutApp, make_batch
-from fdreadoutlibs_tpu_torch.formats import wib2
+from fdreadoutlibs_tpu_torch.formats import wib2, wibeth
 from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, _build,
-                                         init_chanstate, seed_chanstate, tpg)
+                                         ingest, init_chanstate,
+                                         seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.ingest import (compact_on_device,
                                                 unpack_compact)
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor
 from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
-from fdreadoutlibs_tpu_torch.testing import (fir_stream, time2_words,
-                                             tpg_stream, wib2_superchunks)
+from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
+                                             time2_words, tpg_stream,
+                                             wib2_superchunks)
 from fdreadoutlibs_tpu_torch.utils.tuning import kernel_knobs
 
 N_LINKS = 40                 # one APA
@@ -65,8 +75,13 @@ C_APA = N_LINKS * 64         # 2560 channels
 T_APA = 8192                 # ticks per APA batch (128 frames)
 TC, K = 256, 4
 FRAMES = 128
-N_WARM, N_TIMED, N_CHECKED = 1, 32, 2
+N_WARM, N_TIMED, N_CHECKED = 1, 16, 2
 SEED = 20260
+# the APA app's feeds: constructor flags and the kernel each launches
+APP_FEEDS = {"time2": ({"time2_feed": True}, "K1"),
+             "fused": ({"fused_unpack": True}, "K4"),
+             "words14": ({"words14_feed": True}, "K4"),
+             "packed": ({}, "K2")}
 
 WIB2_LINKS = 10              # 10 x 256 = 2560 channels
 WIB2_SC = 512                # superchunks per link per batch
@@ -76,7 +91,8 @@ WIB2_TIMED = 8
 
 REPLACES = {"K1": "fdreadoutlibs_tpu/ops/pallas_tpg.py:439",
             "K2": "fdreadoutlibs_tpu/ops/pallas_tpg.py:399",
-            "K3": "fdreadoutlibs_tpu/ops/pallas_tpg.py:464"}
+            "K3": "fdreadoutlibs_tpu/ops/pallas_tpg.py:464",
+            "K4": "fdreadoutlibs_tpu/ops/pallas_tpg.py:241"}
 SOURCE = "fdreadoutlibs_tpu_torch/csrc/tpg.cu"
 
 
@@ -170,6 +186,28 @@ def plain_processor_hits(adcs_batches, procs, time2: bool, dev):
             max(2048, 2 * C))) for l in range(L)]
 
 
+def check_equal(label: str, got, want) -> int:
+    """Max |difference| of (slots, nclose, state); raises unless 0."""
+    err = 0
+    for g, w, what in zip(got, want, ("slots", "nclose", "state")):
+        d = int((g.long() - w.long()).abs().max())
+        err = max(err, d)
+        if d:
+            raise AssertionError(f"{label}: kernel {what} differs from "
+                                 f"the plain version (max |d| {d})")
+    return err
+
+
+def check_strong(label: str, got) -> str:
+    """Raise unless the window closed hits and overflowed K somewhere."""
+    n_hits = int((got[0][:, :, -1] != 0).sum())
+    n_over = int(got[1].max())
+    if n_hits == 0 or n_over <= K:
+        raise AssertionError(f"{label}: weak check ({n_hits} hits, max "
+                             f"closes per chunk {n_over})")
+    return f"{n_hits} hits, max {n_over} closes/chunk"
+
+
 def kernel_vs_plain(dev):
     """Phase 3.  Returns {kernel: {"max_abs_err", "ms", "plain_ms",
     "timed"}} for the variant reported per kernel."""
@@ -184,11 +222,21 @@ def kernel_vs_plain(dev):
          ("K3", "FIR time2 peaks", replace(fir, track_peaks=True), True),
          ("K3", "FIR plain", fir, False),
          ("K3", "FIR plain peaks", replace(fir, track_peaks=True), False)]
-    reported = {"K1": "AbsRS time2", "K2": "AbsRS plain", "K3": "FIR plain"}
+    reported = {"K1": "AbsRS time2", "K2": "AbsRS plain", "K3": "FIR plain",
+                "K4": "AbsRS frames"}
     adcs, rmf = tpg_stream(T_APA, C_APA, TC, K, SEED)
     fadcs = fir_stream(T_APA, C_APA, TC, K, SEED)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     out = {}
+    plain = {}      # plain-datapath label -> (adcs, cfg, state, result)
+
+    def record(kern, label, err, ms, plain_ms):
+        prev = out.get(kern, {"max_abs_err": 0})
+        entry = {"max_abs_err": max(prev["max_abs_err"], err)}
+        if label == reported[kern]:
+            entry.update(ms=ms, plain_ms=plain_ms, timed=label)
+        out[kern] = {**prev, **entry}
+
     for kern, label, cfg, time2 in cases:
         a = fadcs if cfg.algorithm == Algorithm.FIR else adcs
         state = tpg.pack_state(seed_chanstate(init_chanstate(C_APA), a[0],
@@ -203,33 +251,102 @@ def kernel_vs_plain(dev):
         want = tpg.process_window_plain(feed, state, cfg, TC, K, time2)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        err = 0
-        for g, w, what in zip(got, want, ("slots", "nclose", "state")):
-            d = int((g.long() - w.long()).abs().max())
-            err = max(err, d)
-            if d:
-                raise AssertionError(f"{label}: kernel {what} differs from "
-                                     f"the plain version (max |d| {d})")
-        n_hits = int((got[0][:, :, -1] != 0).sum())
-        n_over = int(got[1].max())
-        if n_hits == 0 or n_over <= K:
-            raise AssertionError(f"{label}: weak check ({n_hits} hits, max "
-                                 f"closes per chunk {n_over})")
+        err = check_equal(label, got, want)
+        what = check_strong(label, got)
+        if not time2 and "peaks" not in label:
+            plain[label] = (a, cfg, state, want)
         ms = time_kernel(run, 20, flush)
-        print(f"  {kern} {label}: T={T_APA} x {C_APA} ch bit-equal "
-              f"({n_hits} hits, max {n_over} closes/chunk); kernel "
-              f"{ms:.4f} ms/batch, plain {plain_ms:.1f} ms/batch",
+        print(f"  {kern} {label}: T={T_APA} x {C_APA} ch bit-equal ({what}); "
+              f"kernel {ms:.4f} ms/batch, plain {plain_ms:.1f} ms/batch",
               flush=True)
-        prev = out.get(kern, {"max_abs_err": 0})
-        entry = {"max_abs_err": max(prev["max_abs_err"], err)}
-        if label == reported[kern]:
-            entry.update(ms=ms, plain_ms=plain_ms, timed=label)
-        out[kern] = {**prev, **entry}
+        record(kern, label, err, ms, plain_ms)
+
+    # K4: the same ADCs as packed words.  Its plain version is the torch
+    # unpack and then K2's (K3's) plain loop: the unpack is checked equal to
+    # the ADCs, so the plain result above is K4's; the reported case runs
+    # the whole plain version again for its time.
+    for fam, src in (("SimpleThreshold", "SimpleThreshold plain"),
+                     ("AbsRS", "AbsRS plain"),
+                     ("StandardRS", "StandardRS plain"), ("FIR", "FIR plain")):
+        a, cfg, state, want = plain[src]
+        frames = torch.from_numpy(frame_words(a).view(np.int32)).to(dev)
+        a_dev = torch.from_numpy(a).to(dev)
+        for layout, feed in (("frames", frames),
+                             ("words14", ingest.pack_words14(frames))):
+            label = f"{fam} {layout}"
+            if not torch.equal(tpg.unpack_packed14(feed, layout, C_APA),
+                               a_dev):
+                raise AssertionError(f"{label}: the torch unpack does not "
+                                     "give back the ADCs")
+
+            def run(feed=feed, state=state, cfg=cfg, layout=layout):
+                return tpg.launch_kernel(feed, state, cfg, TC, K, False,
+                                         layout)
+            got = run()
+            torch.cuda.synchronize()
+            plain_ms = None
+            if label == reported["K4"]:
+                t0 = time.perf_counter()
+                want = tpg.process_window_plain(feed, state, cfg, TC, K,
+                                                False, layout)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            err = check_equal(label, got, want)
+            what = check_strong(label, got)
+            ms = time_kernel(run, 20, flush)
+            print(f"  K4 {label} ({tuple(feed.shape)} int32): bit-equal "
+                  f"({what}); kernel {ms:.4f} ms/batch"
+                  + (f", plain {plain_ms:.1f} ms/batch" if plain_ms else ""),
+                  flush=True)
+            record("K4", label, err, ms, plain_ms)
     return out
 
 
-def apa_slice(dev) -> int:
-    """Phase 4.  Returns K1's launches in the app's run."""
+def clock(fn):
+    """(fn(), ms) with the device synced at the end."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def apa_stage_split(app, frames, feed: str, n_rep: int = 5):
+    """One batch through the app's device seam one step at a time, each
+    ended by a device sync: median ms per stage.  The app's carried state
+    is left untouched."""
+    L, N, _ = frames.shape
+    T, C = N * wibeth.N_TIME_SAMPLES, L * wibeth.N_CHANNELS
+    tc = tpg.auto_tc(T, cap=kernel_knobs(app.cfg)["tc"])
+    reps = []
+    for _ in range(n_rep):
+        r = {}
+        words, r["words copy"] = clock(lambda: wibeth.frames_bytes_to_u32(
+            frames.reshape(-1, wibeth.FRAME_SIZE)).reshape(L, T, 28))
+        # the app's own host stage (a view for the fused and packed feeds)
+        (host, _), r["codec"] = clock(lambda: app._host_feed(words))
+        dev_in, r["H2D"] = clock(lambda: torch.from_numpy(host).to(
+            app.device))
+        if feed == "time2":
+            kw = dict(feed=dev_in.reshape(T // 2, -1), time_packed=True)
+        elif feed == "packed":
+            kw = dict(time_packed=False)
+            kw["feed"], r["device unpack"] = clock(
+                lambda: wibeth.unpack_frames(dev_in.transpose(0, 1))
+                .reshape(T, C))
+        else:
+            kw = dict(feed=dev_in, time_packed=False,
+                      packed14="frames" if feed == "fused" else "words14")
+        (slots, nclose, _), r["kernel"] = clock(lambda: tpg.process_window(
+            state=app._state, cfg=app.cfg, tc=tc, k_slots=app.k_slots, **kw))
+        packed, r["compaction"] = clock(lambda: compact_on_device(
+            slots, nclose, 0, C, max(2048, 2 * C)))
+        _, r["fetch"] = clock(lambda: unpack_compact(packed))
+        reps.append(r)
+    return {k: statistics.median(r[k] for r in reps) for k in reps[0]}
+
+
+def apa_slice(dev) -> dict:
+    """Phase 4.  Returns each feed's kernel launches in its app run."""
     rng = np.random.default_rng(SEED)
     ts, batches, checked_adcs = 0x1000000, [], []
     for b in range(N_WARM + N_TIMED):
@@ -240,57 +357,80 @@ def apa_slice(dev) -> int:
                 (adcs_b & 0x3FFF).transpose(1, 2, 0, 3)
                 .reshape(FRAMES * 64, C_APA).astype(np.int32))
         ts += FRAMES * 2048
-    app = APAReadoutApp(n_links=N_LINKS, algorithm="AbsRS", threshold=150,
-                        threshold_on_collection=True, time2_feed=True,
-                        device="cuda")
-    fetched = []
-    fetch = app._fetch_hits
-
-    def recording_fetch(packed):
-        out = fetch(packed)
-        fetched.append(out)
-        return out
-
-    app._fetch_hits = recording_fetch
-    tpg.reset_launches()
-    t0 = time.perf_counter()
-    for frames in batches[:N_WARM]:
-        app.process_batch(frames)
-    warm_s = time.perf_counter() - t0
-    app.batch_timings.clear()         # latency_info: steady batches only
-    t0 = time.perf_counter()
-    for frames in batches[N_WARM:]:
-        app.process_batch(frames)
-    app.flush()
-    wall = time.perf_counter() - t0
-    launches = dict(tpg.process_window.kernel_launches)
-    info = app.get_info()
     data_seconds = N_TIMED * FRAMES * 64 * 32 / 62.5e6
-    print(f"  warm-up: {N_WARM} batch in {warm_s:.4f} s (set-up, not in "
-          f"the RTF)")
-    print(f"  steady: wall {wall:.4f} s for {N_TIMED} batches, data "
-          f"{data_seconds:.6f} s, end_to_end_rtf {data_seconds / wall:.4f}")
-    print("  info:", json.dumps({k: info[k] for k in (
-        "total_hits", "total_tps_sent", "ts_errors", "hits_dropped",
-        "tpsets_queued", "raw_buffered")}))
-    print("  latency_info:", json.dumps(
-        app.latency_info(frames_per_batch=FRAMES)))
-    if launches != {"K1": N_WARM + N_TIMED, "K2": 0, "K3": 0}:
-        raise AssertionError(f"launches {launches} for {N_WARM + N_TIMED} "
-                             "batches")
-    if not (info["total_hits"] > 0 and info["ts_errors"] == 0
-            and info["tpsets_queued"] > 0):
-        raise AssertionError(f"slice output wrong: {info}")
-    rmf = np.concatenate([p.register_memory_factor for p in app.procs])
-    for b, (want, d_want) in enumerate(plain_app_hits(
-            checked_adcs, rmf, app.cfg, app.k_slots, dev)):
-        hits, d = fetched[b]
-        if d != d_want or not np.array_equal(hits, want):
-            raise AssertionError(
-                f"batch {b}: app hits ({len(hits)}, dropped {d}) differ "
-                f"from the plain version ({len(want)}, dropped {d_want})")
-        print(f"  batch {b}: {len(hits)} hits, {d} dropped == plain")
-    return launches["K1"]
+    plain = None
+    launches_of, summary = {}, {}
+    for feed, (flags, kern) in APP_FEEDS.items():
+        app = APAReadoutApp(n_links=N_LINKS, algorithm="AbsRS", threshold=150,
+                            threshold_on_collection=True, device=dev,
+                            **flags)
+        fetched = []
+        fetch = app._fetch_hits
+
+        def recording_fetch(packed, fetch=fetch, fetched=fetched):
+            out = fetch(packed)
+            fetched.append(out)
+            return out
+
+        app._fetch_hits = recording_fetch
+        tpg.reset_launches()
+        t0 = time.perf_counter()
+        for frames in batches[:N_WARM]:
+            app.process_batch(frames)
+        warm_s = time.perf_counter() - t0
+        app.batch_timings.clear()     # latency_info: steady batches only
+        t0 = time.perf_counter()
+        for frames in batches[N_WARM:]:
+            app.process_batch(frames)
+        app.flush()
+        wall = time.perf_counter() - t0
+        launches = dict(tpg.process_window.kernel_launches)
+        info = app.get_info()
+        lat = app.latency_info(frames_per_batch=FRAMES)
+        rtf = data_seconds / wall
+        print(f"  {feed} feed: warm-up {N_WARM} batch in {warm_s:.4f} s "
+              f"(set-up, not in the RTF); steady wall {wall:.4f} s for "
+              f"{N_TIMED} batches, data {data_seconds:.6f} s, "
+              f"end_to_end_rtf {rtf:.4f}")
+        print(f"  {feed} feed info:", json.dumps({k: info[k] for k in (
+            "total_hits", "total_tps_sent", "ts_errors", "hits_dropped",
+            "tpsets_queued", "raw_buffered")}), "launches",
+            json.dumps(launches))
+        print(f"  {feed} feed latency_info:", json.dumps(lat))
+        want = {k: 0 for k in launches}
+        want[kern] = N_WARM + N_TIMED
+        if launches != want:
+            raise AssertionError(f"{feed} feed: launches {launches}, want "
+                                 f"{want}")
+        if not (info["total_hits"] > 0 and info["ts_errors"] == 0
+                and info["tpsets_queued"] > 0):
+            raise AssertionError(f"{feed} feed: slice output wrong: {info}")
+        if plain is None:
+            # one plain result for every feed: the same frames give the
+            # same function
+            rmf = np.concatenate([p.register_memory_factor
+                                  for p in app.procs])
+            plain = list(plain_app_hits(checked_adcs, rmf, app.cfg,
+                                        app.k_slots, dev))
+        for b, (want_h, d_want) in enumerate(plain):
+            hits, d = fetched[b]
+            if d != d_want or not np.array_equal(hits, want_h):
+                raise AssertionError(
+                    f"{feed} feed batch {b}: app hits ({len(hits)}, dropped "
+                    f"{d}) differ from the plain version ({len(want_h)}, "
+                    f"dropped {d_want})")
+            print(f"  {feed} feed batch {b}: {len(hits)} hits, {d} dropped "
+                  "== plain")
+        split = apa_stage_split(app, batches[-1], feed)
+        print(f"  {feed} feed stage split, one batch, ms (medians of 5, each "
+              "stage synced):",
+              json.dumps({k: round(v, 4) for k, v in split.items()}))
+        launches_of[feed] = launches[kern]
+        summary[feed] = {"end_to_end_rtf": round(rtf, 4),
+                         "proc_ms_p50": lat["proc_ms_p50"],
+                         "proc_ms_p95": lat["proc_ms_p95"]}
+    print("  apa feeds:", json.dumps(summary))
+    return launches_of
 
 
 def make_wib2_procs(time2: bool, dev):
@@ -312,12 +452,6 @@ def wib2_stage_split(procs, superchunks, time2: bool, n_rep: int = 5):
     """One batch of every link through the processor's steps one at a
     time, each ended by a device sync: median ms per stage, summed over
     the links.  The processors' carried state is left untouched."""
-    def clock(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     stages = {}
     for l, p in enumerate(procs):
         C = p.N_CHANNELS
@@ -384,7 +518,7 @@ def wib2_slice(time2: bool, batches, checked, dev):
     wall_all = time.perf_counter() - t_all
     n_b = len(batches)
     want = {"K1": 0, "K2": 0 if time2 else n_b * WIB2_LINKS,
-            "K3": n_b * WIB2_LINKS}
+            "K3": n_b * WIB2_LINKS, "K4": 0}
     data_s = WIB2_TIMED * WIB2_T * WIB2_TICK_S
     steady = batch_ms[1:]
     print(f"  {mode}: warm-up batch {batch_ms[0]:.3f} ms (set-up, not in the "
@@ -453,7 +587,10 @@ def main() -> int:
         kernels = kernel_vs_plain(dev)
 
     with phase("4 apa slice"):
-        kernels["K1"]["launches"] = apa_slice(dev)
+        app_launches = apa_slice(dev)
+        kernels["K1"]["launches"] = app_launches["time2"]
+        kernels["K4"]["launches"] = (app_launches["fused"]
+                                     + app_launches["words14"])
 
     with phase("5 wib2 slice"):
         t0 = time.perf_counter()
@@ -469,7 +606,7 @@ def main() -> int:
               f"superchunks in {time.perf_counter() - t0:.3f} s")
         packed = wib2_slice(False, batches, checked, dev)
         time2 = wib2_slice(True, batches, checked, dev)
-        kernels["K2"]["launches"] = packed["K2"]
+        kernels["K2"]["launches"] = packed["K2"] + app_launches["packed"]
         kernels["K3"]["launches"] = packed["K3"] + time2["K3"]
 
     print(smi)
@@ -479,7 +616,7 @@ def main() -> int:
          "launches": kernels[k]["launches"],
          "max_abs_err": kernels[k]["max_abs_err"],
          "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"]}
-        for k in ("K1", "K2", "K3")]}))
+        for k in ("K1", "K2", "K3", "K4")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

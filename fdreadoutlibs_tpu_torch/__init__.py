@@ -13,7 +13,10 @@ feed through the hand-written Hopper TPG kernel (``csrc/tpg.cu``, wrapped by
 ``ops.tpg.process_window``), on-device compaction, and the host TP tail
 (``apps.apa_readout.APAReadoutApp``).  Slice 2 ports the per-link frame
 processors (``stream.WIBEthFrameProcessor``, ``stream.WIB2FrameProcessor``)
-with the packed device ingest and the FIR family on the same kernel.
+with the packed device ingest and the FIR family on the same kernel.  Slice 3
+adds the in-kernel 14-bit unpack, the APA app's packed-word feeds
+(``fused_unpack``, ``words14_feed``, the plain packed feed) and
+``ops.ingest.StreamingIngest``.
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,22 @@
 """Full-APA readout application on PyTorch/CUDA.
 
-Port of ``fdreadoutlibs_tpu/apps/apa_readout.py`` on its production
-configuration, the time2 feed.  Every host stage is the JAX package's code
-(imported where jax-free, copied otherwise); only the device seam differs:
+Port of ``fdreadoutlibs_tpu/apps/apa_readout.py`` with its four feeds.
+Every host stage is the JAX package's code (imported where jax-free,
+copied otherwise); only the device seam differs:
 
   emulated WIBEth sources (40 links)
     -> per-link preprocess (sequence/timestamp checks, vectorized)
     -> raw payloads into per-link readout buffers (zero-copy retention)
-    -> host codec native.relayout_time2(pad8=False): 14-bit unpack + time
-       pairing, (T/2, ceil(C/128), 128) int32
+    -> the feed, by flag:
+       time2_feed: host codec native.relayout_time2(pad8=False), 14-bit
+         unpack + time pairing, (T/2, ceil(C/128), 128) int32 -> K1;
+       fused_unpack: the (L, T, 28) packed frame words as they are -> K4
+         (the kernel unpacks in-register);
+       words14_feed: host relayout native.relayout_words14 to
+         (T, WR, 7, 128) int32 -> K4;
+       default: the packed frame words, unpacked on the device -> K2
     -> ONE H2D copy, the hand-written CUDA TPG kernel over all links'
-       channels (ops/ingest.process_time2_feed), on-device compaction
+       channels (ops/ingest), on-device compaction
     -> ONE device->host fetch of the compact hit list
     -> ONE vectorized TP assembly over the whole APA batch
     -> TP latency buffer (native C++ when available)
@@ -20,13 +26,11 @@ configuration, the time2 feed.  Every host stage is the JAX package's code
 card; ``device="cpu"`` runs the kernel's plain version (the CPU tests).
 Nothing falls back from one to the other.
 
-Not ported yet: the app's packed-frames feed (its kernel, K2, is ported
-and runs the per-link processors' packed ingest), the fused in-kernel
-unpack feeds (K4: ``fused_unpack``/``words14_feed``) and Fragment
-recording (``record_fragment``).
+Not ported yet: Fragment recording (``record_fragment``).
 
 Run:  python -m fdreadoutlibs_tpu_torch.apps.apa_readout --time2-feed \\
           --algorithm AbsRS --threshold-on-collection --frames-per-batch 128
+      (or --fused-unpack, --words14-feed, or neither for the packed feed)
 """
 
 from __future__ import annotations
@@ -46,8 +50,9 @@ from fdreadoutlibs_tpu.utils.metrics import MetricsCollector
 from ..formats import wibeth
 from ..formats.adapters import get_adapter
 from ..formats.trigprim import TP_DTYPE
-from ..ops.ingest import (compact_on_device, process_time2_feed,
-                          unpack_compact)
+from ..ops.ingest import (compact_on_device, process_packed_frames,
+                          process_packed_frames_fused, process_time2_feed,
+                          process_words14_feed, unpack_compact)
 from ..ops.tpg import auto_tc, pack_state
 from ..stream.transport import QueueSender
 from ..stream.wibeth import WIBEthFrameProcessor, assemble_tps
@@ -79,6 +84,8 @@ class APAReadoutApp:
                  run_number: int = 1,
                  channel_map_name: str = "HDAPAChannelMap",
                  threshold_on_collection: bool = False,
+                 fused_unpack: bool = False,
+                 words14_feed: bool = False,
                  time2_feed: bool = False,
                  codec_threads: int = 1,
                  batched_assembly: bool = True,
@@ -87,10 +94,10 @@ class APAReadoutApp:
                  pipelined: bool = False,
                  k_slots: int | None = None,
                  device="cuda"):
-        if not time2_feed:
-            raise NotImplementedError(
-                "only the time2 feed (time2_feed=True) of the APA app is "
-                "ported; its packed-frames feed is not (ROADMAP.md)")
+        if words14_feed and time2_feed:
+            raise ValueError("words14_feed and time2_feed are exclusive")
+        if fused_unpack and time2_feed:
+            raise ValueError("fused_unpack and time2_feed are exclusive")
         self.device = resolve_device(device)
         self.n_links = n_links
         self.run_number = run_number
@@ -140,8 +147,15 @@ class APAReadoutApp:
                                               retention=raw_retention)
                         for _ in range(n_links)]
 
-        # the HOST unpacks and time-pairs the ADCs (native.relayout_time2);
-        # the device runs the kernel at ~2 B read per sample
+        # the feed (module docstring): time2_feed has the HOST unpack and
+        # time-pair the ADCs; fused_unpack ships the packed frame words and
+        # the kernel unpacks them in-register (K4); words14_feed has the
+        # host relayout the words into words14 rows first (K4); neither
+        # ships the packed words and unpacks them on the device (K2).
+        # State and hits are in canonical channel order on every feed.
+        self.words14_feed = words14_feed
+        self.time2_feed = time2_feed
+        self.fused_unpack = fused_unpack or words14_feed
         self._state = None               # (KSTATE, C) on self.device
         self._dropped_total = 0
         self._feed_buf = native.FeedBuffer()  # host feed output reuse
@@ -181,6 +195,30 @@ class APAReadoutApp:
         (canonical hit array, dropped)."""
         return unpack_compact(packed)
 
+    def _host_feed(self, words: np.ndarray):
+        """The feed's host stage: (L, T, 28) packed words -> (int32 host
+        array to ship, the ingest function that takes it on the device)."""
+        L, T, _ = words.shape
+        if self.words14_feed:
+            # host relayout into the kernel's words14 rows (reused output
+            # buffer), unpacked in-register by K4
+            return native.relayout_words14(
+                words, out=self._feed_buf.get(
+                    native.words14_feed_shape(L, T)),
+                nthreads=self.codec_threads), process_words14_feed
+        if self.time2_feed:
+            # pad8=False: only the ceil(C/128) data rows; the kernel reads
+            # them with that row stride, nothing is padded on the device
+            return native.relayout_time2(
+                words, out=self._feed_buf.get(
+                    native.time2_feed_shape(L, T, pad8=False)),
+                nthreads=self.codec_threads, pad8=False), process_time2_feed
+        # the packed frame words as they are: K4 (fused) or the device
+        # unpack and K2
+        return words.view(np.int32), (
+            process_packed_frames_fused if self.fused_unpack
+            else process_packed_frames)
+
     def _device_submit(self, frames_links: np.ndarray):
         """Enqueue one batch's device work and return the (not yet
         fetched) packed compact-hit device tensor; the carried state
@@ -205,15 +243,10 @@ class APAReadoutApp:
             self._state = pack_state(state, C, device=self.device)
         tc = auto_tc(T, cap=kernel_knobs(self.cfg)["tc"])
         t_codec = time.perf_counter()
-        # pad8=False: only the ceil(C/128) data rows; the kernel reads them
-        # with that row stride, nothing is padded on the device
-        fed = native.relayout_time2(
-            words, out=self._feed_buf.get(
-                native.time2_feed_shape(L, T, pad8=False)),
-            nthreads=self.codec_threads, pad8=False)
+        fed, fn = self._host_feed(words)
         self._codec_ms = (time.perf_counter() - t_codec) * 1e3
         dev_in = torch.from_numpy(fed).to(self.device)
-        slots, nclose, self._state = process_time2_feed(
+        slots, nclose, self._state = fn(
             dev_in, self._state, self.cfg, C, tc=tc, k_slots=self.k_slots)
         # device-side compaction: only the hit list crosses to the host;
         # overflow beyond max_hits is counted in the trailer's dropped field
@@ -496,9 +529,15 @@ def main(argv=None) -> int:
                          "plane channels")
     ap.add_argument("--codec-threads", type=int, default=1,
                     help="host feed codec std::thread fan-out")
+    ap.add_argument("--fused-unpack", action="store_true",
+                    help="ship the packed frame words; the kernel unpacks "
+                         "them in-register (K4)")
+    ap.add_argument("--words14-feed", action="store_true",
+                    help="host words14 relayout (native.relayout_words14), "
+                         "unpacked in-register (K4)")
     ap.add_argument("--time2-feed", action="store_true",
                     help="host-side unpack + time-pairing "
-                         "(native.relayout_time2) — the only feed ported")
+                         "(native.relayout_time2), the time2 datapath (K1)")
     ap.add_argument("--raw-capacity", type=int, default=4096,
                     help="raw frames retained per link for data requests")
     ap.add_argument("--raw-retention", default="zerocopy",
@@ -516,6 +555,8 @@ def main(argv=None) -> int:
                         threshold=args.threshold,
                         channel_map_name=args.channel_map,
                         threshold_on_collection=args.threshold_on_collection,
+                        fused_unpack=args.fused_unpack,
+                        words14_feed=args.words14_feed,
                         time2_feed=args.time2_feed,
                         codec_threads=args.codec_threads,
                         batched_assembly=not args.per_link_assembly,

@@ -1,12 +1,16 @@
-// The SWTPG tick for Hopper: K1, K2 and K3 of ROADMAP.md in one source.
+// The SWTPG tick for Hopper: K1, K2, K3 and K4 of ROADMAP.md in one source.
 //
 // Replaces fdreadoutlibs_tpu/ops/pallas_tpg.py::_tpg_kernel:
 //   K1  the time2 datapath (time_packed=True, tick 2j in the low and 2j+1 in
 //       the high 16 bits of a word) for SimpleThreshold, AbsRS, StandardRS;
 //   K2  the plain-sample datapath (time_packed=False, one int32 sample per
 //       row; _decode_ticks :399-400), for the same families;
-//   K3  the FIR+IQR family (:464-490, :556-560), on either datapath.
-// The input encoding is the template flag kTime2; the family is kFamily.
+//   K3  the FIR+IQR family (:464-490, :556-560), on any datapath;
+//   K4  the in-kernel 14-bit unpack (_unpack14_rows :241-265, reached via
+//       _decode_ticks :396-398): packed WIBEth words, 16 channels in 7
+//       words, read as they arrive, for every family.
+// The input encoding is the template parameter kEnc; the family is the
+// channel type.
 // The arithmetic is fdreadoutlibs_tpu/ops/step.py::dispatch_tick (tpg_tick,
 // and fir.py::tpg_tick_fir for FIR), which stays the single source of tick
 // semantics: the plain version beside this kernel
@@ -18,10 +22,11 @@
 // coalesced.  The grid is ceil(C/128) blocks of 128 threads.  Inside a
 // thread a serial loop runs over chunks and, within a chunk, over groups of
 // kGroup = 16 ticks with the whole live ChanState in registers: the group's
-// feed rows (8 time2 words or 16 samples) are loaded before its ticks so
-// their latency overlaps the chain.  The ticks of a group are expanded at
-// compile time (std::integer_sequence), so the FIR ring of the previous 8
-// samples is 8 registers addressed by constant indices: tick u of a group
+// feed values (8 time2 words, 16 samples, or 16 pairs of packed words) are
+// loaded before its ticks so their latency overlaps the chain.  The ticks
+// of a group are expanded at compile time (std::integer_sequence), so the
+// FIR ring of the previous 8 samples is 8 registers addressed by constant
+// indices: tick u of a group
 // reads ring[(u + j) % 8] oldest-first and overwrites ring[u % 8] with its
 // sample — nothing moves per tick, as the Pallas kernel's tuple rotation.
 // kGroup is a multiple of 8, so the ring is back in canonical order after
@@ -37,10 +42,23 @@
 // What bounds it on this card: the per-tick dependency chain (RS: two
 // frugal updates, the division and the hit chain; FIR: the IQR and pedestal
 // frugal updates, the 8-tap filter, the threshold product and the hit
-// chain) at 2 B (time2) or 4 B (plain) read per sample.  A few thousand
-// channels fill only a few dozen of the 132 SMs, so the time of one launch
-// is the chain's latency times the ticks; later work acts on that (more
-// channels per launch, fewer threads per block, two ticks of ILP).
+// chain) at 2 B (time2), 4 B (plain) or 1.75 B (packed) read per sample.
+// A few thousand channels fill only a few dozen of the 132 SMs, so the
+// time of one launch is the chain's latency times the ticks; later work
+// acts on that (more channels per launch, fewer threads per block, two
+// ticks of ILP).
+//
+// K4's layouts.  Channel c = 16g + r is class r of 7-word group g: its
+// sample is bits [14r % 32, +14) of words j = 14r/32 and j + 1, extracted
+// with one funnel shift.  The words stay where the feed put them: one
+// address rule, word (t, j) of group g at (g / gpr) * outer + (g % gpr) *
+// inner + t * tick_stride + j * word_stride, covers the frame words
+// (L, T, 28) (gpr 4, outer T*28, inner 7, tick_stride 28, word_stride 1)
+// and the host's words14 relayout (T, WR, 7, 128) (gpr 128, outer 896,
+// inner 1, tick_stride WR*896, word_stride 128).  The TPU's words14 lane
+// positions are not carried: state, slots and nclose keep canonical
+// channel order.  Frame words give a warp two whole groups in 14
+// consecutive words per tick; the words14 layout spreads them over 7 rows.
 //
 // Integer exactness: left shifts and the wrapping products (the FIR
 // filter, the threshold product wrap_i16((sigma_c << e) * threshold), the
@@ -118,8 +136,13 @@ __device__ __forceinline__ void frugal(int& m, int& acc, int s, int limit) {
 }
 
 struct Params {
-  const int32_t* feed;   // (rows, feed_stride): time2 words or samples
-  int feed_stride;
+  const int32_t* feed;   // time2 words, samples or packed 14-bit words
+  int feed_stride;       // between rows (time2, plain) or ticks (packed)
+  // packed 14-bit words: the layout of the 7-word channel groups
+  int groups_per_row;
+  int group_outer;
+  int group_inner;
+  int word_stride;
   int n_chunks;
   int ticks_per_chunk;   // tc
   int32_t* state;        // (KSTATE, C)
@@ -387,50 +410,93 @@ struct FirChannel {
   }
 };
 
-template <bool kTime2>
-constexpr int kRowsPerGroup = kTime2 ? kGroup / 2 : kGroup;
+// Input encodings (the C entry's `encoding`).
+enum Encoding : int { kPlain = 0, kTime2 = 1, kPacked14 = 2 };
 
-// Tick kU of a group from its loaded feed rows.
-template <bool kTime2, int kU>
-__device__ __forceinline__ int sample(const int (&w)[kRowsPerGroup<kTime2>]) {
-  if constexpr (kTime2) {
+// Feed values one group holds per thread: time2 words (two ticks each),
+// plain samples, or the samples extracted from packed 14-bit words.
+template <int kEnc>
+constexpr int kRowsPerGroup = kEnc == kTime2 ? kGroup / 2 : kGroup;
+
+template <int kEnc>
+constexpr int kRowTicks = kEnc == kTime2 ? 2 : 1;
+
+// A thread's read position in the feed.  `fp` points at the current
+// group's first tick; tick (or time2 row) u of the group sits at
+// fp + u * stride.  Packed 14-bit words: the thread's channel c = 16g + r
+// reads words j = 14r/32 and j + 1 of its 7-word group g (`lo`, `hi`
+// offsets from fp) and extracts bits [14r % 32, +14) of the pair.
+struct Cursor {
+  const int32_t* fp;
+  size_t stride;
+  size_t lo, hi;
+  unsigned sh;
+};
+
+// Tick kU of a group from its loaded feed values.
+template <int kEnc, int kU>
+__device__ __forceinline__ int sample(const int (&w)[kRowsPerGroup<kEnc>]) {
+  if constexpr (kEnc == kTime2) {
     return kU % 2 == 0 ? wrap_i16(w[kU / 2]) : (w[kU / 2] >> 16);
   } else {
     return w[kU];
   }
 }
 
+// Load one group's feed values (kGuard: only the first n ticks, a chunk's
+// ragged tail) and step the cursor to the next group.  Every load of the
+// group goes out before its ticks, so their latency overlaps the chain.
+template <int kEnc, bool kGuard>
+__device__ __forceinline__ void load_group(int (&w)[kRowsPerGroup<kEnc>],
+                                           Cursor& cur, int n) {
+  if constexpr (kEnc == kPacked14) {
+    unsigned lo[kGroup], hi[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int32_t* row = cur.fp + static_cast<size_t>(u) * cur.stride;
+      const bool live = !kGuard || u < n;
+      lo[u] = live ? static_cast<unsigned>(__ldg(row + cur.lo)) : 0u;
+      hi[u] = live ? static_cast<unsigned>(__ldg(row + cur.hi)) : 0u;
+    }
+    // the funnel shift takes the shift mod 32, so sh = 0 needs no case
+    // (lo >> sh | hi << (32 - sh) would shift by 32 there)
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u)
+      w[u] = static_cast<int>(__funnelshift_r(lo[u], hi[u], cur.sh) & 0x3FFFu);
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRowsPerGroup<kEnc>; ++r)
+      w[r] = (!kGuard || r * kRowTicks<kEnc> < n)
+                 ? __ldg(cur.fp + static_cast<size_t>(r) * cur.stride)
+                 : 0;
+  }
+  cur.fp += static_cast<size_t>(kRowsPerGroup<kEnc>) * cur.stride;
+}
+
 // The ticks of one group, expanded at compile time; kGuard runs only the
 // first n (a chunk's ragged tail).
-template <bool kTime2, bool kGuard, class Ch, int... kU>
+template <int kEnc, bool kGuard, class Ch, int... kU>
 __device__ __forceinline__ void run_ticks(
-    Ch& ch, const int (&w)[kRowsPerGroup<kTime2>], int n, int tick0,
+    Ch& ch, const int (&w)[kRowsPerGroup<kEnc>], int n, int tick0,
     int32_t* slot_base, const Params& p, std::integer_sequence<int, kU...>) {
   ((!kGuard || kU < n
-        ? ch.template tick<kU>(sample<kTime2, kU>(w), tick0 + kU + 1,
+        ? ch.template tick<kU>(sample<kEnc, kU>(w), tick0 + kU + 1,
                                slot_base, p)
         : void()),
    ...);
 }
 
-template <bool kTime2, bool kGuard, class Ch>
-__device__ __forceinline__ void run_group(Ch& ch, const int32_t* fp,
-                                          size_t stride, int n, int tick0,
-                                          int32_t* slot_base,
+template <int kEnc, bool kGuard, class Ch>
+__device__ __forceinline__ void run_group(Ch& ch, Cursor& cur, int n,
+                                          int tick0, int32_t* slot_base,
                                           const Params& p) {
-  constexpr int kRows = kRowsPerGroup<kTime2>;
-  constexpr int kRowTicks = kTime2 ? 2 : 1;
-  int w[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-    w[r] = (!kGuard || r * kRowTicks < n)
-               ? __ldg(fp + static_cast<size_t>(r) * stride)
-               : 0;
-  run_ticks<kTime2, kGuard>(ch, w, n, tick0, slot_base, p,
-                            std::make_integer_sequence<int, kGroup>{});
+  int w[kRowsPerGroup<kEnc>];
+  load_group<kEnc, kGuard>(w, cur, n);
+  run_ticks<kEnc, kGuard>(ch, w, n, tick0, slot_base, p,
+                          std::make_integer_sequence<int, kGroup>{});
 }
 
-template <class Ch, bool kTime2>
+template <class Ch, int kEnc>
 __global__ void __launch_bounds__(kBlock) tpg_kernel(Params p) {
   const int c = blockIdx.x * kBlock + threadIdx.x;
   if (c >= p.n_channels) return;
@@ -439,22 +505,35 @@ __global__ void __launch_bounds__(kBlock) tpg_kernel(Params p) {
   Ch ch;
   ch.load(st, C);
 
-  constexpr int kRowTicks = kTime2 ? 2 : 1;
+  // the channel's column: c itself, or its packed word group's base
+  // (g / gpr) * outer + (g % gpr) * inner
+  Cursor cur{};
+  cur.stride = static_cast<size_t>(p.feed_stride);
+  size_t col = static_cast<size_t>(c);
+  if constexpr (kEnc == kPacked14) {
+    const int g = c / 16, r = c % 16;
+    const int j = 14 * r / 32;
+    col = static_cast<size_t>(g / p.groups_per_row) * p.group_outer +
+          static_cast<size_t>(g % p.groups_per_row) * p.group_inner;
+    cur.lo = static_cast<size_t>(j) * p.word_stride;
+    // class 15 ends on its group's last bit: word j + 1 = 7 lies past the
+    // group, and none of its bits are kept, so read word 6 twice
+    cur.hi = static_cast<size_t>(j < 6 ? j + 1 : 6) * p.word_stride;
+    cur.sh = static_cast<unsigned>(14 * r % 32);
+  }
   const int tc = p.ticks_per_chunk;
-  const size_t stride = static_cast<size_t>(p.feed_stride);
   for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
     ch.nclose = 0;
     const int t0 = chunk * tc;   // window tick of the chunk's first sample
-    const int32_t* fp = p.feed + static_cast<size_t>(t0 / kRowTicks) * stride + c;
+    cur.fp = p.feed + static_cast<size_t>(t0 / kRowTicks<kEnc>) * cur.stride +
+             col;
     int32_t* slot_base =
         p.slots + static_cast<size_t>(chunk) * p.k_slots * Ch::kWords * C + c;
     int g = 0;
-    for (; g + kGroup <= tc; g += kGroup) {
-      run_group<kTime2, false>(ch, fp, stride, kGroup, t0 + g, slot_base, p);
-      fp += static_cast<size_t>(kGroup / kRowTicks) * stride;
-    }
+    for (; g + kGroup <= tc; g += kGroup)
+      run_group<kEnc, false>(ch, cur, kGroup, t0 + g, slot_base, p);
     if (g < tc) {
-      run_group<kTime2, true>(ch, fp, stride, tc - g, t0 + g, slot_base, p);
+      run_group<kEnc, true>(ch, cur, tc - g, t0 + g, slot_base, p);
       ch.realign(tc - g);
     }
     p.nclose[static_cast<size_t>(chunk) * C + c] = ch.nclose;
@@ -462,10 +541,20 @@ __global__ void __launch_bounds__(kBlock) tpg_kernel(Params p) {
   ch.store(st, C);
 }
 
-template <class Ch, bool kTime2>
+template <class Ch, int kEnc>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int blocks = (p.n_channels + kBlock - 1) / kBlock;
-  tpg_kernel<Ch, kTime2><<<blocks, kBlock, 0, stream>>>(p);
+#ifdef TPG_HOST_EMULATION
+  // host build for the CPU tests (tests/cuda_host/cuda_runtime.h): the
+  // grid runs serially, one thread after another
+  (void)stream;
+  for (blockIdx.x = 0; blockIdx.x < static_cast<unsigned>(blocks);
+       ++blockIdx.x)
+    for (threadIdx.x = 0; threadIdx.x < kBlock; ++threadIdx.x)
+      tpg_kernel<Ch, kEnc>(p);
+#else
+  tpg_kernel<Ch, kEnc><<<blocks, kBlock, 0, stream>>>(p);
+#endif
   return cudaGetLastError();
 }
 
@@ -475,30 +564,59 @@ cudaError_t pick(bool flag, F&& f) {
   return flag ? f(std::true_type{}) : f(std::false_type{});
 }
 
+template <class F>
+cudaError_t pick_encoding(int encoding, F&& f) {
+  switch (encoding) {
+    case kPlain:
+      return f(std::integral_constant<int, kPlain>{});
+    case kTime2:
+      return f(std::integral_constant<int, kTime2>{});
+    case kPacked14:
+      return f(std::integral_constant<int, kPacked14>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C entry for ctypes.  Returns the cudaError_t of the launch
 // (cudaGetLastError right after it); the caller raises when it is not 0.
 // `taps` is a host array of 8 ints (read only for the FIR family).
-extern "C" int tpg_launch(const void* feed, int feed_stride, int time2,
-                          int n_chunks, int ticks_per_chunk, void* state,
-                          int n_channels, void* slots, void* nclose,
-                          int k_slots, int family, int peak_gated,
-                          int charge_floor, int track_peaks, int avx,
-                          int threshold, int accumulator_limit,
+// `encoding` is kPlain or kTime2 (rows of feed_stride >= n_channels
+// values) or kPacked14: word (t, j) of channel group g sits at
+// (g / groups_per_row) * group_outer + (g % groups_per_row) * group_inner
+// + t * feed_stride + j * word_stride (the group_* and word_stride
+// arguments are read only for kPacked14).
+extern "C" int tpg_launch(const void* feed, int feed_stride, int encoding,
+                          int groups_per_row, int group_outer,
+                          int group_inner, int word_stride, int n_chunks,
+                          int ticks_per_chunk, void* state, int n_channels,
+                          void* slots, void* nclose, int k_slots, int family,
+                          int peak_gated, int charge_floor, int track_peaks,
+                          int avx, int threshold, int accumulator_limit,
                           int rs_scale_factor_x10, const int* taps,
                           int tap_exponent, int adc_max, int sigma_cap,
                           int thr_mult, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const bool packed = encoding == kPacked14;
+  const bool bad_layout =
+      packed ? (n_channels % 16 || groups_per_row <= 0 || group_outer < 0 ||
+                group_inner < 0 || word_stride <= 0 || feed_stride <= 0)
+             : feed_stride < n_channels;
   if (n_channels <= 0 || n_chunks <= 0 || ticks_per_chunk <= 0 ||
-      k_slots <= 0 || feed_stride < n_channels ||
-      (time2 && ticks_per_chunk % 2) || tap_exponent < 0 ||
+      k_slots <= 0 || bad_layout ||
+      (encoding == kTime2 && ticks_per_chunk % 2) || tap_exponent < 0 ||
       tap_exponent > 15 || taps == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.feed = static_cast<const int32_t*>(feed);
   p.feed_stride = feed_stride;
+  p.groups_per_row = groups_per_row;
+  p.group_outer = group_outer;
+  p.group_inner = group_inner;
+  p.word_stride = word_stride;
   p.n_chunks = n_chunks;
   p.ticks_per_chunk = ticks_per_chunk;
   p.state = static_cast<int32_t*>(state);
@@ -516,8 +634,8 @@ extern "C" int tpg_launch(const void* feed, int feed_stride, int time2,
   p.thr_mult = thr_mult;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  return static_cast<int>(pick(time2 != 0, [&](auto t2) {
-    constexpr bool kT2 = decltype(t2)::value;
+  return static_cast<int>(pick_encoding(encoding, [&](auto enc) {
+    constexpr int kEnc = decltype(enc)::value;
     return pick(peak_gated != 0, [&](auto gated) {
       constexpr bool kGated = decltype(gated)::value;
       if (family == kFIR) {
@@ -525,7 +643,7 @@ extern "C" int tpg_launch(const void* feed, int feed_stride, int time2,
           return pick(avx != 0, [&](auto av) {
             return launch<FirChannel<kGated, decltype(tp)::value,
                                      decltype(av)::value>,
-                          kT2>(p, s);
+                          kEnc>(p, s);
           });
         });
       }
@@ -534,13 +652,13 @@ extern "C" int tpg_launch(const void* feed, int feed_stride, int time2,
         switch (family) {
           case kSimpleThreshold:
             return launch<ThresholdChannel<kSimpleThreshold, kGated, kFloor>,
-                          kT2>(p, s);
+                          kEnc>(p, s);
           case kAbsRS:
-            return launch<ThresholdChannel<kAbsRS, kGated, kFloor>, kT2>(p,
-                                                                        s);
+            return launch<ThresholdChannel<kAbsRS, kGated, kFloor>, kEnc>(
+                p, s);
           case kStandardRS:
             return launch<ThresholdChannel<kStandardRS, kGated, kFloor>,
-                          kT2>(p, s);
+                          kEnc>(p, s);
           default:
             return cudaErrorInvalidValue;
         }

@@ -4,6 +4,9 @@ Port copy of ``fdreadoutlibs_tpu/formats/wibeth.py``: the same code apart
 from imports, with the torch device unpack :func:`unpack_frames` in place
 of the jnp ``unpack_frames_jnp`` (:155-164). It is carried here because
 importing the original pulls in jax through its package's ``__init__``.
+The words14 feed layout (:func:`unpack_words14`, :func:`words14_positions`,
+:func:`words14_channel_of_position`) comes from
+``fdreadoutlibs_tpu/ops/pallas_tpg.py``, which imports jax.
 
 Geometry (reference: include/fdreadoutlibs/DUNEWIBEthTypeAdapter.hpp:18-99 and
 fddetdataformats WIBEthFrame as exercised by wibeth/tpg/FrameExpand.hpp:192-246):
@@ -163,6 +166,44 @@ def unpack_frames(words: torch.Tensor) -> torch.Tensor:
     ADCs in natural frame-channel order (expand_wibeth_adcs,
     FrameExpand.hpp:192-246, without the AVX register permutation)."""
     return unpack_14bit_torch(words, N_CHANNELS, ADC_BITS)
+
+
+def unpack_words14(W: torch.Tensor, n_channels: int) -> torch.Tensor:
+    """Device unpack of the words14 feed: (T, WR, 7, 128) int32 word rows
+    (``native.relayout_words14``: word j of 7-word channel group g at row
+    g // 128, lane g % 128) -> (T, n_channels) int32 ADCs in canonical
+    channel order — ``pallas_tpg._unpack14_rows`` (:241-265) followed by
+    the gather through :func:`words14_positions`."""
+    T, WR, seven, lanes = W.shape
+    if seven != 7 or lanes != 128:
+        raise ValueError(f"expected words14 rows (T, WR, 7, 128), got "
+                         f"{tuple(W.shape)}")
+    G = n_channels // 16
+    words = W.transpose(2, 3).reshape(T, WR * lanes, 7)[:, :G]
+    return unpack_14bit_torch(words.reshape(T, G * 7), n_channels, ADC_BITS)
+
+
+def words14_positions(n_channels: int) -> np.ndarray:
+    """Flat lane of each channel in the JAX fused kernels' words14 layout
+    (copy of ``pallas_tpg.words14_positions``, :332-345): channel
+    c = 16g + r at row (g // 128) * 16 + r, lane g % 128."""
+    if n_channels % 16:
+        raise ValueError(f"{n_channels} channels is not a whole number of "
+                         "16-channel word groups")
+    c = np.arange(n_channels)
+    g, r = c // 16, c % 16
+    return ((g // 128) * 16 + r) * 128 + (g % 128)
+
+
+def words14_channel_of_position(n_channels: int) -> np.ndarray:
+    """Inverse of :func:`words14_positions`: flat lane -> channel (-1 = a
+    dead padding lane); copy of ``pallas_tpg.words14_channel_of_position``
+    (:369-376)."""
+    pos = words14_positions(n_channels)
+    n_rows = 16 * (-(-(n_channels // 16) // 128))
+    out = np.full(n_rows * 128, -1, dtype=np.int64)
+    out[pos] = np.arange(n_channels)
+    return out
 
 
 # ---- host views (ingest path) -------------------------------------------------

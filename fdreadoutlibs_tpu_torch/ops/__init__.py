@@ -6,8 +6,9 @@
   kernel on CUDA tensors, the plain tick loop on CPU tensors) and the
   port's state layout;
 * ``hits``   — on-device compaction of the kernel's slot buffers;
-* ``ingest`` — the time2 and packed-frame entry points, the one-fetch
-  compaction and ``collect_hits``.
+* ``ingest`` — the time2, packed-frame, fused (in-kernel unpack) and
+  words14 entry points, the one-fetch compaction, ``collect_hits`` and
+  ``StreamingIngest``.
 
 The configuration and channel-state seeding are the JAX package's jax-free
 modules, re-exported here so callers of the port import only the port.

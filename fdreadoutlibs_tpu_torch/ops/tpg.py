@@ -11,21 +11,26 @@ K-slot buffers — the contract of ``pallas_tpg.process_window_pallas``:
   closes beyond K per channel per chunk are dropped and visible;
 * an empty slot is a zero end word.
 
-Two input encodings: time2 words (``time_packed=True``, tick 2j in the low
-and 2j+1 in the high 16 bits) and one int32 sample per row
-(``time_packed=False``).  On CUDA tensors it launches the hand-written
-Hopper kernel (``csrc/tpg.cu``: K1 = time2 datapath, K2 = plain datapath,
-K3 = the FIR family on either); on CPU tensors it runs the plain version,
+Three input encodings: time2 words (``time_packed=True``, tick 2j in the
+low and 2j+1 in the high 16 bits), one int32 sample per row
+(``time_packed=False``), and packed 14-bit WIBEth words (``packed14=``
+``"frames"`` for the (L, T, 28) frame words, ``"words14"`` for the host's
+(T, WR, 7, 128) words14 relayout; :data:`PACKED14`).  On CUDA tensors it
+launches the hand-written Hopper kernel (``csrc/tpg.cu``: K1 = time2
+datapath, K2 = plain datapath, K3 = the FIR family on any, K4 = the
+in-kernel 14-bit unpack); on CPU tensors it runs the plain version,
 :func:`process_window_plain`, which loops over ticks calling the JAX
 package's ``ops/step.py::dispatch_tick`` through the torch namespace
-(``ops/xp.py``).  There is no other route: a CUDA tensor that the kernel
-cannot take raises.
+(``ops/xp.py``), after the torch unpack for packed words.  There is no
+other route: a CUDA tensor that the kernel cannot take raises.
 
 The port's layouts drop the TPU tile blocking: state is (KSTATE, C) int32
 on the device (the FIR ring in rows ``_FIR_ROW0..+8``, oldest-first),
-slots (T/tc, K, nw, C), nclose (T/tc, C).  :func:`state_from_jax` /
-:func:`state_to_jax` convert state to and from the JAX package's blocked
-``pack_state`` stack, so both packages can start from one state.
+slots (T/tc, K, nw, C), nclose (T/tc, C), for every encoding (the
+words14 lane positions of the JAX fused kernels are a TPU tile rule).
+:func:`state_from_jax` / :func:`state_to_jax` convert state to and from the
+JAX package's blocked ``pack_state`` stack, canonical or in words14
+positions, so both packages can start from one state.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from fdreadoutlibs_tpu.ops.fir import default_taps
 from fdreadoutlibs_tpu.ops.fixedpoint import wrap_i16
 from fdreadoutlibs_tpu.ops.step import dispatch_tick
 
+from ..formats import wibeth
 from . import _build
 from .xp import TorchXP, check_supported, make_fx
 
@@ -61,9 +67,14 @@ _LIVE_FIR = _LIVE_SIMPLE + ("quantile25", "quantile75", "accum25", "accum75")
 _LANES = 128
 _SUBLANES = 8
 
-# csrc/tpg.cu family codes
+# csrc/tpg.cu family and encoding codes
 _FAMILY = {Algorithm.SIMPLE_THRESHOLD: 0, Algorithm.ABS_RS: 1,
            Algorithm.STANDARD_RS: 2, Algorithm.FIR: 3}
+_PLAIN, _TIME2, _PACKED14 = 0, 1, 2
+
+# packed 14-bit feed layouts (``packed14=``): the (L, T, 28) frame words of
+# L links, and the (T, WR, 7, 128) words14 rows of native.relayout_words14
+PACKED14 = ("frames", "words14")
 
 
 def record_words(cfg: TPGConfig) -> int:
@@ -114,48 +125,116 @@ def unpack_state(state: torch.Tensor) -> dict:
     return st
 
 
-def state_from_jax(stack_np, n_channels: int, device="cpu") -> torch.Tensor:
+def _jax_rows(n_lanes: int, granule: int) -> int:
+    """Sublane rows of a JAX ``pack_state`` stack covering n_lanes lanes."""
+    rows = -(-n_lanes // _LANES)
+    return -(-rows // granule) * granule
+
+
+def _jax_lanes(n_channels: int, positions, granule: int) -> int:
+    """Flat lanes of the JAX stack: canonical, or the words14 positions
+    (``pallas_tpg.pack_state`` :167-171)."""
+    n = n_channels if positions is None else int(np.max(positions)) + 1
+    return _jax_rows(n, granule) * _LANES
+
+
+def state_from_jax(stack_np, n_channels: int, device="cpu",
+                   positions=None) -> torch.Tensor:
     """JAX ``pack_state`` stack (NB, KSTATE, SUB, 128), as numpy -> the
-    port's (KSTATE, C) tensor (canonical channel order, no positions)."""
-    arr = np.asarray(stack_np).astype(np.int32)
+    port's (KSTATE, C) tensor in canonical channel order.  ``positions``
+    is the channel -> flat-lane map the stack was packed with (the fused
+    words14 kernels' ``words14_positions``); without it the stack must
+    have the canonical row count, else this raises."""
+    arr = np.asarray(stack_np)
+    granule = 16 if arr.dtype.itemsize == 2 else _SUBLANES
+    arr = arr.astype(np.int32)
     nb, kst, sub, lanes = arr.shape
     if kst != KSTATE or lanes != _LANES:
         raise ValueError(f"not a JAX state stack: shape {arr.shape}")
-    flat = arr.transpose(1, 0, 2, 3).reshape(KSTATE, nb * sub * lanes)
-    return torch.from_numpy(
-        np.ascontiguousarray(flat[:, :n_channels])).to(device)
+    want = _jax_lanes(n_channels, positions, granule)
+    if nb * sub * lanes != want:
+        raise ValueError(
+            f"a state stack of {nb * sub} rows does not hold {n_channels} "
+            + ("channels in canonical order; pass the positions it was "
+               "packed with" if positions is None else
+               "channels at the given positions")
+            + f" (expected {want // _LANES} rows)")
+    flat = arr.transpose(1, 0, 2, 3).reshape(KSTATE, want)
+    sel = slice(None, n_channels) if positions is None \
+        else np.asarray(positions)
+    return torch.from_numpy(np.ascontiguousarray(flat[:, sel])).to(device)
 
 
-def state_to_jax(state: torch.Tensor,
-                 block_sublanes: int | None = None) -> np.ndarray:
+def state_to_jax(state: torch.Tensor, block_sublanes: int | None = None,
+                 positions=None) -> np.ndarray:
     """The port's (KSTATE, C) tensor -> the JAX ``pack_state`` stack
     (NB, KSTATE, SUB, 128) int32 numpy array, zero-padded to whole 8-row
-    sublane tiles like ``pack_state``."""
+    sublane tiles like ``pack_state``; ``positions`` places channel c at
+    flat lane positions[c] (the words14 layout)."""
     C = state.shape[1]
-    rows = -(-C // _LANES)
-    S = -(-rows // _SUBLANES) * _SUBLANES
+    n = _jax_lanes(C, positions, _SUBLANES)
+    S = n // _LANES
     sub = block_sublanes or S
     if S % sub:
         raise ValueError(f"block_sublanes={sub} does not tile {S} rows")
-    flat = np.zeros((KSTATE, S * _LANES), dtype=np.int32)
-    flat[:, :C] = state.cpu().numpy()
+    flat = np.zeros((KSTATE, n), dtype=np.int32)
+    sel = slice(None, C) if positions is None else np.asarray(positions)
+    flat[:, sel] = state.cpu().numpy()
     return flat.reshape(KSTATE, S // sub, sub, _LANES).transpose(1, 0, 2, 3) \
         .copy()
 
 
 # ---- the plain version ----------------------------------------------------
 
-def _check_window(feed, state, tc: int, k_slots: int, time_packed: bool):
-    if feed.dim() != 2 or state.dim() != 2 or state.shape[0] != KSTATE:
-        raise ValueError(f"expected feed (rows, W) and state ({KSTATE}, C), "
-                         f"got {tuple(feed.shape)} and {tuple(state.shape)}")
-    if feed.dtype != torch.int32 or state.dtype != torch.int32:
-        raise ValueError("feed and state must be int32")
+def _check_packed(feed, C: int, packed14: str) -> int:
+    """Shape checks of a packed 14-bit feed; returns its tick count."""
+    if packed14 not in PACKED14:
+        raise ValueError(f"packed14={packed14!r}: expected one of "
+                         f"{PACKED14}")
+    if feed.dtype != torch.int32:
+        raise ValueError("packed words must be int32 (a .view of uint32)")
+    if C % 16:
+        raise ValueError(f"{C} channels is not a whole number of 16-channel "
+                         "word groups")
+    if packed14 == "frames":
+        if feed.dim() != 3 or feed.shape[2] != 2 * wibeth.ADC_WORDS_PER_TS:
+            raise ValueError(f"expected frame words (L, T, 28), got "
+                             f"{tuple(feed.shape)}")
+        groups, T = 4 * feed.shape[0], feed.shape[1]
+    else:
+        if feed.dim() != 4 or tuple(feed.shape[2:]) != (7, _LANES):
+            raise ValueError(f"expected words14 rows (T, WR, 7, 128), got "
+                             f"{tuple(feed.shape)}")
+        groups, T = feed.shape[1] * _LANES, feed.shape[0]
+    if groups < C // 16:
+        raise ValueError(f"the packed feed holds {16 * groups} channels < "
+                         f"{C}")
+    return T
+
+
+def _check_window(feed, state, tc: int, k_slots: int, time_packed: bool,
+                  packed14: str | None = None):
+    if state.dim() != 2 or state.shape[0] != KSTATE:
+        raise ValueError(f"expected state ({KSTATE}, C), got "
+                         f"{tuple(state.shape)}")
+    if state.dtype != torch.int32:
+        raise ValueError("state must be int32")
     C = state.shape[1]
-    if feed.shape[1] < C:
-        raise ValueError(f"feed rows hold {feed.shape[1]} lanes < {C} "
-                         "channels")
-    T = feed.shape[0] * (2 if time_packed else 1)
+    if packed14 is not None:
+        if time_packed:
+            raise ValueError("packed14 and time_packed are exclusive "
+                             "encodings")
+        T = _check_packed(feed, C, packed14)
+    else:
+        if feed.dim() != 2:
+            raise ValueError(f"expected feed (rows, W), got "
+                             f"{tuple(feed.shape)}")
+        if feed.dtype != torch.int32:
+            raise ValueError("feed must be int32")
+        if feed.shape[1] < C:
+            raise ValueError(f"feed rows hold {feed.shape[1]} lanes < {C} "
+                             "channels")
+        T = feed.shape[0] * (2 if time_packed else 1)
     if tc <= 0 or T % tc or (time_packed and tc % 2):
         raise ValueError(f"tc={tc} must divide T={T}"
                          + (" and be even (two ticks per word)"
@@ -165,15 +244,30 @@ def _check_window(feed, state, tc: int, k_slots: int, time_packed: bool):
     return T, C
 
 
+def unpack_packed14(feed: torch.Tensor, packed14: str,
+                    n_channels: int) -> torch.Tensor:
+    """The torch unpack of a packed 14-bit feed -> (T, C) int32 samples in
+    canonical channel order: what K4 extracts in-register."""
+    if packed14 == "frames":
+        adcs = wibeth.unpack_frames(feed.transpose(0, 1))   # (T, L, 64)
+        return adcs.reshape(adcs.shape[0], -1)[:, :n_channels]
+    return wibeth.unpack_words14(feed, n_channels)
+
+
 def process_window_plain(feed: torch.Tensor, state: torch.Tensor,
                          cfg: TPGConfig, tc: int, k_slots: int,
-                         time_packed: bool = True):
+                         time_packed: bool = True,
+                         packed14: str | None = None):
     """The plain PyTorch version of the kernel: a loop over ticks calling
     ``ops/step.py::dispatch_tick`` on (C,) int32 tensors, with the slot
     writes as masked stores.  The FIR ring rides the tick as a tuple of
-    the 8 state rows, oldest-first (the Pallas kernel's carry).  Runs on
-    any device; returns fresh tensors."""
+    the 8 state rows, oldest-first (the Pallas kernel's carry).  A packed
+    14-bit feed is unpacked first (:func:`unpack_packed14`).  Runs on any
+    device; returns fresh tensors."""
     check_supported(cfg, state)
+    _check_window(feed, state, tc, k_slots, time_packed, packed14)
+    if packed14 is not None:
+        feed = unpack_packed14(feed, packed14, state.shape[1])
     T, C = _check_window(feed, state, tc, k_slots, time_packed)
     dev = state.device
     xp = TorchXP(dev)
@@ -222,29 +316,52 @@ def process_window_plain(feed: torch.Tensor, state: torch.Tensor,
 _INT32 = (-(1 << 31), (1 << 31) - 1)
 
 
-def kernels_of(cfg: TPGConfig, time_packed: bool) -> tuple:
+def kernels_of(cfg: TPGConfig, time_packed: bool,
+               packed14: str | None = None) -> tuple:
     """ROADMAP.md's kernels that one launch runs: K1 (time2 datapath,
-    threshold/RS families), K2 (plain-sample datapath), K3 (FIR family)."""
+    threshold/RS families), K2 (plain-sample datapath), K4 (in-kernel
+    14-bit unpack), K3 (FIR family, on any datapath)."""
     is_fir = cfg.algorithm == Algorithm.FIR
-    return (("K1",) if time_packed and not is_fir else ()) + \
-        (() if time_packed else ("K2",)) + (("K3",) if is_fir else ())
+    if packed14 is not None:
+        datapath = ("K4",)
+    elif time_packed:
+        datapath = () if is_fir else ("K1",)
+    else:
+        datapath = ("K2",)
+    return datapath + (("K3",) if is_fir else ())
 
 
 def reset_launches() -> None:
     """Zero the launch counts (total and per kernel)."""
     process_window.launches = 0
-    process_window.kernel_launches = {"K1": 0, "K2": 0, "K3": 0}
+    process_window.kernel_launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+
+# csrc/tpg.cu::tpg_launch's C signature
+_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 8
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p] + [ctypes.c_int] * 9
+             + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _kernel_fn():
     fn = _build.load("tpg").tpg_launch
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p] + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def _feed_layout(feed: torch.Tensor, time_packed: bool,
+                 packed14: str | None):
+    """(feed_stride, encoding, groups_per_row, group_outer, group_inner,
+    word_stride) of ``csrc/tpg.cu::tpg_launch`` for a contiguous feed."""
+    if packed14 == "frames":                 # (L, T, 28)
+        T, W = feed.shape[1], feed.shape[2]
+        return W, _PACKED14, 4, T * W, 7, 1
+    if packed14 == "words14":                # (T, WR, 7, 128)
+        WR = feed.shape[1]
+        return WR * 7 * _LANES, _PACKED14, _LANES, 7 * _LANES, 1, _LANES
+    return feed.shape[1], _TIME2 if time_packed else _PLAIN, 0, 0, 0, 0
 
 
 def _fir_args(cfg: TPGConfig):
@@ -269,8 +386,37 @@ def _fir_args(cfg: TPGConfig):
             cfg.adc_max, sigma_cap, thr_mult)
 
 
+def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
+            tc: int, k_slots: int, time_packed: bool, packed14: str | None,
+            device: int, stream):
+    """Allocate the outputs beside ``state`` and call the C entry ``fn``
+    on contiguous, checked tensors.  Returns (slots, nclose, new_state)."""
+    T, C = _check_window(feed, state, tc, k_slots, time_packed, packed14)
+    taps, tap_exponent, adc_max, sigma_cap, thr_mult = _fir_args(cfg)
+    n_chunks = T // tc
+    nw = record_words(cfg)
+    slots = torch.zeros((n_chunks, k_slots, nw, C), dtype=torch.int32,
+                        device=state.device)
+    nclose = torch.empty((n_chunks, C), dtype=torch.int32,
+                         device=state.device)
+    new_state = state.clone()
+    floor = cfg.algorithm != Algorithm.SIMPLE_THRESHOLD or cfg.threshold < 0
+    err = fn(
+        feed.data_ptr(), *_feed_layout(feed, time_packed, packed14),
+        n_chunks, tc, new_state.data_ptr(), C, slots.data_ptr(),
+        nclose.data_ptr(), k_slots, _FAMILY[cfg.algorithm],
+        int(cfg.peak_gated), int(floor), int(cfg.track_peaks),
+        int(cfg.fir_avx_semantics), cfg.threshold, cfg.accumulator_limit,
+        cfg.rs_scale_factor_x10, taps, tap_exponent, adc_max, sigma_cap,
+        thr_mult, device, stream)
+    if err != 0:
+        raise RuntimeError(f"tpg kernel launch failed: CUDA error {err}")
+    return slots, nclose, new_state
+
+
 def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
-                  tc: int, k_slots: int, time_packed: bool = True):
+                  tc: int, k_slots: int, time_packed: bool = True,
+                  packed14: str | None = None):
     """Launch ``csrc/tpg.cu`` on CUDA tensors (the wrapper's CUDA route).
     ``state`` is not modified: the kernel updates a copy in place and
     returns it.  Raises on anything the kernel does not take."""
@@ -280,41 +426,30 @@ def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                          f"device, got {feed.device} and {state.device}")
     if not (feed.is_contiguous() and state.is_contiguous()):
         raise ValueError("feed and state must be contiguous")
-    T, C = _check_window(feed, state, tc, k_slots, time_packed)
-    taps, tap_exponent, adc_max, sigma_cap, thr_mult = _fir_args(cfg)
-    n_chunks = T // tc
-    nw = record_words(cfg)
     dev = state.device
-    slots = torch.zeros((n_chunks, k_slots, nw, C), dtype=torch.int32,
-                        device=dev)
-    nclose = torch.empty((n_chunks, C), dtype=torch.int32, device=dev)
-    new_state = state.clone()
-    floor = cfg.algorithm != Algorithm.SIMPLE_THRESHOLD or cfg.threshold < 0
-    err = _kernel_fn()(
-        feed.data_ptr(), feed.shape[1], int(time_packed), n_chunks, tc,
-        new_state.data_ptr(), C, slots.data_ptr(), nclose.data_ptr(),
-        k_slots, _FAMILY[cfg.algorithm], int(cfg.peak_gated), int(floor),
-        int(cfg.track_peaks), int(cfg.fir_avx_semantics), cfg.threshold,
-        cfg.accumulator_limit, cfg.rs_scale_factor_x10, taps, tap_exponent,
-        adc_max, sigma_cap, thr_mult,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"tpg kernel launch failed: CUDA error {err}")
+    out = _launch(_kernel_fn(), feed, state, cfg, tc, k_slots, time_packed,
+                  packed14,
+                  dev.index if dev.index is not None
+                  else torch.cuda.current_device(),
+                  torch.cuda.current_stream(dev).cuda_stream)
     process_window.launches += 1
-    for k in kernels_of(cfg, time_packed):
+    for k in kernels_of(cfg, time_packed, packed14):
         process_window.kernel_launches[k] += 1
-    return slots, nclose, new_state
+    return out
 
 
 def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
-                   tc: int, k_slots: int, time_packed: bool = True):
+                   tc: int, k_slots: int, time_packed: bool = True,
+                   packed14: str | None = None):
     """Run the TPG over one window, carrying state.
 
     Args:
       feed: (T/2, W) int32 time-paired words (tick 2j in the low 16 bits,
         2j+1 in the high 16 bits, channel c at column c, W >= C) — or, with
-        time_packed=False, (T, W) int32 samples.
+        time_packed=False, (T, W) int32 samples — or, with ``packed14``
+        (time_packed=False), packed 14-bit words as int32: "frames" takes
+        (L, T, 28) frame words (channel = link*64 + c), "words14" the
+        (T, WR, 7, 128) rows of ``native.relayout_words14``; C % 16 == 0.
       state: (KSTATE, C) int32, from :func:`pack_state`; not modified.
       tc: ticks per chunk (divides T; even when time_packed).
       k_slots: per-channel hit capacity per chunk.
@@ -323,8 +458,9 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
     """
     if feed.device.type == "cpu" and state.device.type == "cpu":
         return process_window_plain(feed, state, cfg, tc, k_slots,
-                                    time_packed)
-    return launch_kernel(feed, state, cfg, tc, k_slots, time_packed)
+                                    time_packed, packed14)
+    return launch_kernel(feed, state, cfg, tc, k_slots, time_packed,
+                         packed14)
 
 
 # CUDA kernel launches (never the plain path): in all, and per kernel

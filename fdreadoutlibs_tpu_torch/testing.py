@@ -44,6 +44,16 @@ def time2_words(adcs: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a[0::2] | (a[1::2] << 16))
 
 
+def frame_words(adcs: np.ndarray) -> np.ndarray:
+    """(T, C) ADCs, C = 64 L -> (L, T, 28) uint32 packed WIBEth frame
+    words (channel = link*64 + c), packed as ``wibeth.set_adcs`` packs a
+    frame's rows."""
+    from .formats.bitpack import pack_14bit
+    T, C = np.shape(adcs)
+    w = pack_14bit(np.asarray(adcs).reshape(T, C // 64, 64), n_words=28)
+    return np.ascontiguousarray(w.transpose(1, 0, 2))
+
+
 def fir_stream(T: int, C: int, tc: int, k_slots: int, seed: int):
     """:func:`tpg_stream`'s window with the FIR family's edge cases added:
     wide-noise channels (an IQR above the AVX sigma clamp), a long pulse

@@ -1,7 +1,9 @@
 """The port's APAReadoutApp (device="cpu": the kernel's plain version)
-against the JAX package's (Pallas interpret mode), both on the production
-configuration: time2 feed, AbsRS, threshold-on-collection.  Hits, counters,
-dropped counts, the TP latency buffer and the TPSets must be equal."""
+against the JAX package's (Pallas interpret mode), on the production
+configuration (AbsRS, threshold-on-collection) with each of its four feeds:
+time2, fused in-kernel unpack, words14 and the plain packed feed.  Hits,
+counters, dropped counts, the TP latency buffer and the TPSets must be
+equal."""
 
 import importlib.util
 from pathlib import Path
@@ -166,6 +168,59 @@ def test_chip_smoke_oracle_matches_jax_app():
     assert sum(len(h) for h, _ in got) > 0
 
 
-def test_unported_feeds_refused():
-    with pytest.raises(NotImplementedError):
-        APAReadoutApp(n_links=1, device="cpu")          # plain feed: K2
+FEEDS = {"fused": dict(fused_unpack=True), "words14": dict(words14_feed=True),
+         "packed": {}}
+
+
+@pytest.mark.parametrize("feed", list(FEEDS))
+def test_port_app_feed_matches_jax_app(feed):
+    """The packed-word feeds (K4 fused / words14, K2 packed) against the
+    JAX app with the same feed flag, on the same frames."""
+    kw = dict(PROD, time2_feed=False, **FEEDS[feed])
+    batches = make_batches(seed=31)
+    port = run(APAReadoutApp(n_links=L, device="cpu", **kw), batches)
+    ref = run(JaxApp(n_links=L, pallas_interpret=True, **kw), batches)
+    assert_same_run(port, ref)
+    info = port[1]
+    assert info["total_hits"] > 0 and info["total_tps_sent"] > 0
+    assert info["ts_errors"] == 0
+    assert len(port[3]) > 0
+
+
+def test_feeds_agree_and_flags_exclusive():
+    """Same frames, same function: every feed fetches the same hits; the
+    JAX app's exclusivity rules hold."""
+    batches = make_batches(seed=37, n_batches=2, n_links=2)
+    runs = [run(APAReadoutApp(n_links=2, device="cpu",
+                              **{**PROD, "time2_feed": False, **kw}),
+                batches)[0]
+            for kw in ({"time2_feed": True}, *FEEDS.values())]
+    for other in runs[1:]:
+        for (ha, da), (hb, db) in zip(runs[0], other):
+            np.testing.assert_array_equal(ha, hb)
+            assert da == db
+    for bad in (dict(words14_feed=True, time2_feed=True),
+                dict(fused_unpack=True, time2_feed=True)):
+        with pytest.raises(ValueError, match="exclusive"):
+            APAReadoutApp(n_links=1, device="cpu", **bad)
+
+
+def _unported(case):
+    from fdreadoutlibs_tpu.ops import TPGConfig
+    from fdreadoutlibs_tpu_torch.ops import ingest, tpg
+    if case == "daphne_stream":
+        ingest.StreamingIngest(TPGConfig(), n_links=1, format="daphne_stream",
+                               device="cpu")
+    else:                                               # K4b
+        state = tpg.pack_state({k: 0 for k in tpg._STATE_KEYS}, 16)
+        ingest.process_words14_feed(
+            torch.zeros((64, 1, 7, 128), dtype=torch.int32), state,
+            TPGConfig(), 16, tc=64, slab=True)
+
+
+@pytest.mark.parametrize("case", ["daphne_stream", "words14_slab"])
+def test_unported_feeds_refused(case):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md" if case == "daphne_stream"
+                       else "K4b"):
+        _unported(case)

@@ -25,14 +25,25 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke  # noqa: F401
 
 from fdreadoutlibs_tpu_torch.apps.apa_readout import APAReadoutApp, make_batch
-app = APAReadoutApp(n_links=2, algorithm="AbsRS", threshold=150,
-                    threshold_on_collection=True, time2_feed=True,
-                    device="cpu")
-rng = np.random.default_rng(1)
-for b in range(2):
-    app.process_batch(make_batch(rng, 2, 2, b, 0x1000000 + 4096 * b)[0])
-info = app.get_info()
-assert info["total_hits"] > 0 and info["ts_errors"] == 0, info
+for feed in ("time2_feed", "fused_unpack", "words14_feed", None):
+    app = APAReadoutApp(n_links=2, algorithm="AbsRS", threshold=150,
+                        threshold_on_collection=True, device="cpu",
+                        **({feed: True} if feed else {}))
+    rng = np.random.default_rng(1)
+    for b in range(2):
+        app.process_batch(make_batch(rng, 2, 2, b, 0x1000000 + 4096 * b)[0])
+    info = app.get_info()
+    assert info["total_hits"] > 0 and info["ts_errors"] == 0, (feed, info)
+
+from fdreadoutlibs_tpu.ops.config import TPGConfig
+from fdreadoutlibs_tpu_torch.ops.ingest import StreamingIngest
+for kw in ({}, {"fused": True}, {"time2": True}):
+    ing = StreamingIngest(TPGConfig(threshold=150), 2, tc=64, device="cpu",
+                          **kw)
+    rng = np.random.default_rng(2)
+    for b in range(2):
+        ing.submit(make_batch(rng, 2, 2, b, 0x1000000 + 4096 * b)[0])
+    assert len(ing.flush()[0]) > 0, kw
 
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor
 from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
@@ -50,7 +61,6 @@ for time2 in (False, True):
 assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")]
 
 if not torch.cuda.is_available():
-    from fdreadoutlibs_tpu.ops.config import TPGConfig
     from fdreadoutlibs_tpu_torch.ops import _build, tpg
     try:
         APAReadoutApp(n_links=1, time2_feed=True, device="cuda")
@@ -58,6 +68,13 @@ if not torch.cuda.is_available():
         pass
     else:
         raise AssertionError("device='cuda' without a card did not raise")
+    try:
+        StreamingIngest(TPGConfig(), 1, device="cuda")
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("StreamingIngest on 'cuda' without a card did "
+                             "not raise")
     try:
         WIB2FrameProcessor(device="cuda")
     except RuntimeError:
@@ -73,6 +90,13 @@ if not torch.cuda.is_available():
         pass
     else:
         raise AssertionError("the CUDA kernel route took CPU tensors")
+    words = torch.zeros((1, 64, 28), dtype=torch.int32)
+    try:      # nor the packed encoding (K4)
+        tpg.launch_kernel(words, state, TPGConfig(), 64, 2, False, "frames")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the CUDA kernel route took CPU packed words")
     try:      # nor does the wrapper take a device it has no route for
         tpg.process_window(feed.to("meta"), state.to("meta"), TPGConfig(),
                            64, 2)
