@@ -15,6 +15,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    StandardRS, K3 (FIR, threshold 5) on both datapaths with and without
    peak tracking.  Slots, nclose and state must be bit-equal and some
    chunk must close more than K hits (drops exercised); both are timed.
+   A time2 case whose words split back into the ADCs takes the plain
+   datapath's plain result for them (the same function of the same
+   samples), except the reported K1 case, which runs its own.
    K4 (the in-kernel 14-bit unpack) takes the same ADCs packed as frame
    words (L, T, 28) and as words14 rows (T, WR, 7, 128) for the four
    families: the torch unpack of each must give back the ADCs, so K4's
@@ -36,16 +39,39 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    warm-up batch, 8 steady batches (end-to-end RTF, ms per batch), one
    launch per link per batch, TPs sent and no timestamp errors, batches
    0-1 of every link equal to the plain version with the processors'
-   seeding, tc and compaction; then a per-stage split of one batch.
+   seeding, tc and compaction; then a per-stage split of one batch;
+6. protowib slice — 10 ProtoWIB links (96 collection + 160 induction
+   channels each) through 10 per-link ``WIBFrameProcessor``s (pallas
+   backend, FIR threshold 5 on both planes), batches of 512 superchunks per
+   link (T = 6144 ticks = 3.072 ms), three times: the packed feed (device
+   decode) under a tuned file naming ``twopass`` 0 (K2 + K3), the packed
+   feed under ``twopass`` 2 and the time2 feed under ``twopass`` 1 (K5,
+   the two-pass FIR schedule).  Per run one warm-up batch and 8 steady
+   batches (end-to-end RTF, ms per batch), one launch per plane per link
+   per batch, TPs sent and no timestamp errors, batches 0-1 of every link
+   and plane equal to the plain version with the processors' seeding, tc
+   and compaction, the same hits and TPs in all three runs, and a
+   per-stage split of one batch.
+
+Phase 2 also builds the port's native host codecs (``native/``) and fails
+if they do not load, so no host stage is timed on the numpy fallback.
+Phase 3 also holds K5 (fir_twopass 1 and 2, peaks off and on, plain and
+time2 datapaths) bit-equal to K3 on the same inputs, and to K5's plain
+version once per schedule, and times both in the same call.
 
 The last lines are the card's name and power limit, one JSON object with
-the kernels, and the result line ``{"ok": true, "device": {...}}``.
-Imports only ``torch``, numpy and the port.
+the kernels (each with its launches on the main paths, its error against
+the plain version, its time, the plain version's, and its bound: the
+larger of the bytes it must move over 3.35 TB/s and its int32 operations
+over the card's int32 issue rate at the measured SM clock), and the result
+line ``{"ok": true, "device": {...}}``.  Imports only ``torch``, numpy and
+the port.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -56,18 +82,22 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from fdreadoutlibs_tpu_torch import native
 from fdreadoutlibs_tpu_torch.apps.apa_readout import APAReadoutApp, make_batch
-from fdreadoutlibs_tpu_torch.formats import wib2, wibeth
+from fdreadoutlibs_tpu_torch.formats import protowib, wib2, wibeth
 from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, _build,
                                          ingest, init_chanstate,
                                          seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.ingest import (compact_on_device,
                                                 unpack_compact)
-from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor
+from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor, \
+    WIBFrameProcessor
 from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
 from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
+                                             protowib_superchunks,
                                              time2_words, tpg_stream,
                                              wib2_superchunks)
+from fdreadoutlibs_tpu_torch.tp.wib_tp_handler import WIBTPHandler
 from fdreadoutlibs_tpu_torch.utils.tuning import kernel_knobs
 
 N_LINKS = 40                 # one APA
@@ -89,11 +119,38 @@ WIB2_T = WIB2_SC * wib2.FRAMES_PER_SUPERCHUNK      # 6144 ticks
 WIB2_TICK_S = 32 / 62.5e6    # 512 ns
 WIB2_TIMED = 8
 
+PW_LINKS = 10                # 10 x 256 = 2560 channels
+PW_SC = 512                  # superchunks per link per batch
+PW_T = PW_SC * protowib.FRAMES_PER_SUPERCHUNK      # 6144 ticks
+PW_TICK_S = 25 / 50e6        # 500 ns
+PW_TIMED = 8
+# the ProtoWIB runs: (label, time2 feed, the tuned file's twopass)
+PW_RUNS = (("packed, twopass 0", False, 0), ("packed, twopass 2", False, 2),
+           ("time2, twopass 1", True, 1))
+PW_PLANES = (("collection", protowib.COLLECTION_INDEX_TO_CHAN),
+             ("induction", protowib.INDUCTION_INDEX_TO_CHAN))
+
+KERNELS = ("K1", "K2", "K3", "K4", "K5")
 REPLACES = {"K1": "fdreadoutlibs_tpu/ops/pallas_tpg.py:439",
             "K2": "fdreadoutlibs_tpu/ops/pallas_tpg.py:399",
             "K3": "fdreadoutlibs_tpu/ops/pallas_tpg.py:464",
-            "K4": "fdreadoutlibs_tpu/ops/pallas_tpg.py:241"}
+            "K4": "fdreadoutlibs_tpu/ops/pallas_tpg.py:241",
+            "K5": "fdreadoutlibs_tpu/ops/pallas_tpg.py:585"}
 SOURCE = "fdreadoutlibs_tpu_torch/csrc/tpg.cu"
+
+# The bound of a kernel case: the larger of its bytes (feed read once,
+# state read and written once, slots and nclose written once) over the
+# HBM rate, and its int32 operations over the card's int32 issue rate (132
+# SMs x 64 INT32 lanes per clock at the measured SM clock).  Operations
+# per tick per channel, counted from csrc/tpg.cu (ThresholdChannel::tick,
+# FirChannel::tick; K5 does FirChannel's work in passes), plus the feed
+# decode per tick (time2: one shift or wrap; packed: the funnel shift and
+# mask).
+HBM_BYTES_PER_S = 3.35e12
+SMS, INT32_LANES = 132, 64
+OPS_PER_TICK = {"SimpleThreshold": 26, "AbsRS": 42, "StandardRS": 40,
+                "FIR": 68}
+DECODE_OPS = {"plain": 0, "time2": 1, "packed14": 2}
 
 
 def phase(name):
@@ -159,10 +216,10 @@ def plain_app_hits(adcs_batches, rmf, cfg, k_slots: int, dev):
                                                max(2048, 2 * C)))
 
 
-def plain_processor_hits(adcs_batches, procs, time2: bool, dev):
+def plain_processor_hits(adcs_batches, procs, dev):
     """What the per-link WIB2 processors must fetch for consecutive batches
     of (L, T, 256) ADCs: the kernel's plain version over all links' channels
-    at once (channels are independent), on the processors' datapath, with
+    at once (channels are independent), on the plain datapath, with
     their seeding, tc, K and compaction per link, carrying state.  Yields
     per batch a list of (hits, dropped) per link."""
     p0 = procs[0]
@@ -177,9 +234,9 @@ def plain_processor_hits(adcs_batches, procs, time2: bool, dev):
             state = tpg.pack_state(seed_chanstate(
                 init_chanstate(L * C), flat[0], rmf), L * C, device=dev)
         tc = tpg.auto_tc(T, cap=kernel_knobs(p0.tpg_cfg)["tc"])
-        feed = torch.from_numpy(time2_words(flat) if time2 else flat).to(dev)
         slots, nclose, state = tpg.process_window_plain(
-            feed, state, p0.tpg_cfg, tc, p0.k_slots, time_packed=time2)
+            torch.from_numpy(flat).to(dev), state, p0.tpg_cfg, tc,
+            p0.k_slots, time_packed=False)
         yield [unpack_compact(compact_on_device(
             slots[..., l * C:(l + 1) * C].contiguous(),
             nclose[:, l * C:(l + 1) * C].contiguous(), 0, C,
@@ -208,33 +265,55 @@ def check_strong(label: str, got) -> str:
     return f"{n_hits} hits, max {n_over} closes/chunk"
 
 
+def split_time2(words: torch.Tensor) -> torch.Tensor:
+    """(T/2, C) time2 words -> (T, C) samples: tick 2j from the low 16
+    bits (sign-extended), 2j+1 from the high 16."""
+    lo, hi = (words << 16) >> 16, words >> 16
+    return torch.stack([lo, hi], dim=1).reshape(-1, words.shape[1])
+
+
+def kernel_work(feed, cfg, encoding: str, T: int, C: int) -> dict:
+    """Bytes and int32 operations one launch must do on these inputs."""
+    n_chunks = T // TC
+    out = n_chunks * K * tpg.record_words(cfg) * C + n_chunks * C
+    return {"bytes": feed.numel() * 4 + 2 * tpg.KSTATE * C * 4 + out * 4,
+            "ops": T * C * (OPS_PER_TICK[cfg.algorithm.value]
+                            + DECODE_OPS[encoding])}
+
+
 def kernel_vs_plain(dev):
     """Phase 3.  Returns {kernel: {"max_abs_err", "ms", "plain_ms",
-    "timed"}} for the variant reported per kernel."""
+    "timed", "work"}} for the variant reported per kernel (K5 also
+    carries K3's time on the same inputs in this call)."""
     fir = TPGConfig.from_raw("FIR", threshold=5, track_peaks=False)
     thr = {"SimpleThreshold": TPGConfig(threshold=150),
            "AbsRS": TPGConfig.from_raw("AbsRS", threshold=150),
            "StandardRS": TPGConfig(algorithm=Algorithm.STANDARD_RS,
                                    threshold=150)}
-    cases = [("K1", f"{n} time2", c, True) for n, c in thr.items()] + \
-        [("K2", f"{n} plain", c, False) for n, c in thr.items()] + \
+    # the plain datapath first: a time2 case whose words split back into
+    # the same ADCs takes that case's plain result (the same function of the
+    # same samples); the reported K1 case runs its own plain version
+    cases = [("K2", f"{n} plain", c, False) for n, c in thr.items()] + \
+        [("K3", "FIR plain", fir, False),
+         ("K3", "FIR plain peaks", replace(fir, track_peaks=True), False)] + \
+        [("K1", f"{n} time2", c, True) for n, c in thr.items()] + \
         [("K3", "FIR time2", fir, True),
-         ("K3", "FIR time2 peaks", replace(fir, track_peaks=True), True),
-         ("K3", "FIR plain", fir, False),
-         ("K3", "FIR plain peaks", replace(fir, track_peaks=True), False)]
+         ("K3", "FIR time2 peaks", replace(fir, track_peaks=True), True)]
     reported = {"K1": "AbsRS time2", "K2": "AbsRS plain", "K3": "FIR plain",
-                "K4": "AbsRS frames"}
+                "K4": "AbsRS frames", "K5": "FIR plain twopass 2"}
     adcs, rmf = tpg_stream(T_APA, C_APA, TC, K, SEED)
     fadcs = fir_stream(T_APA, C_APA, TC, K, SEED)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     out = {}
     plain = {}      # plain-datapath label -> (adcs, cfg, state, result)
+    k3 = {}         # K3 label -> (feed, state, cfg, time2, result, ms)
 
-    def record(kern, label, err, ms, plain_ms):
+    def record(kern, label, err, ms, plain_ms, work, **extra):
         prev = out.get(kern, {"max_abs_err": 0})
         entry = {"max_abs_err": max(prev["max_abs_err"], err)}
         if label == reported[kern]:
-            entry.update(ms=ms, plain_ms=plain_ms, timed=label)
+            entry.update(ms=ms, plain_ms=plain_ms, timed=label, work=work,
+                         **extra)
         out[kern] = {**prev, **entry}
 
     for kern, label, cfg, time2 in cases:
@@ -247,19 +326,33 @@ def kernel_vs_plain(dev):
             return tpg.launch_kernel(feed, state, cfg, TC, K, time2)
         got = run()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = tpg.process_window_plain(feed, state, cfg, TC, K, time2)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = label.replace("time2", "plain")
+        plain_ms = None
+        if time2 and label != reported[kern] and same in plain:
+            if not torch.equal(split_time2(feed),
+                               torch.from_numpy(a).to(dev)):
+                raise AssertionError(f"{label}: the time2 words do not "
+                                     "split back into the ADCs")
+            want = plain[same][3]
+        else:
+            t0 = time.perf_counter()
+            want = tpg.process_window_plain(feed, state, cfg, TC, K, time2)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
         err = check_equal(label, got, want)
         what = check_strong(label, got)
-        if not time2 and "peaks" not in label:
+        if not time2:
             plain[label] = (a, cfg, state, want)
         ms = time_kernel(run, 20, flush)
+        if kern == "K3":
+            k3[label] = (feed, state, cfg, time2, got, ms)
         print(f"  {kern} {label}: T={T_APA} x {C_APA} ch bit-equal ({what}); "
-              f"kernel {ms:.4f} ms/batch, plain {plain_ms:.1f} ms/batch",
-              flush=True)
-        record(kern, label, err, ms, plain_ms)
+              f"kernel {ms:.4f} ms/batch"
+              + (f", plain {plain_ms:.1f} ms/batch" if plain_ms else
+                 f" (plain result of '{same}')"), flush=True)
+        record(kern, label, err, ms, plain_ms,
+               kernel_work(feed, cfg, "time2" if time2 else "plain", T_APA,
+                           C_APA))
 
     # K4: the same ADCs as packed words.  Its plain version is the torch
     # unpack and then K2's (K3's) plain loop: the unpack is checked equal to
@@ -298,8 +391,59 @@ def kernel_vs_plain(dev):
                   f"({what}); kernel {ms:.4f} ms/batch"
                   + (f", plain {plain_ms:.1f} ms/batch" if plain_ms else ""),
                   flush=True)
-            record("K4", label, err, ms, plain_ms)
+            record("K4", label, err, ms, plain_ms,
+                   kernel_work(feed, cfg, "packed14", T_APA, C_APA))
+
+    # K5: the two-pass FIR schedule on K3's inputs, held to K3's result in
+    # every case and to its own plain version once per schedule (the
+    # plain datapath without peaks), both timed in this call
+    for lift in (1, 2):
+        for src, (feed, state, cfg, time2, want_k3, k3_ms) in k3.items():
+            label = f"{src} twopass {lift}"
+
+            def run(feed=feed, state=state, cfg=cfg, time2=time2,
+                    lift=lift):
+                return tpg.launch_kernel(feed, state, cfg, TC, K, time2,
+                                         fir_twopass=lift)
+            got = run()
+            torch.cuda.synchronize()
+            err = check_equal(f"{label} vs K3", got, want_k3)
+            plain_ms = None
+            if src == "FIR plain":
+                t0 = time.perf_counter()
+                want = tpg.process_window_twopass_plain(feed, state, cfg, TC,
+                                                        K, lift, time2)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                err = max(err, check_equal(label, got, want))
+            what = check_strong(label, got)
+            ms = time_kernel(run, 20, flush)
+            print(f"  K5 {label}: bit-equal to K3"
+                  + (" and to K5's plain version" if plain_ms else "")
+                  + f" ({what}); kernel {ms:.4f} ms/batch, K3 {k3_ms:.4f} "
+                  "ms/batch in this call"
+                  + (f", plain {plain_ms:.1f} ms/batch" if plain_ms else ""),
+                  flush=True)
+            record("K5", label, err, ms, plain_ms,
+                   kernel_work(feed, cfg, "time2" if time2 else "plain",
+                               T_APA, C_APA), k3_ms=k3_ms)
     return out
+
+
+def sm_clock_mhz() -> float:
+    """The card's SM clock now (right after a timing loop), in MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0])
+
+
+def bound(work: dict, sm_mhz: float):
+    """(bound_ms, bound_by) of a kernel case's bytes and operations."""
+    bytes_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = work["ops"] / (SMS * INT32_LANES * sm_mhz * 1e6) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
 
 
 def clock(fn):
@@ -485,9 +629,11 @@ def wib2_stage_split(procs, superchunks, time2: bool, n_rep: int = 5):
     return stages
 
 
-def wib2_slice(time2: bool, batches, checked, dev):
-    """Phase 5, one ingest mode.  Returns the kernel launch counts of the
-    processors' run."""
+def wib2_slice(time2: bool, batches, checked, plain: list, dev):
+    """Phase 5, one ingest mode.  ``plain`` holds the plain result of the
+    checked batches, made by the first mode's call on the plain datapath
+    (the time2 feed carries the same samples, so the same result).
+    Returns the kernel launch counts of the processors' run."""
     mode = "time2 feed" if time2 else "packed ingest"
     procs, sinks = make_wib2_procs(time2, dev)
     fetched = [[None] * WIB2_LINKS for _ in range(N_CHECKED)]
@@ -517,8 +663,9 @@ def wib2_slice(time2: bool, batches, checked, dev):
     launches = dict(tpg.process_window.kernel_launches)
     wall_all = time.perf_counter() - t_all
     n_b = len(batches)
-    want = {"K1": 0, "K2": 0 if time2 else n_b * WIB2_LINKS,
-            "K3": n_b * WIB2_LINKS, "K4": 0}
+    want = {k: 0 for k in KERNELS}
+    want["K2"] = 0 if time2 else n_b * WIB2_LINKS
+    want["K3"] = n_b * WIB2_LINKS
     data_s = WIB2_TIMED * WIB2_T * WIB2_TICK_S
     steady = batch_ms[1:]
     print(f"  {mode}: warm-up batch {batch_ms[0]:.3f} ms (set-up, not in the "
@@ -536,8 +683,9 @@ def wib2_slice(time2: bool, batches, checked, dev):
             and metrics["num_ts_errors"] == 0):
         raise AssertionError(f"{mode}: slice output wrong: {metrics}")
     prev_drop = [0] * WIB2_LINKS
-    for b, want_links in enumerate(plain_processor_hits(checked, procs,
-                                                        time2, dev)):
+    if not plain:
+        plain.extend(plain_processor_hits(checked, procs, dev))
+    for b, want_links in enumerate(plain):
         n_h = n_d = 0
         for l, (want_h, want_d) in enumerate(want_links):
             hits, drop_total = fetched[b][l]
@@ -557,6 +705,248 @@ def wib2_slice(time2: bool, batches, checked, dev):
           "(medians of 5, each stage synced):",
           json.dumps({k: round(v, 4) for k, v in split.items()}))
     return launches
+
+
+def make_protowib_procs(time2: bool, dev):
+    procs = []
+    for link in range(PW_LINKS):
+        # the handler drops a TP older than tp_timeout clocks at insert: a
+        # batch spans PW_T * 25 clocks, so every TP of a batch is kept
+        handler = WIBTPHandler(tp_timeout=2 * PW_T * 25, source_id=link)
+        p = WIBFrameProcessor(tp_handler=handler, device=dev)
+        p.conf({"crate_id": 1, "slot_id": 0, "link_id": link,
+                "enable_tpg": True, "tpg_backend": "pallas",
+                "tpg_collection_threshold": 5, "tpg_induction_threshold": 5,
+                "tpg_time2_feed": time2})
+        p.start()
+        procs.append(p)
+    return procs
+
+
+def plain_protowib_hits(adcs_batches, p0, dev):
+    """What the per-link ProtoWIB processors must fetch for consecutive
+    batches of (L, T, 256) ADCs: per plane, the kernel's plain version (the
+    fused FIR tick; K5 is held equal to it) over that plane's channels of
+    all links at once, with the processors' seeding, tc, K and compaction
+    per link, carrying state.  Yields per batch {plane: [(hits, dropped)
+    per link]}; ``p0`` is one of the processors, after its run."""
+    L = adcs_batches[0].shape[0]
+    cfgs = {"collection": p0.coll_cfg, "induction": p0.ind_cfg}
+    states = {}
+    for adcs in adcs_batches:
+        T = adcs.shape[1]
+        tc = tpg.auto_tc(T, cap=kernel_knobs(p0.coll_cfg)["tc"])
+        out = {}
+        for plane, idx in PW_PLANES:
+            C = len(idx)
+            flat = np.ascontiguousarray(
+                adcs[:, :, idx].transpose(1, 0, 2).reshape(T, L * C))
+            if plane not in states:
+                states[plane] = tpg.pack_state(seed_chanstate(
+                    init_chanstate(L * C), flat[0], 0), L * C, device=dev)
+            slots, nclose, states[plane] = tpg.process_window_plain(
+                torch.from_numpy(flat).to(dev), states[plane], cfgs[plane],
+                tc, p0.k_slots, time_packed=False)
+            out[plane] = [unpack_compact(compact_on_device(
+                slots[..., l * C:(l + 1) * C].contiguous(),
+                nclose[:, l * C:(l + 1) * C].contiguous(), 0, C,
+                max(2048, 2 * C))) for l in range(L)]
+        yield out
+
+
+def protowib_stage_split(procs, superchunks, time2: bool, n_rep: int = 5):
+    """One batch of every link through the processor's device seam one
+    step at a time, each ended by a device sync: median ms per stage,
+    summed over the links (and the two planes).  The processors' carried
+    state is left untouched; the TP tail feeds their handlers once more."""
+    stages = {}
+    for l, p in enumerate(procs):
+        flat = protowib.superchunk_frames(superchunks[l]) \
+            .reshape(-1, protowib.FRAME_SIZE)
+        knobs = kernel_knobs(p.coll_cfg)
+        tc = tpg.auto_tc(PW_T, cap=knobs["tc"])
+        stacks = {"collection": (p._coll_stack, p.coll_cfg),
+                  "induction": (p._ind_stack, p.ind_cfg)}
+        reps = []
+        for _ in range(n_rep):
+            r = {}
+            feeds = {}
+            if time2:
+                r["host codec"] = r["H2D"] = 0.0
+                for plane, idx in PW_PLANES:
+                    host, ms = clock(lambda: native.relayout_time2_protowib(
+                        flat, idx, pad8=False))
+                    r["host codec"] += ms
+                    feeds[plane], ms = clock(lambda: torch.from_numpy(
+                        host).to(p.device).reshape(PW_T // 2, -1))
+                    r["H2D"] += ms
+            else:
+                words, r["words + H2D"] = clock(lambda: p._device_words(flat))
+                adcs, r["device decode"] = clock(
+                    lambda: protowib.unpack_frames(words))
+                r["plane gather"] = 0.0
+                for plane, idx in PW_PLANES:
+                    feeds[plane], ms = clock(lambda: adcs.index_select(
+                        1, torch.as_tensor(idx, device=adcs.device)))
+                    r["plane gather"] += ms
+            r["kernel"] = r["compaction"] = r["fetch"] = 0.0
+            hits = {}
+            for plane, idx in PW_PLANES:
+                state, cfg = stacks[plane]
+                (slots, nclose, _), ms = clock(lambda: tpg.process_window(
+                    feeds[plane], state, cfg, tc, p.k_slots, time2,
+                    fir_twopass=knobs["fir_twopass"]))
+                r["kernel"] += ms
+                packed, ms = clock(lambda: compact_on_device(
+                    slots, nclose, 0, len(idx), max(2048, 2 * len(idx))))
+                r["compaction"] += ms
+                (hits[plane], _), ms = clock(lambda: unpack_compact(packed))
+                r["fetch"] += ms
+            ts = int(protowib.get_timestamp(flat[:1])[0])
+            current = ts + 25 * PW_T
+            _, r["TP tail"] = clock(lambda: (
+                p._emit_tps(hits["collection"], p.collection_offlines, ts,
+                            current),
+                p._emit_tps(hits["induction"], p.induction_offlines, ts,
+                            current)))
+            reps.append(r)
+        for k in reps[0]:
+            stages[k] = stages.get(k, 0.0) + statistics.median(
+                r[k] for r in reps)
+    return stages
+
+
+def protowib_run(label: str, time2: bool, twopass: int, batches, checked,
+                 plain: list, dev):
+    """Phase 6, one run: the processors under a tuned file naming
+    ``twopass``; ``plain`` holds the plain result of the checked batches,
+    made after the first run.  Returns (the kernel launch counts of the
+    run, its hits and TP counters)."""
+    tuned = _build.BUILD_DIR / f"tuned_fir_twopass{twopass}.json"
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    tuned.write_text(json.dumps({"FIR": {"twopass": twopass}}))
+    os.environ["FDREADOUT_TUNED"] = str(tuned)
+    try:
+        procs = make_protowib_procs(time2, dev)
+        if kernel_knobs(TPGConfig.from_raw("FIR", threshold=5))[
+                "fir_twopass"] != twopass:
+            raise AssertionError(f"{label}: the tuned file was not read")
+        fetched = [[None] * PW_LINKS for _ in range(N_CHECKED)]
+        batch_idx = [0]
+        for l, p in enumerate(procs):
+            def recording(hits, offlines, timestamp, current, p=p, l=l,
+                          orig=p._emit_tps):
+                b = batch_idx[0]
+                if b < N_CHECKED:
+                    fetched[b][l] = (fetched[b][l] or ()) + (hits,)
+                return orig(hits, offlines, timestamp, current)
+            p._emit_tps = recording
+        drops = [[0] * PW_LINKS for _ in range(N_CHECKED + 1)]
+        batch_ms = []
+        tpg.reset_launches()
+        t_all = time.perf_counter()
+        for b, sc in enumerate(batches):
+            batch_idx[0] = b
+            t0 = time.perf_counter()
+            for p, sc_l in zip(procs, sc):
+                p.process(sc_l)
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            if b == 0:
+                t_steady = time.perf_counter()
+            if b < N_CHECKED:
+                drops[b + 1] = [p.metrics.count("num_hits_dropped")
+                                for p in procs]
+        wall = time.perf_counter() - t_steady
+        launches = dict(tpg.process_window.kernel_launches)
+        wall_all = time.perf_counter() - t_all
+        n_launch = len(batches) * PW_LINKS * len(PW_PLANES)
+        want = {k: 0 for k in KERNELS}
+        if twopass:
+            want["K5"] = n_launch
+        else:
+            want["K3"] = n_launch
+            want["K2"] = 0 if time2 else n_launch
+        data_s = PW_TIMED * PW_T * PW_TICK_S
+        steady = batch_ms[1:]
+        print(f"  {label}: warm-up batch {batch_ms[0]:.3f} ms (set-up, not "
+              f"in the RTF); steady wall {wall:.4f} s for {PW_TIMED} "
+              f"batches, data {data_s:.6f} s, end_to_end_rtf "
+              f"{data_s / wall:.4f}; ms/batch p50 "
+              f"{statistics.median(steady):.3f} min {min(steady):.3f} max "
+              f"{max(steady):.3f} ({wall_all:.3f} s with the warm-up)")
+        metrics = {k: sum(p.metrics.count(k) for p in procs) for k in (
+            "num_hits", "num_hits_dropped", "num_tps_sent", "num_ts_errors")}
+        for p in procs:        # the windows still open at the end
+            while p.tp_handler.try_sending_tpsets(1 << 62) is not None:
+                pass
+        tpsets = sum(p.tp_handler.sent_tpsets for p in procs)
+        print(f"  {label}: {json.dumps(metrics)}, TPSets sent {tpsets}, "
+              f"launches {json.dumps(launches)}")
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, want {want}")
+        if not (metrics["num_tps_sent"] > 0 and tpsets > 0
+                and metrics["num_ts_errors"] == 0):
+            raise AssertionError(f"{label}: slice output wrong: {metrics}")
+        if not plain:
+            plain.extend(plain_protowib_hits(checked, procs[0], dev))
+        for b, want_planes in enumerate(plain):
+            n_h = n_d = 0
+            for l in range(PW_LINKS):
+                got = fetched[b][l]
+                d = drops[b + 1][l] - drops[b][l]
+                want_d = 0
+                for (plane, _), hits in zip(PW_PLANES, got):
+                    want_h, dp = want_planes[plane][l]
+                    want_d += dp
+                    if not np.array_equal(hits, want_h):
+                        raise AssertionError(
+                            f"{label} batch {b} link {l} {plane}: "
+                            f"{len(hits)} hits differ from the plain "
+                            f"version's {len(want_h)}")
+                    n_h += len(hits)
+                if d != want_d:
+                    raise AssertionError(f"{label} batch {b} link {l}: "
+                                         f"dropped {d}, plain {want_d}")
+                n_d += d
+            print(f"  {label} batch {b}: {n_h} hits, {n_d} dropped over "
+                  f"{PW_LINKS} links x 2 planes == plain")
+        split = protowib_stage_split(procs, batches[-1], time2)
+        print(f"  {label} stage split, one batch of {PW_LINKS} links, ms "
+              "(medians of 5, each stage synced):",
+              json.dumps({k: round(v, 4) for k, v in split.items()}))
+        return launches, metrics
+    finally:
+        os.environ.pop("FDREADOUT_TUNED", None)
+
+
+def protowib_slice(dev) -> dict:
+    """Phase 6.  Returns the summed kernel launch counts of the three
+    runs."""
+    t0 = time.perf_counter()
+    batches, checked = [], []
+    for b in range(1 + PW_TIMED):
+        sc, adcs = protowib_superchunks(
+            PW_LINKS, PW_SC, seed=SEED + 100 + b,
+            ts0=0x1000000 + b * PW_SC * protowib.SUPERCHUNK_TICK_DIFFERENCE)
+        batches.append(sc)
+        if b < N_CHECKED:
+            checked.append(adcs)
+    print(f"  data: {len(batches)} batches of {PW_LINKS} x {PW_SC} "
+          f"superchunks in {time.perf_counter() - t0:.3f} s")
+    plain = []
+    totals = {k: 0 for k in KERNELS}
+    first = None
+    for label, time2, twopass in PW_RUNS:
+        launches, metrics = protowib_run(label, time2, twopass, batches,
+                                         checked, plain, dev)
+        for k in KERNELS:
+            totals[k] += launches[k]
+        if first is None:
+            first = metrics
+        elif metrics != first:
+            raise AssertionError(f"{label}: {metrics} differ from the first "
+                                 f"run's {first}")
+    return totals
 
 
 def main() -> int:
@@ -582,15 +972,20 @@ def main() -> int:
         if "tpg" in _build.build_log:
             print("  ptxas:", ptxas_summary(_build.build_log["tpg"]))
         _build.load("tpg")
+        # the host codecs timed below must be the native library's
+        print(f"native host codecs loaded: {native.available()}")
+        if not native.available():
+            raise RuntimeError("the port's native host library did not "
+                               "build or load (g++ into "
+                               "fdreadoutlibs_tpu_torch/_build/)")
 
     with phase("3 kernel vs plain"):
         kernels = kernel_vs_plain(dev)
+        sm_mhz = sm_clock_mhz()
+        print(f"  SM clock after the timing loops: {sm_mhz} MHz")
 
     with phase("4 apa slice"):
         app_launches = apa_slice(dev)
-        kernels["K1"]["launches"] = app_launches["time2"]
-        kernels["K4"]["launches"] = (app_launches["fused"]
-                                     + app_launches["words14"])
 
     with phase("5 wib2 slice"):
         t0 = time.perf_counter()
@@ -604,19 +999,39 @@ def main() -> int:
                 checked.append(adcs)
         print(f"  data: {len(batches)} batches of {WIB2_LINKS} x {WIB2_SC} "
               f"superchunks in {time.perf_counter() - t0:.3f} s")
-        packed = wib2_slice(False, batches, checked, dev)
-        time2 = wib2_slice(True, batches, checked, dev)
-        kernels["K2"]["launches"] = packed["K2"] + app_launches["packed"]
-        kernels["K3"]["launches"] = packed["K3"] + time2["K3"]
+        plain = []
+        packed = wib2_slice(False, batches, checked, plain, dev)
+        time2 = wib2_slice(True, batches, checked, plain, dev)
+        del batches, checked
 
+    with phase("6 protowib slice"):
+        pw = protowib_slice(dev)
+
+    # launches on the main paths: the APA app's feeds, the WIB2 and the
+    # ProtoWIB processors' runs
+    launches = {
+        "K1": app_launches["time2"],
+        "K2": app_launches["packed"] + packed["K2"] + pw["K2"],
+        "K3": packed["K3"] + time2["K3"] + pw["K3"],
+        "K4": app_launches["fused"] + app_launches["words14"],
+        "K5": pw["K5"]}
+    rows = []
+    for k in KERNELS:
+        bound_ms, bound_by = bound(kernels[k]["work"], sm_mhz)
+        row = {"name": f"tpg {k} ({kernels[k]['timed']})", "route": "cuda",
+               "source": SOURCE, "replaces": REPLACES[k],
+               "launches": launches[k],
+               "max_abs_err": kernels[k]["max_abs_err"],
+               "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"],
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None}
+        if "k3_ms" in kernels[k]:
+            row["k3_ms_same_inputs"] = kernels[k]["k3_ms"]
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on a main path")
+        rows.append(row)
     print(smi)
-    print(json.dumps({"kernels": [
-        {"name": f"tpg {k} ({kernels[k]['timed']})", "route": "cuda",
-         "source": SOURCE, "replaces": REPLACES[k],
-         "launches": kernels[k]["launches"],
-         "max_abs_err": kernels[k]["max_abs_err"],
-         "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"]}
-        for k in ("K1", "K2", "K3", "K4")]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

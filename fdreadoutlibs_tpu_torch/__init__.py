@@ -2,11 +2,10 @@
 
 The JAX package stays the reference; this package mirrors its module paths
 so every counterpart is found by path.  It imports ``torch`` and never
-``jax``: the JAX package's jax-free host modules (``ops.config``,
-``ops.chanstate``, ``ops.step``, ``ops.fixedpoint``, ``ops.hits``,
-``ops.reference``, ``utils.channel_map``, ``utils.metrics``, ``native``)
-are imported from it, and the host modules whose JAX-package import chain
-pulls in jax are carried here as copies (each cites its original).
+``jax``, and nothing of the JAX package: every host module it needs
+(configuration, channel state, the tick, the oracle, channel maps,
+metrics, the native C++ codecs) is carried here as a copy that cites its
+original.
 
 Slice 1 ports the production APA application's main path: the time2 host
 feed through the hand-written Hopper TPG kernel (``csrc/tpg.cu``, wrapped by
@@ -16,7 +15,10 @@ processors (``stream.WIBEthFrameProcessor``, ``stream.WIB2FrameProcessor``)
 with the packed device ingest and the FIR family on the same kernel.  Slice 3
 adds the in-kernel 14-bit unpack, the APA app's packed-word feeds
 (``fused_unpack``, ``words14_feed``, the plain packed feed) and
-``ops.ingest.StreamingIngest``.
+``ops.ingest.StreamingIngest``.  Slice 4 adds the two-pass FIR schedule
+(K5, selected by the tuned ``fir_twopass`` knob), the ProtoWIB frontend
+(``stream.WIBFrameProcessor`` with ``tp.WIBTPHandler``) and
+``models.run_model``.
 """
 
 __version__ = "0.1.0"

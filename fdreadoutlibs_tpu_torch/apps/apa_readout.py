@@ -43,13 +43,11 @@ from collections import deque
 import numpy as np
 import torch
 
-from fdreadoutlibs_tpu import native
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.utils.metrics import MetricsCollector
-
+from .. import native
 from ..formats import wibeth
 from ..formats.adapters import get_adapter
 from ..formats.trigprim import TP_DTYPE
+from ..ops.chanstate import init_chanstate, seed_chanstate
 from ..ops.ingest import (compact_on_device, process_packed_frames,
                           process_packed_frames_fused, process_time2_feed,
                           process_words14_feed, unpack_compact)
@@ -59,6 +57,7 @@ from ..stream.wibeth import WIBEthFrameProcessor, assemble_tps
 from ..tp.latency_buffer import make_latency_buffer
 from ..tp.readout_buffer import ReadoutRequestHandler
 from ..tp.request_handler import TPRequestHandler
+from ..utils.metrics import MetricsCollector
 from ..utils.tuning import kernel_knobs
 
 N_LINKS_PER_APA = 40

@@ -1,4 +1,4 @@
-"""L1 — frame formats of the port (WIBEth, WIB2).
+"""L1 — frame formats of the port (WIBEth, WIB2, ProtoWIB).
 
 Copies of the JAX package's format code with torch device unpacks in place
 of its jnp ones: the JAX package's ``formats/__init__.py`` imports those jnp

@@ -1,20 +1,21 @@
 """L2 — the TPG kernel layer of the port.
 
-* ``xp``     — torch namespace that runs the shared tick
-  (``fdreadoutlibs_tpu.ops.step.dispatch_tick``) on int32 tensors;
+* ``config``, ``chanstate``, ``fixedpoint``, ``step``, ``fir``,
+  ``reference`` — the port's copies of the JAX package's jax-free host
+  modules: the configuration, the channel state, the shared tick
+  (``step.dispatch_tick``) and the numpy oracle;
+* ``xp``     — torch namespace that runs the shared tick on int32 tensors;
 * ``tpg``    — the kernel wrapper ``process_window`` (hand-written CUDA
-  kernel on CUDA tensors, the plain tick loop on CPU tensors) and the
+  kernels on CUDA tensors, their plain versions on CPU tensors) and the
   port's state layout;
-* ``hits``   — on-device compaction of the kernel's slot buffers;
-* ``ingest`` — the time2, packed-frame, fused (in-kernel unpack) and
-  words14 entry points, the one-fetch compaction, ``collect_hits`` and
-  ``StreamingIngest``.
-
-The configuration and channel-state seeding are the JAX package's jax-free
-modules, re-exported here so callers of the port import only the port.
+* ``hits``   — the hit records and the on-device compaction of the
+  kernel's slot buffers;
+* ``ingest`` — the time2, packed-frame, fused (in-kernel unpack), words14
+  and ProtoWIB entry points, the one-fetch compaction, ``collect_hits``
+  and ``StreamingIngest``.
 """
 
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.ops.config import Algorithm, TPGConfig
+from .chanstate import init_chanstate, seed_chanstate
+from .config import Algorithm, TPGConfig
 
 __all__ = ["Algorithm", "TPGConfig", "init_chanstate", "seed_chanstate"]

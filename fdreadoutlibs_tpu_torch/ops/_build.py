@@ -41,14 +41,21 @@ def _nvcc() -> str:
     return path
 
 
+def keyed_path(stem: str, sources, flags) -> Path:
+    """``_build/lib<stem>_<hash>.so``, keyed on the sources' names and
+    contents and on the flags (shared with the host library of
+    ``native/``)."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sorted(sources):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` lives, keyed on the
     contents of every source under csrc/ and on the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu*")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return keyed_path(name, CSRC_DIR.glob("*.cu*"), NVCC_FLAGS)
 
 
 def build(name: str) -> Path:

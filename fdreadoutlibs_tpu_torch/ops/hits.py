@@ -1,21 +1,63 @@
-"""On-device compaction of the kernel's K-slot buffers.
+"""Hit records: the canonical host array, and the on-device compaction of
+the kernel's K-slot buffers.
 
-Counterpart of ``fdreadoutlibs_tpu/ops/hits.py::compact_slot_words`` and
-``compact_pallas_slots`` (there an XLA ``lax.top_k``, not a Pallas kernel,
-so the port keeps it plain torch).  A fixed-size ``torch.topk`` replaces
-the variable-size ``torch.nonzero`` on purpose: nonzero syncs the host,
-and the compaction must stay one asynchronous device pass ending in ONE
-device->host fetch (``ops/ingest.py::unpack_compact``).
+The host side (``HIT_DTYPE``, ``empty_hits``, ``sort_hits``,
+``concat_hits``, ``hits_from_compact``) is copied from the jax-free parts
+of ``fdreadoutlibs_tpu/ops/hits.py:14-30, 69-73, 155-161``, unchanged.
+
+The device side is the counterpart of that file's ``compact_slot_words``
+and ``compact_pallas_slots`` (there an XLA ``lax.top_k``, not a Pallas
+kernel, so the port keeps it plain torch).  A fixed-size ``torch.topk``
+replaces the variable-size ``torch.nonzero`` on purpose: nonzero syncs the
+host, and the compaction must stay one asynchronous device pass ending in
+ONE device->host fetch (``ops/ingest.py::unpack_compact``).
 
 Keys are int64 ``end*C + chan``, so the canonical (end_tick, channel)
 order holds at any T·C (the JAX package's int32 key wraps once
-T·C >= 2**31).  The host-side decode is the JAX package's own
-``hits_from_compact`` (``ops/ingest.py::unpack_compact``).
+T·C >= 2**31).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+HIT_DTYPE = np.dtype([
+    ("channel", np.int32),     # channel index within the processed array
+    ("end_tick", np.int32),    # tick at which the hit *closed* (first not-over)
+    ("charge", np.int32),
+    ("tover", np.int32),
+    ("peak_adc", np.int32),
+    ("peak_time", np.int32),   # tover value at the peak sample
+])
+
+
+def empty_hits() -> np.ndarray:
+    return np.zeros(0, dtype=HIT_DTYPE)
+
+
+def sort_hits(hits: np.ndarray) -> np.ndarray:
+    """Canonical order: (end_tick, channel)."""
+    return hits[np.lexsort((hits["channel"], hits["end_tick"]))]
+
+
+def concat_hits(parts) -> np.ndarray:
+    parts = [p for p in parts if len(p)]
+    if not parts:
+        return empty_hits()
+    return sort_hits(np.concatenate(parts))
+
+
+def hits_from_compact(rows: np.ndarray, count: int) -> np.ndarray:
+    """(max_hits, 6) int32 device-compact output -> canonical hit array."""
+    rows = np.asarray(rows)[:int(count)]
+    hits = np.zeros(len(rows), dtype=HIT_DTYPE)
+    for i, f in enumerate(HIT_DTYPE.names):
+        hits[f] = rows[:, i]
+    return hits
+
+
+# ---- device-side compaction -----------------------------------------------
 
 _INVALID = torch.iinfo(torch.int64).max
 

@@ -8,6 +8,8 @@ Counterparts of ``fdreadoutlibs_tpu/ops/ingest.py``:
 * :func:`process_packed_frames` (:35-62) and :func:`process_packed_wib2`
   (:190-209) unpack packed 14-bit frame words on the device and run the
   plain-sample datapath on a (T, C) int32 feed;
+* :func:`process_packed_protowib` (:244-276) decodes ProtoWIB frames on
+  the device and runs its two planes;
 * :func:`process_packed_frames_fused` (:84-104) and
   :func:`process_words14_feed` (:111-143) hand the packed words to the
   kernel, which unpacks them in-register (K4): the frame words as they
@@ -27,12 +29,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fdreadoutlibs_tpu import native
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.ops.config import TPGConfig
-from fdreadoutlibs_tpu.ops.hits import HIT_DTYPE, hits_from_compact, sort_hits
+from .. import native
+from .chanstate import init_chanstate, seed_chanstate
+from .config import TPGConfig
+from .hits import HIT_DTYPE, hits_from_compact, sort_hits
 
-from ..formats import wib2, wibeth
+from ..formats import protowib, wib2, wibeth
 from ..utils.tuning import kernel_knobs
 from .hits import compact_slots
 from .tpg import auto_tc, pack_state, process_window
@@ -46,20 +48,22 @@ def _check_channels(state: torch.Tensor, n_channels: int) -> None:
 
 def process_time2_feed(W2: torch.Tensor, state: torch.Tensor,
                        cfg: TPGConfig, n_channels: int, tc: int = 512,
-                       k_slots: int = 2):
+                       k_slots: int = 2, fir_twopass: int = 0):
     """Time-paired feed (T/2, S, 128) or (T/2, W) int32 -> (slots, nclose,
     new_state) like ``tpg.process_window``.  ``state`` is the (KSTATE, C)
-    tensor of ``tpg.pack_state`` on the feed's device."""
+    tensor of ``tpg.pack_state`` on the feed's device.  ``fir_twopass``
+    (every entry here) selects the FIR schedule as
+    ``tpg.process_window`` does."""
     if W2.dim() == 3:
         W2 = W2.reshape(W2.shape[0], -1)
     _check_channels(state, n_channels)
     return process_window(W2, state, cfg, tc=tc, k_slots=k_slots,
-                          time_packed=True)
+                          time_packed=True, fir_twopass=fir_twopass)
 
 
 def process_packed_frames(words: torch.Tensor, state: torch.Tensor,
                           cfg: TPGConfig, n_channels: int, tc: int = 512,
-                          k_slots: int = 2):
+                          k_slots: int = 2, fir_twopass: int = 0):
     """WIBEth packed ingest: words (L, T, 28) int32 packed rows for L links
     of 64 channels -> device unpack -> (T, L*64) samples (channel =
     link*64 + c) -> the plain-sample datapath.  Returns (slots, nclose,
@@ -68,7 +72,8 @@ def process_packed_frames(words: torch.Tensor, state: torch.Tensor,
     L, T, _ = words.shape
     adcs = wibeth.unpack_frames(words.transpose(0, 1))      # (T, L, 64)
     return process_window(adcs.reshape(T, L * wibeth.N_CHANNELS), state,
-                          cfg, tc=tc, k_slots=k_slots, time_packed=False)
+                          cfg, tc=tc, k_slots=k_slots, time_packed=False,
+                          fir_twopass=fir_twopass)
 
 
 def _as_int32(words: torch.Tensor) -> torch.Tensor:
@@ -77,7 +82,8 @@ def _as_int32(words: torch.Tensor) -> torch.Tensor:
 
 def process_packed_frames_fused(words: torch.Tensor, state: torch.Tensor,
                                 cfg: TPGConfig, n_channels: int,
-                                tc: int = 512, k_slots: int = 2):
+                                tc: int = 512, k_slots: int = 2,
+                                fir_twopass: int = 0):
     """WIBEth packed ingest with the in-kernel unpack (K4): words (L, T, 28)
     int32 packed rows for L links of 64 channels (channel = link*64 + c)
     go to the kernel as they are.  State, slots and nclose stay in
@@ -90,12 +96,13 @@ def process_packed_frames_fused(words: torch.Tensor, state: torch.Tensor,
                          f"channels are not {n_channels} channels")
     return process_window(_as_int32(words), state, cfg, tc=tc,
                           k_slots=k_slots, time_packed=False,
-                          packed14="frames")
+                          packed14="frames", fir_twopass=fir_twopass)
 
 
 def process_words14_feed(W: torch.Tensor, state: torch.Tensor,
                          cfg: TPGConfig, n_channels: int, tc: int = 512,
-                         k_slots: int = 2, slab: bool = False):
+                         k_slots: int = 2, slab: bool = False,
+                         fir_twopass: int = 0):
     """Direct words14 feed (K4): W is (T, WR, 7, 128) int32 rows from
     ``native.relayout_words14`` (or :func:`pack_words14`), unpacked
     in-register by the kernel.  ``slab=True`` (the JAX package's two-stage
@@ -107,7 +114,8 @@ def process_words14_feed(W: torch.Tensor, state: torch.Tensor,
             "K4b of ROADMAP.md, not ported yet")
     _check_channels(state, n_channels)
     return process_window(W, state, cfg, tc=tc, k_slots=k_slots,
-                          time_packed=False, packed14="words14")
+                          time_packed=False, packed14="words14",
+                          fir_twopass=fir_twopass)
 
 
 def pack_words14(words: torch.Tensor) -> torch.Tensor:
@@ -126,7 +134,7 @@ def pack_words14(words: torch.Tensor) -> torch.Tensor:
 
 def process_packed_wib2(words: torch.Tensor, state: torch.Tensor,
                         cfg: TPGConfig, n_channels: int, tc: int = 512,
-                        k_slots: int = 4):
+                        k_slots: int = 4, fir_twopass: int = 0):
     """WIB2 packed ingest: words (L, T, 112) int32 packed rows (each WIB2
     frame is ONE tick of 256 channels) -> device unpack -> (T, L*256)
     samples (channel = link*256 + c) -> the plain-sample datapath."""
@@ -134,7 +142,34 @@ def process_packed_wib2(words: torch.Tensor, state: torch.Tensor,
     L, T, _ = words.shape
     adcs = wib2.unpack_frames(words.transpose(0, 1))        # (T, L, 256)
     return process_window(adcs.reshape(T, L * wib2.N_CHANNELS), state, cfg,
-                          tc=tc, k_slots=k_slots, time_packed=False)
+                          tc=tc, k_slots=k_slots, time_packed=False,
+                          fir_twopass=fir_twopass)
+
+
+def process_packed_protowib(words: torch.Tensor, coll_state: torch.Tensor,
+                            ind_state: torch.Tensor, coll_cfg: TPGConfig,
+                            ind_cfg: TPGConfig, tc: int = 12,
+                            k_slots: int = 4, fir_twopass: int = 0):
+    """ProtoWIB packed ingest (ingest.py:244-276): words (T, 116) int32
+    whole frames (one tick of 256 channels each) -> ONE device decode of
+    the 12-bit codec -> the collection and induction planes as column
+    gathers (``COLLECTION/INDUCTION_INDEX_TO_CHAN`` order) -> one launch per
+    plane on the plain-sample datapath, each with its own threshold.
+
+    Returns ((slots, nclose, new_coll_state), (slots, nclose,
+    new_ind_state)) with plane-local channel indices."""
+    _check_channels(coll_state, protowib.N_COLLECTION)
+    _check_channels(ind_state, protowib.N_INDUCTION)
+    adcs = protowib.unpack_frames(_as_int32(words))         # (T, 256)
+
+    def run(plane_idx, state, cfg):
+        idx = torch.as_tensor(plane_idx, device=adcs.device)
+        return process_window(adcs.index_select(1, idx), state, cfg, tc=tc,
+                              k_slots=k_slots, time_packed=False,
+                              fir_twopass=fir_twopass)
+
+    return (run(protowib.COLLECTION_INDEX_TO_CHAN, coll_state, coll_cfg),
+            run(protowib.INDUCTION_INDEX_TO_CHAN, ind_state, ind_cfg))
 
 
 def compact_on_device(slots, nclose, tick_offset: int, n_channels: int,
@@ -211,7 +246,7 @@ class StreamingIngest:
     batch (CUDA launches are asynchronous, so the host framing of batch
     k+1 overlaps the device work of batch k).  Port of the JAX package's
     ``StreamingIngest`` (:334-619) without its TPU knobs (``unroll``,
-    ``interpret``, ``fir_twopass``), with an explicit ``device``
+    ``interpret``), with an explicit ``device``
     ("cuda" runs the kernel and raises without a card; "cpu" runs the
     kernel's plain version).
 
@@ -231,7 +266,8 @@ class StreamingIngest:
                  k_slots: int = 4, format: str = "wibeth",
                  device_compact: bool = False, max_hits: int = 1024,
                  rs_memory_factor=None, fused: bool = False,
-                 time2: bool = False, device="cuda"):
+                 time2: bool = False, device="cuda",
+                 fir_twopass: int | None = None):
         from ..apps.apa_readout import resolve_device
         if format == "daphne_stream":
             raise NotImplementedError(
@@ -261,7 +297,12 @@ class StreamingIngest:
             self._fn = process_packed_wib2
             self._unpack = wib2.unpack_frames
         self.n_channels = n_links * self._ch_per_link
-        self.tc = tc if tc is not None else kernel_knobs(cfg)["tc"]
+        # explicit arguments win; else the tuned file (FDREADOUT_TUNED);
+        # else the shipped table (ingest.py:398-407)
+        knobs = kernel_knobs(cfg)
+        self.tc = tc if tc is not None else knobs["tc"]
+        self.fir_twopass = fir_twopass if fir_twopass is not None \
+            else knobs["fir_twopass"]
         self.k_slots = k_slots
         self.device_compact = device_compact
         self.max_hits = max_hits
@@ -318,7 +359,8 @@ class StreamingIngest:
         out = self._collect() if self._pending is not None else None
         slots, nclose, self.state = self._fn(
             self._to_device(words), self.state, self.cfg, self.n_channels,
-            tc=auto_tc(T, cap=self.tc), k_slots=self.k_slots)
+            tc=auto_tc(T, cap=self.tc), k_slots=self.k_slots,
+            fir_twopass=self.fir_twopass)
         self._enqueue(slots, nclose, T)
         return out
 
@@ -335,7 +377,8 @@ class StreamingIngest:
         out = self._collect() if self._pending is not None else None
         slots, nclose, self.state = process_words14_feed(
             self._to_device(W), self.state, self.cfg, self.n_channels,
-            tc=auto_tc(T, cap=self.tc), k_slots=self.k_slots)
+            tc=auto_tc(T, cap=self.tc), k_slots=self.k_slots,
+            fir_twopass=self.fir_twopass)
         self._enqueue(slots, nclose, T)
         return out
 
@@ -375,7 +418,7 @@ class StreamingIngest:
         slots, nclose, self.state = process_time2_feed(
             torch.from_numpy(np.ascontiguousarray(W2)).to(self.device),
             self.state, self.cfg, self.n_channels, tc=tc,
-            k_slots=self.k_slots)
+            k_slots=self.k_slots, fir_twopass=self.fir_twopass)
         self._enqueue(slots, nclose, T)
         return out
 

@@ -16,13 +16,16 @@ low and 2j+1 in the high 16 bits), one int32 sample per row
 (``time_packed=False``), and packed 14-bit WIBEth words (``packed14=``
 ``"frames"`` for the (L, T, 28) frame words, ``"words14"`` for the host's
 (T, WR, 7, 128) words14 relayout; :data:`PACKED14`).  On CUDA tensors it
-launches the hand-written Hopper kernel (``csrc/tpg.cu``: K1 = time2
+launches the hand-written Hopper kernels (``csrc/tpg.cu``: K1 = time2
 datapath, K2 = plain datapath, K3 = the FIR family on any, K4 = the
-in-kernel 14-bit unpack); on CPU tensors it runs the plain version,
-:func:`process_window_plain`, which loops over ticks calling the JAX
-package's ``ops/step.py::dispatch_tick`` through the torch namespace
-(``ops/xp.py``), after the torch unpack for packed words.  There is no
-other route: a CUDA tensor that the kernel cannot take raises.
+in-kernel 14-bit unpack; K5 = the two-pass FIR schedule, selected by
+``fir_twopass`` 1 or 2 as ``pallas_tpg.process_window_pallas`` selects
+``_fir2_kernel``); on CPU tensors it runs the kernel's plain version:
+:func:`process_window_plain`, which loops over ticks calling
+``ops/step.py::dispatch_tick`` through the torch namespace (``ops/xp.py``),
+or :func:`process_window_twopass_plain` for K5, after the torch unpack for
+packed words.  There is no other route: a CUDA tensor that the kernel
+cannot take raises.
 
 The port's layouts drop the TPU tile blocking: state is (KSTATE, C) int32
 on the device (the FIR ring in rows ``_FIR_ROW0..+8``, oldest-first),
@@ -40,14 +43,14 @@ import ctypes
 import numpy as np
 import torch
 
-from fdreadoutlibs_tpu.ops.chanstate import FIELDS, NSTATE
-from fdreadoutlibs_tpu.ops.config import Algorithm, TPGConfig
-from fdreadoutlibs_tpu.ops.fir import default_taps
-from fdreadoutlibs_tpu.ops.fixedpoint import wrap_i16
-from fdreadoutlibs_tpu.ops.step import dispatch_tick
-
 from ..formats import wibeth
 from . import _build
+from .chanstate import FIELDS, NSTATE
+from .config import Algorithm, TPGConfig
+from .fir import (default_taps, fir_filter, fir_hit_update, fir_iqr_update,
+                  fir_pedestal_sub, fir_threshold, fir_to_add)
+from .fixedpoint import wrap_i16
+from .step import dispatch_tick
 from .xp import TorchXP, check_supported, make_fx
 
 N_FIR_TAPS = 8
@@ -254,21 +257,48 @@ def unpack_packed14(feed: torch.Tensor, packed14: str,
     return wibeth.unpack_words14(feed, n_channels)
 
 
+def _samples(feed: torch.Tensor, C: int, time_packed: bool,
+             packed14: str | None) -> torch.Tensor:
+    """The feed as (T, C) int32 samples: the torch unpack of packed words,
+    the time2 words split into their two ticks, or the rows."""
+    if packed14 is not None:
+        return unpack_packed14(feed, packed14, C)
+    x = feed[:, :C]
+    if time_packed:
+        return torch.stack([wrap_i16(x), x >> 16], dim=1).reshape(-1, C)
+    return x
+
+
+def _emit(slots_c, nclose_c, closed, rec, end_word: int, k_slots: int,
+          nw: int) -> None:
+    """Masked stores of one tick's closes into a chunk's slots
+    ((K + 1, nw, C); slot K is a sink for closes beyond capacity, dropped
+    but counted in ``nclose_c``)."""
+    C = closed.shape[0]
+    words = [(rec["charge"] << 16) | rec["tover"]]
+    if nw == 3:
+        words.append((rec["peak_adc"] << 16) | rec["peak_time"])
+    words.append(torch.full((C,), end_word, dtype=torch.int32,
+                            device=closed.device))
+    slot = torch.where(closed, torch.clamp(nclose_c, max=k_slots),
+                       k_slots).long()
+    slots_c.scatter_(0, slot.expand(nw, C)[None], torch.stack(words)[None])
+    nclose_c += closed.to(torch.int32)
+
+
 def process_window_plain(feed: torch.Tensor, state: torch.Tensor,
                          cfg: TPGConfig, tc: int, k_slots: int,
                          time_packed: bool = True,
                          packed14: str | None = None):
-    """The plain PyTorch version of the kernel: a loop over ticks calling
+    """The plain PyTorch version of K1-K4: a loop over ticks calling
     ``ops/step.py::dispatch_tick`` on (C,) int32 tensors, with the slot
     writes as masked stores.  The FIR ring rides the tick as a tuple of
     the 8 state rows, oldest-first (the Pallas kernel's carry).  A packed
     14-bit feed is unpacked first (:func:`unpack_packed14`).  Runs on any
     device; returns fresh tensors."""
     check_supported(cfg, state)
-    _check_window(feed, state, tc, k_slots, time_packed, packed14)
-    if packed14 is not None:
-        feed = unpack_packed14(feed, packed14, state.shape[1])
-    T, C = _check_window(feed, state, tc, k_slots, time_packed)
+    T, C = _check_window(feed, state, tc, k_slots, time_packed, packed14)
+    x = _samples(feed, C, time_packed, packed14)
     dev = state.device
     xp = TorchXP(dev)
     fx = make_fx(xp)
@@ -280,28 +310,13 @@ def process_window_plain(feed: torch.Tensor, state: torch.Tensor,
                                for j in range(N_FIR_TAPS))
     nw = record_words(cfg)
     n_chunks = T // tc
-    # slot K is a sink for closes beyond capacity (dropped, but counted)
     slots = torch.zeros((n_chunks, k_slots + 1, nw, C), dtype=torch.int32,
                         device=dev)
     nclose = torch.zeros((n_chunks, C), dtype=torch.int32, device=dev)
-    x = feed[:, :C]
     for t in range(T):
-        if time_packed:
-            word = x[t // 2]
-            s_raw = wrap_i16(word) if t % 2 == 0 else word >> 16
-        else:
-            s_raw = x[t]
-        st, closed, rec = dispatch_tick(st, s_raw, cfg, xp, fx=fx)
-        chunk = t // tc
-        words = [(rec["charge"] << 16) | rec["tover"]]
-        if nw == 3:
-            words.append((rec["peak_adc"] << 16) | rec["peak_time"])
-        words.append(torch.full((C,), t + 1, dtype=torch.int32, device=dev))
-        slot = torch.where(closed, torch.clamp(nclose[chunk], max=k_slots),
-                           k_slots).long()
-        slots[chunk].scatter_(0, slot.expand(nw, C)[None],
-                              torch.stack(words)[None])
-        nclose[chunk] += closed.to(torch.int32)
+        st, closed, rec = dispatch_tick(st, x[t], cfg, xp, fx=fx)
+        _emit(slots[t // tc], nclose[t // tc], closed, rec, t + 1, k_slots,
+              nw)
     new_state = state.clone()
     for k in keys:
         new_state[_STATE_KEYS.index(k)] = st[k]
@@ -311,16 +326,147 @@ def process_window_plain(feed: torch.Tensor, state: torch.Tensor,
     return slots[:, :k_slots].contiguous(), nclose, new_state
 
 
+def _check_twopass(cfg: TPGConfig, fir_twopass: int) -> None:
+    if fir_twopass not in (0, 1, 2):
+        raise ValueError(f"fir_twopass={fir_twopass!r}: expected 0, 1 or 2")
+    if fir_twopass and cfg.algorithm != Algorithm.FIR:
+        raise ValueError("fir_twopass requires the FIR family")
+
+
+# the pass-A state rows, and the slabs of K5 (``csrc/tpg.cu::fir2_kernel``)
+_FIR_FRONT = ("pedestals", "accum", "quantile25", "accum25", "quantile75",
+              "accum75")
+
+
+def _fir2_slabs(cfg: TPGConfig, lift: bool) -> int:
+    """K5's (tc + 8, C) scratch slabs: s, sigma, is_over, to_add, filt
+    with peaks, and with lift closed plus the record words but the tick."""
+    return 4 + cfg.track_peaks + (record_words(cfg) if lift else 0)
+
+
+def process_window_twopass_plain(feed: torch.Tensor, state: torch.Tensor,
+                                 cfg: TPGConfig, tc: int, k_slots: int,
+                                 fir_twopass: int, time_packed: bool = True,
+                                 packed14: str | None = None):
+    """The plain PyTorch version of K5 (``pallas_tpg._fir2_kernel``,
+    fir_twopass 1 or 2): per tc-tick chunk, on (tc, C) tensors,
+
+    * pass A, a loop over ticks of ``fir_iqr_update`` + ``fir_pedestal_sub``
+      writing the s slab (the 8 carried ring rows, oldest first, then the
+      chunk's clamped samples) and the sigma slab; the carried ring is s
+      rows tc..tc+7;
+    * pass B, ``fir_filter`` on 8 shifted views of the s slab,
+      ``fir_threshold`` and ``fir_to_add`` on whole slabs; with lift
+      (fir_twopass=2) the closed slab, is_over shifted one tick with the
+      carried prev_was_over in front, and prev_was_over = is_over[tc-1];
+    * pass C, a loop over ticks of ``fir_hit_update``: without lift it
+      tests the close and emits into the slots as the fused tick does; with
+      lift it takes the closed slab and keeps each tick's record words;
+    * pass D (lift), an exclusive cumulative count of closes along time,
+      and slot k the sum of the record words where closed & (count == k).
+
+    Same outputs as :func:`process_window_plain` on a FIR config, bit for
+    bit.  Takes every encoding the fused version takes."""
+    check_supported(cfg, state)
+    _check_twopass(cfg, fir_twopass)
+    if not fir_twopass:
+        raise ValueError("fir_twopass=0 is the fused tick: "
+                         "process_window_plain")
+    T, C = _check_window(feed, state, tc, k_slots, time_packed, packed14)
+    x = _samples(feed, C, time_packed, packed14)
+    dev = state.device
+    xp = TorchXP(dev)
+    fx = make_fx(xp)
+    taps = cfg.taps or default_taps(cfg)
+    lift = fir_twopass == 2
+    row = {k: _STATE_KEYS.index(k) for k in _STATE_KEYS}
+    hit_keys = tuple(k for k in live_fields(cfg) if k.startswith("hit_")
+                     or (k == "prev_was_over" and not lift))
+    nw = record_words(cfg)
+    n_chunks = T // tc
+    slots = torch.zeros((n_chunks, k_slots + 1, nw, C), dtype=torch.int32,
+                        device=dev)
+    nclose = torch.zeros((n_chunks, C), dtype=torch.int32, device=dev)
+    new_state = state.clone()
+    ring = slice(_FIR_ROW0, _FIR_ROW0 + N_FIR_TAPS)
+    for chunk in range(n_chunks):
+        t0 = chunk * tc
+        # ---- pass A
+        s_slab = torch.empty((tc + N_FIR_TAPS, C), dtype=torch.int32,
+                             device=dev)
+        s_slab[:N_FIR_TAPS] = new_state[ring]
+        sigma = torch.empty((tc, C), dtype=torch.int32, device=dev)
+        st = {k: new_state[row[k]] for k in _FIR_FRONT}
+        for t in range(tc):
+            upd, sigma[t] = fir_iqr_update(st, x[t0 + t], cfg, xp, fx)
+            updp, s_slab[N_FIR_TAPS + t] = fir_pedestal_sub(
+                st, x[t0 + t], cfg, xp, fx)
+            st.update(upd)
+            st.update(updp)
+        for k in _FIR_FRONT:
+            new_state[row[k]] = st[k]
+        new_state[ring] = s_slab[tc:]
+        # ---- pass B
+        filt = fir_filter(tuple(s_slab[j:j + tc] for j in range(N_FIR_TAPS)),
+                          taps, fx)
+        is_over = fir_threshold(filt, sigma, cfg, fx)
+        to_add = fir_to_add(filt, is_over, cfg, xp, fx)
+        if lift:
+            over = is_over.to(torch.int32)
+            prev = torch.cat([new_state[row["prev_was_over"]][None],
+                              over[:-1]])
+            closed_slab = (prev != 0) & ~is_over
+            new_state[row["prev_was_over"]] = over[tc - 1]
+            rec_words = torch.empty((nw - 1, tc, C), dtype=torch.int32,
+                                    device=dev)
+        # ---- pass C
+        st = {k: new_state[row[k]] for k in hit_keys}
+        for t in range(tc):
+            upd, closed, rec = fir_hit_update(
+                st, is_over[t], to_add[t],
+                filt[t] if cfg.track_peaks else None, cfg, xp, fx,
+                closed=closed_slab[t] if lift else None)
+            st.update(upd)
+            if lift:
+                rec_words[0, t] = (rec["charge"] << 16) | rec["tover"]
+                if nw == 3:
+                    rec_words[1, t] = (rec["peak_adc"] << 16) | \
+                        rec["peak_time"]
+            else:
+                _emit(slots[chunk], nclose[chunk], closed, rec, t0 + t + 1,
+                      k_slots, nw)
+        for k in hit_keys:
+            new_state[row[k]] = st[k]
+        if not lift:
+            continue
+        # ---- pass D
+        n = closed_slab.to(torch.int32)
+        inclusive = torch.cumsum(n, dim=0, dtype=torch.int32)
+        ordinal = inclusive - n                 # closes before tick t
+        nclose[chunk] = inclusive[tc - 1]
+        end = torch.arange(t0 + 1, t0 + tc + 1, dtype=torch.int32,
+                           device=dev)[:, None].expand(tc, C)
+        for k in range(k_slots):
+            sel = closed_slab & (ordinal == k)
+            for w, words in enumerate(list(rec_words) + [end]):
+                slots[chunk, k, w] = torch.where(sel, words, 0).sum(
+                    dim=0, dtype=torch.int32)
+    return slots[:, :k_slots].contiguous(), nclose, new_state
+
+
 # ---- the kernel -----------------------------------------------------------
 
 _INT32 = (-(1 << 31), (1 << 31) - 1)
 
 
 def kernels_of(cfg: TPGConfig, time_packed: bool,
-               packed14: str | None = None) -> tuple:
+               packed14: str | None = None, fir_twopass: int = 0) -> tuple:
     """ROADMAP.md's kernels that one launch runs: K1 (time2 datapath,
     threshold/RS families), K2 (plain-sample datapath), K4 (in-kernel
-    14-bit unpack), K3 (FIR family, on any datapath)."""
+    14-bit unpack), K3 (FIR family, on any datapath) — or K5 alone, the
+    two-pass FIR schedule (its own C entry, on any datapath)."""
+    if fir_twopass:
+        return ("K5",)
     is_fir = cfg.algorithm == Algorithm.FIR
     if packed14 is not None:
         datapath = ("K4",)
@@ -334,19 +480,24 @@ def kernels_of(cfg: TPGConfig, time_packed: bool,
 def reset_launches() -> None:
     """Zero the launch counts (total and per kernel)."""
     process_window.launches = 0
-    process_window.kernel_launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    process_window.kernel_launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                                      "K5": 0}
 
 
-# csrc/tpg.cu::tpg_launch's C signature
+# csrc/tpg.cu::tpg_launch's C signature, and tpg_fir2_launch's: the same
+# with (lift, scratch) before (device, stream)
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 8
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p] + [ctypes.c_int] * 9
              + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_FIR2_ARGTYPES = _ARGTYPES[:-2] + [ctypes.c_int, ctypes.c_void_p] + \
+    _ARGTYPES[-2:]
 
 
-def _kernel_fn():
-    fn = _build.load("tpg").tpg_launch
-    fn.argtypes = _ARGTYPES
+def _kernel_fn(fir_twopass: int = 0):
+    lib = _build.load("tpg")
+    fn = lib.tpg_fir2_launch if fir_twopass else lib.tpg_launch
+    fn.argtypes = _FIR2_ARGTYPES if fir_twopass else _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -388,9 +539,12 @@ def _fir_args(cfg: TPGConfig):
 
 def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
             tc: int, k_slots: int, time_packed: bool, packed14: str | None,
-            device: int, stream):
-    """Allocate the outputs beside ``state`` and call the C entry ``fn``
-    on contiguous, checked tensors.  Returns (slots, nclose, new_state)."""
+            device: int, stream, fir_twopass: int = 0):
+    """Allocate the outputs (and K5's scratch slabs) beside ``state`` and
+    call the C entry ``fn`` (``tpg_launch``, or ``tpg_fir2_launch`` when
+    ``fir_twopass``) on contiguous, checked tensors.  Returns (slots,
+    nclose, new_state)."""
+    _check_twopass(cfg, fir_twopass)
     T, C = _check_window(feed, state, tc, k_slots, time_packed, packed14)
     taps, tap_exponent, adc_max, sigma_cap, thr_mult = _fir_args(cfg)
     n_chunks = T // tc
@@ -401,6 +555,12 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                          device=state.device)
     new_state = state.clone()
     floor = cfg.algorithm != Algorithm.SIMPLE_THRESHOLD or cfg.threshold < 0
+    twopass = ()
+    if fir_twopass:
+        lift = fir_twopass == 2
+        scratch = torch.empty((_fir2_slabs(cfg, lift), tc + N_FIR_TAPS, C),
+                              dtype=torch.int32, device=state.device)
+        twopass = (int(lift), scratch.data_ptr())
     err = fn(
         feed.data_ptr(), *_feed_layout(feed, time_packed, packed14),
         n_chunks, tc, new_state.data_ptr(), C, slots.data_ptr(),
@@ -408,7 +568,7 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
         int(cfg.peak_gated), int(floor), int(cfg.track_peaks),
         int(cfg.fir_avx_semantics), cfg.threshold, cfg.accumulator_limit,
         cfg.rs_scale_factor_x10, taps, tap_exponent, adc_max, sigma_cap,
-        thr_mult, device, stream)
+        thr_mult, *twopass, device, stream)
     if err != 0:
         raise RuntimeError(f"tpg kernel launch failed: CUDA error {err}")
     return slots, nclose, new_state
@@ -416,10 +576,11 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
 
 def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                   tc: int, k_slots: int, time_packed: bool = True,
-                  packed14: str | None = None):
-    """Launch ``csrc/tpg.cu`` on CUDA tensors (the wrapper's CUDA route).
-    ``state`` is not modified: the kernel updates a copy in place and
-    returns it.  Raises on anything the kernel does not take."""
+                  packed14: str | None = None, fir_twopass: int = 0):
+    """Launch ``csrc/tpg.cu`` on CUDA tensors (the wrapper's CUDA route):
+    K1-K4, or K5 when ``fir_twopass`` is 1 or 2.  ``state`` is not
+    modified: the kernel updates a copy in place and returns it.  Raises
+    on anything the kernel does not take."""
     check_supported(cfg, state)
     if not (feed.is_cuda and state.is_cuda and feed.device == state.device):
         raise ValueError("the tpg kernel needs feed and state on one CUDA "
@@ -427,20 +588,20 @@ def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
     if not (feed.is_contiguous() and state.is_contiguous()):
         raise ValueError("feed and state must be contiguous")
     dev = state.device
-    out = _launch(_kernel_fn(), feed, state, cfg, tc, k_slots, time_packed,
-                  packed14,
+    out = _launch(_kernel_fn(fir_twopass), feed, state, cfg, tc, k_slots,
+                  time_packed, packed14,
                   dev.index if dev.index is not None
                   else torch.cuda.current_device(),
-                  torch.cuda.current_stream(dev).cuda_stream)
+                  torch.cuda.current_stream(dev).cuda_stream, fir_twopass)
     process_window.launches += 1
-    for k in kernels_of(cfg, time_packed, packed14):
+    for k in kernels_of(cfg, time_packed, packed14, fir_twopass):
         process_window.kernel_launches[k] += 1
     return out
 
 
 def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                    tc: int, k_slots: int, time_packed: bool = True,
-                   packed14: str | None = None):
+                   packed14: str | None = None, fir_twopass: int = 0):
     """Run the TPG over one window, carrying state.
 
     Args:
@@ -453,14 +614,21 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
       state: (KSTATE, C) int32, from :func:`pack_state`; not modified.
       tc: ticks per chunk (divides T; even when time_packed).
       k_slots: per-channel hit capacity per chunk.
+      fir_twopass: the FIR schedule (``utils.tuning.kernel_knobs``): 0 the
+        fused tick (K3), 1 the two-pass schedule, 2 two-pass with lifted
+        emission (K5); 1 and 2 raise ValueError for another family.
 
     Returns (slots (T/tc, K, nw, C), nclose (T/tc, C), new_state).
     """
     if feed.device.type == "cpu" and state.device.type == "cpu":
+        if fir_twopass:
+            return process_window_twopass_plain(feed, state, cfg, tc,
+                                                k_slots, fir_twopass,
+                                                time_packed, packed14)
         return process_window_plain(feed, state, cfg, tc, k_slots,
                                     time_packed, packed14)
     return launch_kernel(feed, state, cfg, tc, k_slots, time_packed,
-                         packed14)
+                         packed14, fir_twopass)
 
 
 # CUDA kernel launches (never the plain path): in all, and per kernel

@@ -1,13 +1,13 @@
 """Torch array namespace for the shared SWTPG tick.
 
-``fdreadoutlibs_tpu.ops.step.dispatch_tick`` (``step.tpg_tick`` for the
-threshold/RS families, ``fir.tpg_tick_fir`` for FIR) is written once
-against an array namespace ``xp`` and a fixed-point helper ``fx``
-(``fixedpoint.I32Fx.make``); numpy, XLA and Pallas all run that one
-function.  :class:`TorchXP` is the namespace for int32 torch tensors on one
-device, so the port runs the same tick unchanged (one source of tick
-semantics for every backend) as the plain version of its hand-written
-kernel, and :func:`make_fx` builds the I32Fx helper over it.
+``ops/step.py::dispatch_tick`` (``step.tpg_tick`` for the threshold/RS
+families, ``fir.tpg_tick_fir`` for FIR; the port's copies of the JAX
+package's modules) is written once against an array namespace ``xp`` and
+a fixed-point helper ``fx`` (``fixedpoint.I32Fx.make``).
+:class:`TorchXP` is the namespace for int32 torch tensors on one device,
+so the port runs the same tick unchanged as the numpy oracle and as the
+plain version of its hand-written kernels, and :func:`make_fx` builds the
+I32Fx helper over it.
 
 Scalars that the tick hands to ``where``/``minimum``/``maximum`` as python
 ints stay int32, so every intermediate keeps the int32 dtype the JAX
@@ -20,8 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from fdreadoutlibs_tpu.ops.config import TPGConfig
-from fdreadoutlibs_tpu.ops.fixedpoint import I32Fx
+from .config import TPGConfig
+from .fixedpoint import I32Fx
 
 
 def check_supported(cfg: TPGConfig, state: torch.Tensor | None = None) -> None:

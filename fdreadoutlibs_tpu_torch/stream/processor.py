@@ -17,8 +17,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from fdreadoutlibs_tpu.utils.metrics import MetricsCollector
-
+from ..utils.metrics import MetricsCollector
 from .errors import FrameErrorRegistry
 
 

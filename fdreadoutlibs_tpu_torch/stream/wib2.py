@@ -24,11 +24,10 @@ from dataclasses import replace
 
 import numpy as np
 
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.ops.config import Algorithm
-
 from ..formats import wib2
 from ..formats.trigprim import TP_DTYPE, TPType, ts_to_i64
+from ..ops.chanstate import init_chanstate, seed_chanstate
+from ..ops.config import Algorithm
 from ..ops.ingest import process_packed_wib2
 from .errors import ErrorInterval
 from .wibeth import WIBEthFrameProcessor

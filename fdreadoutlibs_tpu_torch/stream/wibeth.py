@@ -23,19 +23,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fdreadoutlibs_tpu import native
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.ops.config import Algorithm, TPGConfig
-from fdreadoutlibs_tpu.ops.reference import process_window_reference
-from fdreadoutlibs_tpu.utils.channel_map import make_map
-
+from .. import native
 from ..formats import wibeth
 from ..formats.trigprim import TP_DTYPE, TPAlgorithm, TPType, ts_to_i64
+from ..ops.chanstate import init_chanstate, seed_chanstate
+from ..ops.config import Algorithm, TPGConfig
 from ..ops.ingest import collect_hits, process_packed_frames, \
     process_time2_feed
+from ..ops.reference import process_window_reference
 from ..ops.tpg import auto_tc, pack_state, unpack_state
+from ..utils.channel_map import make_map
 from ..utils.tuning import kernel_knobs
-from .errors import ErrorInterval, TPGAlgorithmInexistent
+from .errors import ErrorInterval
 from .processor import TaskRawDataProcessor
 from .transport import Sender
 
@@ -139,15 +138,8 @@ class WIBEthFrameProcessor(TaskRawDataProcessor):
         self.enable_simple_threshold_on_collection = config.get(
             "enable_simple_threshold_on_collection", False)
 
-        algorithm = config.get("tpg_algorithm", "SimpleThreshold")
-        if algorithm not in {a.value for a in Algorithm}:
-            # TPGConfig.from_raw raises this through the JAX package's
-            # stream.errors, whose package import pulls in jax
-            raise TPGAlgorithmInexistent(
-                f"unknown TPG algorithm {algorithm!r} "
-                f"(available: {[a.value for a in Algorithm]})")
         self.tpg_cfg = TPGConfig.from_raw(
-            algorithm=algorithm,
+            algorithm=config.get("tpg_algorithm", "SimpleThreshold"),
             threshold=config.get("tpg_threshold", 2000),
             rs_memory_factor=config.get("tpg_rs_memory_factor", 0.8),
             rs_scale_factor=config.get("tpg_rs_scale_factor", 2.0),
@@ -204,7 +196,7 @@ class WIBEthFrameProcessor(TaskRawDataProcessor):
         (WIBEthFrameProcessor.cpp:344-350, 395-401)."""
         if (self.metrics.count(counter) > self.error_counter_threshold
                 and not getattr(self, flag)):
-            from fdreadoutlibs_tpu.utils.logging import log
+            from ..utils.logging import log
             log.error("*** Data Integrity ERROR *** %s continuity is "
                       "completely broken! Something is wrong with the FE "
                       "source or with the configuration!", what)
@@ -344,15 +336,18 @@ class WIBEthFrameProcessor(TaskRawDataProcessor):
         C = self.N_CHANNELS
         if self._dev_state is None:
             self._dev_state = pack_state(self._state, C, device=self.device)
-        tc = auto_tc(T, cap=kernel_knobs(self.tpg_cfg)["tc"])
+        knobs = kernel_knobs(self.tpg_cfg)
+        tc = auto_tc(T, cap=knobs["tc"])
         # the time2 datapath consumes two ticks per word: tc must be even
         # (T is even — 64 ticks/frame, 12/superchunk)
         if even_tc and tc % 2:
             tc = next((d for d in range(tc, 1, -1)
                        if T % d == 0 and d % 2 == 0), T)
+        # the FIR schedule as the JAX processors pick it (wibeth.py:344,
+        # 391; wib2.py:151): K5 when a tuned file names twopass 1 or 2
         slots, nclose, self._dev_state = ingest(
             feed, self._dev_state, self.tpg_cfg, C, tc=tc,
-            k_slots=self.k_slots)
+            k_slots=self.k_slots, fir_twopass=knobs["fir_twopass"])
         hits, dropped = collect_hits(slots, nclose, C,
                                      max_hits=self._max_hits,
                                      device=self._device_compact)

@@ -104,3 +104,34 @@ def wib2_superchunks(n_links: int, n_superchunks: int, seed: int,
         wib2.fake_timestamps(sc[l], ts0)
         wib2.fake_geoid(sc[l], crate, slot, l)
     return sc, adcs
+
+
+def protowib_superchunks(n_links: int, n_superchunks: int, seed: int,
+                         ts0: int = 0x1000000, n_pulses: int | None = None):
+    """Seeded ProtoWIB data for ``n_links`` links, made as
+    :func:`wib2_superchunks` makes WIB2's (noise around 900 ADC, sigma 30,
+    8-tick pulses of 300-3000 ADC, default max(20, C/16) pulses) and
+    clipped to the 12-bit codec; frame timestamps advance 25 ticks per
+    frame from ``ts0``.
+
+    Returns ((L, N, 5568) uint8 superchunks, (L, 12 N, 256) int32 ADCs in
+    frame channel order)."""
+    from .formats import protowib
+    L, T = n_links, n_superchunks * protowib.FRAMES_PER_SUPERCHUNK
+    C = protowib.N_CHANNELS
+    rng = np.random.default_rng(seed)
+    adcs = (900 + rng.normal(0, 30, size=(L, T, C))).astype(np.int32)
+    for _ in range(n_pulses if n_pulses is not None
+                   else max(20, L * C // 16)):
+        l, c, t = rng.integers(0, L), rng.integers(0, C), \
+            rng.integers(0, T - 8)
+        adcs[l, t:t + 8, c] += rng.integers(300, 3000)
+    adcs = np.clip(adcs, 0, (1 << protowib.ADC_BITS) - 1)
+    sc = np.zeros((L, n_superchunks, protowib.SUPERCHUNK_SIZE),
+                  dtype=np.uint8)
+    for l in range(L):
+        frames = protowib.superchunk_frames(sc[l])
+        protowib.set_adcs(frames, adcs[l].reshape(
+            n_superchunks, protowib.FRAMES_PER_SUPERCHUNK, C))
+        protowib.fake_timestamps(sc[l], ts0)
+    return sc, adcs

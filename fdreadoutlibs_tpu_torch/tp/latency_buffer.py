@@ -1,8 +1,7 @@
 """Timestamp-ordered latency buffer.
 
 Port copy of ``fdreadoutlibs_tpu/tp/latency_buffer.py``: identical code apart
-from imports; the native C++ buffer is the JAX package's ``native``, carried because the JAX package's import chain for
-it pulls in jax.
+from imports; the native C++ buffer is the port's ``native`` copy.
 
 Equivalent of readoutlibs::SkipListLatencyBufferModel (folly
 ConcurrentSkipList) as exercised by the reference (SURVEY.md §2.6 item 2):
@@ -201,10 +200,10 @@ class LatencyBuffer:
 
 class NativeLatencyBufferAdapter:
     """Same interface as :class:`LatencyBuffer`, backed by the C++ ordered
-    buffer (fdreadoutlibs_tpu/native/latency_buffer.cpp)."""
+    buffer (fdreadoutlibs_tpu_torch/native/latency_buffer.cpp)."""
 
     def __init__(self, dtype, capacity: int | None = None, key: str = "time_start"):
-        from fdreadoutlibs_tpu import native
+        from .. import native
         self.key = key
         dtype = np.dtype(dtype)
         # the native buffer keys on the first 8 bytes of each record —
@@ -267,7 +266,7 @@ def make_latency_buffer(dtype=None, capacity: int | None = None,
     given), else the pure-Python sorted buffer."""
     if prefer_native and dtype is not None:
         try:
-            from fdreadoutlibs_tpu import native
+            from .. import native
             if native.available():
                 return NativeLatencyBufferAdapter(dtype, capacity)
         except Exception:

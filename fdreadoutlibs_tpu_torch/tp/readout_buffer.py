@@ -1,8 +1,7 @@
 """Raw-payload readout buffering + windowed data requests.
 
 Port copy of ``fdreadoutlibs_tpu/tp/readout_buffer.py``: identical code apart
-from imports; ``request_fragment`` (the Fragment/wire path) is left out, carried because the JAX package's import chain for
-it pulls in jax.
+from imports; ``request_fragment`` (the Fragment/wire path) is left out.
 
 The reference's request handlers serve *raw payload* windows from latency
 buffers for trigger readout (DefaultRequestHandlerModel /
@@ -20,7 +19,7 @@ from typing import Optional
 import numpy as np
 
 from ..formats.adapters import TypeAdapter
-from fdreadoutlibs_tpu.utils.metrics import MetricsCollector
+from ..utils.metrics import MetricsCollector
 
 from .latency_buffer import _exact_key, make_latency_buffer
 

@@ -1,8 +1,7 @@
 """TP request handler: TPSet windowing, heartbeats, cutoff, data requests.
 
 Port copy of ``fdreadoutlibs_tpu/tp/request_handler.py``: identical code apart
-from imports; ``request_fragment`` (the Fragment/wire path) is left out, carried because the JAX package's import chain for
-it pulls in jax.
+from imports; ``request_fragment`` (the Fragment/wire path) is left out.
 
 Equivalent of TPCTPRequestHandler (src/TPCTPRequestHandler.cpp): a sender
 loop windows buffered TPs into ``trigger::TPSet``s at a configured rate with
@@ -20,7 +19,7 @@ from typing import Optional
 import numpy as np
 
 from ..formats.trigprim import TPSet, TPSetType
-from fdreadoutlibs_tpu.utils.metrics import MetricsCollector
+from ..utils.metrics import MetricsCollector
 
 from .latency_buffer import LatencyBuffer
 

@@ -1,3 +1,3 @@
-"""Shared services of the port.  Channel maps and metrics are the JAX
-package's own (``fdreadoutlibs_tpu.utils.channel_map`` / ``.metrics``,
-jax-free); ``tuning`` holds the port's kernel knobs."""
+"""Shared services of the port: channel maps, metrics and logging (copies
+of the JAX package's ``utils`` modules, each citing its original) and
+``tuning``, the port's kernel knobs."""

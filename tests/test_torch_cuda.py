@@ -1,7 +1,9 @@
 """The hand-written CUDA kernel against its plain version on the card (K1,
 K2 and K3: both datapaths, all four families; K4: both packed layouts, all
-four families), and the APA app (every feed), ``StreamingIngest`` and the
-WIB2 processors on the card against the same on the CPU.  Marked ``cuda``:
+four families; K5: fir_twopass 1 and 2 on every encoding, also against
+K3), and the APA app (every feed), ``StreamingIngest``, the WIB2 and
+ProtoWIB processors and ``run_model`` on the card against the same on the
+CPU.  Marked ``cuda``:
 each test skips where torch finds no card.  This file imports no JAX, so on
 the machine with the card (which has none) run it without the suite's
 conftest:
@@ -10,21 +12,24 @@ conftest:
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
 
-from fdreadoutlibs_tpu import native
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.ops.config import Algorithm, TPGConfig
+from fdreadoutlibs_tpu_torch import native
 from fdreadoutlibs_tpu_torch.apps.apa_readout import APAReadoutApp, make_batch
-from fdreadoutlibs_tpu_torch.ops import tpg
+from fdreadoutlibs_tpu_torch.models import run_model
+from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, init_chanstate,
+                                         seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.ingest import StreamingIngest, pack_words14
-from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor
+from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor, \
+    WIBFrameProcessor
 from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
 from fdreadoutlibs_tpu_torch.testing import fir_stream, frame_words, \
-    time2_words, tpg_stream, wib2_superchunks
+    protowib_superchunks, time2_words, tpg_stream, wib2_superchunks
+from fdreadoutlibs_tpu_torch.tp.wib_tp_handler import WIBTPHandler
 
 pytestmark = pytest.mark.cuda
 
@@ -222,3 +227,94 @@ def test_wib2_processors_on_card_match_cpu(card):
             assert len(a) > 0
             np.testing.assert_array_equal(a, b)
         assert out["cuda"][1] == out["cpu"][1]
+
+
+@pytest.mark.parametrize("fir_twopass", [1, 2])
+@pytest.mark.parametrize("cfg", FIR_CONFIGS, ids=IDS[len(CONFIGS):])
+@pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (208, 1000, 200)])
+def test_k5_matches_k3_and_plain(card, cfg, C, T, tc, fir_twopass):
+    """K5, the two-pass FIR schedule, on every encoding (plain, time2,
+    frame words, words14 rows): bit-equal to its plain version and to K3
+    on the same inputs.  C = 208 leaves the last 32-channel block partly
+    empty; tc = 200 is no whole number of 16-tick groups."""
+    k = 4
+    adcs = fir_stream(T, C, tc, k, seed=C + 2)
+    state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], 0), C,
+                           device=card)
+    words = torch.from_numpy(frame_words(
+        np.pad(adcs, ((0, 0), (0, -C % 64)))).view(np.int32))
+    feeds = [(torch.from_numpy(adcs), False, None),
+             (torch.from_numpy(time2_words(adcs)), True, None),
+             (words, False, "frames"), (pack_words14(words), False,
+                                        "words14")]
+    want = tpg.process_window_twopass_plain(feeds[0][0].to(card), state, cfg,
+                                            tc, k, fir_twopass, False)
+    for feed, time2, packed14 in feeds:
+        feed = feed.to(card)
+        before = tpg.process_window.kernel_launches["K5"]
+        got = tpg.process_window(feed, state, cfg, tc, k, time2, packed14,
+                                 fir_twopass=fir_twopass)
+        assert tpg.process_window.kernel_launches["K5"] == before + 1
+        fused = tpg.process_window(feed, state, cfg, tc, k, time2, packed14)
+        for g, w, f in zip(got, want, fused):
+            assert torch.equal(g, w), (time2, packed14)
+            assert torch.equal(g, f), (time2, packed14)
+    assert int(want[1].max()) > k                 # drops exercised
+
+
+def _tuned(tmp_path, monkeypatch, twopass):
+    path = tmp_path / "tuned.json"
+    path.write_text(json.dumps({"FIR": {"twopass": twopass}}))
+    monkeypatch.setenv("FDREADOUT_TUNED", str(path))
+
+
+@pytest.mark.parametrize("twopass", [0, 1, 2])
+def test_protowib_processor_on_card_matches_cpu(card, twopass, tmp_path,
+                                                monkeypatch):
+    """Two ProtoWIB links' processors, packed and time2 feeds, three
+    batches, under a tuned file naming ``twopass``: the TPSets and
+    counters on the card equal the CPU's (the plain version)."""
+    _tuned(tmp_path, monkeypatch, twopass)
+    batches = [protowib_superchunks(2, 16, seed=b,
+                                    ts0=0x1000000 + b * 16 * 300)[0]
+               for b in range(3)]
+    for time2 in (False, True):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            tpg.reset_launches()
+            objs, counts = [], []
+            for link in range(2):
+                h = WIBTPHandler(tp_timeout=2_000, tpset_window_size=500)
+                p = WIBFrameProcessor(tp_handler=h, device=dev)
+                p.conf({"link_id": link, "enable_tpg": True,
+                        "tpg_time2_feed": time2, "tpg_k_slots": 2})
+                p.start()
+                for sc in batches:
+                    p.process(sc[link].copy())
+                while (s := h.try_sending_tpsets(10**12)) is not None:
+                    objs.append(s.objects)
+                counts.append({k: p.metrics.count(k) for k in (
+                    "num_hits", "num_hits_dropped", "num_tps_sent",
+                    "num_ts_errors")})
+            out[dev] = (objs, counts, dict(tpg.process_window.kernel_launches))
+        assert len(out["cuda"][0]) == len(out["cpu"][0]) > 0
+        for a, b in zip(out["cuda"][0], out["cpu"][0]):
+            np.testing.assert_array_equal(a, b)
+        assert out["cuda"][1] == out["cpu"][1]
+        assert out["cuda"][1][0]["num_hits"] > 0
+        # one launch per plane per link per batch
+        assert out["cuda"][2]["K5" if twopass else "K3"] == 2 * 2 * 3
+
+
+@pytest.mark.parametrize("twopass", [0, 2])
+def test_run_model_on_card_matches_cpu(card, twopass, tmp_path, monkeypatch):
+    _tuned(tmp_path, monkeypatch, twopass)
+    cfg = TPGConfig.from_raw("FIR", threshold=5, track_peaks=False)
+    adcs = fir_stream(1100, 160, 128, 2, seed=12)
+    for backend in ("scan", "pallas"):
+        hits, st = run_model(adcs, cfg, backend, device="cuda")
+        want, want_st = run_model(adcs, cfg, backend, device="cpu")
+        assert len(want) > 0
+        np.testing.assert_array_equal(hits, want)
+        for key in want_st:
+            np.testing.assert_array_equal(st[key], want_st[key])

@@ -1,13 +1,14 @@
 """The CUDA source itself on the CPU: ``csrc/tpg.cu`` compiled with the
 host C++ compiler against a stand-in CUDA runtime
-(``tests/cuda_host/cuda_runtime.h``, ``-DTPG_HOST_EMULATION``: the grid
-runs serially), called through the wrapper's own argument marshalling
+(``tests/cuda_host/cuda_runtime.h``, ``-DTPG_HOST_EMULATION``: a grid
+without barriers runs serially; K5's blocks run as host threads that meet
+at a real barrier), called through the wrapper's own argument marshalling
 (``ops/tpg._launch``) and held bit-equal to the plain version for every
 encoding (K1 time2, K2 plain, K4 frame words and words14 rows) and family
-(K3 FIR included), at a shape with whole 16-tick groups and one with a
-ragged chunk tail.  What only the card shows (the build for sm_90a,
-scheduling, timing) is ``tests/test_torch_cuda.py``'s and
-``chip_smoke.py``'s."""
+(K3 FIR included), and K5 (fir_twopass 1 and 2) for the FIR variants, at
+a shape with whole 16-tick groups and one with a ragged chunk tail.  What
+only the card shows (the build for sm_90a, scheduling, timing) is
+``tests/test_torch_cuda.py``'s and ``chip_smoke.py``'s."""
 
 import ctypes
 import dataclasses
@@ -19,9 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.ops.config import Algorithm, TPGConfig
-from fdreadoutlibs_tpu_torch.ops import _build, tpg
+from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, _build,
+                                         init_chanstate, seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.ingest import pack_words14
 from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
                                              time2_words, tpg_stream)
@@ -43,20 +43,50 @@ CONFIGS = {
 
 
 @pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
+def host_lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
     lib = tmp_path_factory.mktemp("tpg_host") / "libtpg_host.so"
     res = subprocess.run(
-        [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++",
-         "-DTPG_HOST_EMULATION", f"-I{STUB}", "-o", str(lib),
+        [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", "-x",
+         "c++", "-DTPG_HOST_EMULATION", f"-I{STUB}", "-o", str(lib),
          str(_build.CSRC_DIR / "tpg.cu")], capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
-    fn = ctypes.CDLL(str(lib)).tpg_launch
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def host_kernel(host_lib):
+    fn = host_lib.tpg_launch
     fn.argtypes = tpg._ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+@pytest.fixture(scope="module")
+def host_fir2(host_lib):
+    fn = host_lib.tpg_fir2_launch
+    fn.argtypes = tpg._FIR2_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _inputs(cfg, C, T, tc, k):
+    """The window as every encoding the kernel takes, and its state."""
+    if cfg.algorithm == Algorithm.FIR:
+        adcs, rmf = fir_stream(T, C, tc, k, seed=C), 0
+    else:
+        adcs, rmf = tpg_stream(T, C, tc, k, seed=C)
+    state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], rmf), C)
+    # whole 64-channel links; the kernel reads only the first C channels
+    links = np.pad(adcs, ((0, 0), (0, -C % 64)))
+    words = torch.from_numpy(frame_words(links).view(np.int32))
+    feeds = [(torch.from_numpy(adcs), False, None),
+             (torch.from_numpy(time2_words(adcs)), True, None),
+             (words, False, "frames"),
+             (pack_words14(words), False, "words14")]
+    return feeds, state
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -64,17 +94,7 @@ def test_kernel_source_matches_plain(host_kernel, name):
     cfg = CONFIGS[name]
     k = 2
     for C, T, tc in [(256, 320, 64), (192, 200, 50)]:
-        if cfg.algorithm == Algorithm.FIR:
-            adcs, rmf = fir_stream(T, C, tc, k, seed=C), 0
-        else:
-            adcs, rmf = tpg_stream(T, C, tc, k, seed=C)
-        state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0],
-                                              rmf), C)
-        words = torch.from_numpy(frame_words(adcs).view(np.int32))
-        feeds = [(torch.from_numpy(adcs), False, None),
-                 (torch.from_numpy(time2_words(adcs)), True, None),
-                 (words, False, "frames"),
-                 (pack_words14(words), False, "words14")]
+        feeds, state = _inputs(cfg, C, T, tc, k)
         want = tpg.process_window_plain(feeds[0][0], state, cfg, tc, k,
                                         False)
         for feed, time2, packed14 in feeds:
@@ -85,3 +105,26 @@ def test_kernel_source_matches_plain(host_kernel, name):
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (C, time2, packed14)
         assert int((want[0][:, :, -1] != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("fir_twopass", [1, 2])
+@pytest.mark.parametrize("name", [n for n in CONFIGS if n.startswith("FIR")])
+def test_fir2_kernel_source_matches_plain(host_fir2, name, fir_twopass):
+    """K5 (``tpg_fir2_launch``) on every encoding, against K5's plain
+    version, which equals K3's (tests/test_torch_fir2.py): a shape whose
+    last block is partly empty (C = 200 is not a multiple of 32 channels),
+    a ragged chunk tail (tc = 50), window carry across chunks, drops."""
+    cfg = CONFIGS[name]
+    k = 2
+    for C, T, tc in [(256, 320, 64), (208, 200, 50)]:
+        feeds, state = _inputs(cfg, C, T, tc, k)
+        want = tpg.process_window_twopass_plain(feeds[0][0], state, cfg, tc,
+                                                k, fir_twopass, False)
+        for feed, time2, packed14 in feeds:
+            if time2 and tc % 2:
+                continue
+            got = tpg._launch(host_fir2, feed, state, cfg, tc, k, time2,
+                              packed14, 0, None, fir_twopass)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (C, time2, packed14)
+        assert int(want[1].max()) > k

@@ -1,5 +1,7 @@
-"""The port runs with jax unimportable (the machine with the card has no
-jax), and refuses CUDA work without a card instead of falling back."""
+"""The port runs with jax and the JAX package unimportable (the machine
+with the card has no jax, and the port carries its own copy of every host
+module it uses), and refuses CUDA work without a card instead of falling
+back."""
 
 import subprocess
 import sys
@@ -10,10 +12,15 @@ ROOT = Path(__file__).resolve().parent.parent
 SCRIPT = r'''
 import importlib, importlib.abc, pkgutil, sys
 
+def blocked(name):
+    return (name.split(".")[0] in ("jax", "jaxlib")
+            or name == "fdreadoutlibs_tpu"
+            or name.startswith("fdreadoutlibs_tpu."))
+
 class NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"jax is blocked: {name}")
+        if blocked(name):
+            raise ImportError(f"jax and the JAX package are blocked: {name}")
 
 sys.meta_path.insert(0, NoJax())
 import numpy as np
@@ -35,7 +42,7 @@ for feed in ("time2_feed", "fused_unpack", "words14_feed", None):
     info = app.get_info()
     assert info["total_hits"] > 0 and info["ts_errors"] == 0, (feed, info)
 
-from fdreadoutlibs_tpu.ops.config import TPGConfig
+from fdreadoutlibs_tpu_torch.ops import TPGConfig
 from fdreadoutlibs_tpu_torch.ops.ingest import StreamingIngest
 for kw in ({}, {"fused": True}, {"time2": True}):
     ing = StreamingIngest(TPGConfig(threshold=150), 2, tc=64, device="cpu",
@@ -58,7 +65,28 @@ for time2 in (False, True):
     proc.start()
     proc.process(sc[0].copy())
     assert proc.metrics.count("num_tps_sent") > 0
-assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")]
+
+from fdreadoutlibs_tpu_torch.stream import WIBFrameProcessor
+from fdreadoutlibs_tpu_torch.testing import protowib_superchunks
+from fdreadoutlibs_tpu_torch.tp.wib_tp_handler import WIBTPHandler
+sc, _ = protowib_superchunks(1, 8, seed=2)
+for backend, time2 in (("reference", False), ("scan", False),
+                       ("pallas", False), ("pallas", True)):
+    proc = WIBFrameProcessor(tp_handler=WIBTPHandler(), device="cpu")
+    proc.conf({"enable_tpg": True, "tpg_backend": backend,
+               "tpg_time2_feed": time2})
+    proc.start()
+    proc.process(sc[0].copy())
+    assert proc.metrics.count("num_hits") > 0, (backend, time2)
+
+from fdreadoutlibs_tpu_torch.models import run_model
+from fdreadoutlibs_tpu_torch.testing import fir_stream
+adcs = fir_stream(128, 32, 64, 2, seed=3)
+fir = TPGConfig.from_raw("FIR", threshold=5, track_peaks=False)
+hits = [run_model(adcs, fir, b, device="cpu")[0]
+        for b in ("reference", "scan", "pallas")]
+assert len(hits[0]) > 0 and all(np.array_equal(h, hits[0]) for h in hits)
+assert not [k for k in sys.modules if blocked(k)]
 
 if not torch.cuda.is_available():
     from fdreadoutlibs_tpu_torch.ops import _build, tpg
@@ -75,13 +103,14 @@ if not torch.cuda.is_available():
     else:
         raise AssertionError("StreamingIngest on 'cuda' without a card did "
                              "not raise")
-    try:
-        WIB2FrameProcessor(device="cuda")
-    except RuntimeError:
-        pass
-    else:
-        raise AssertionError("a processor on 'cuda' without a card did not "
-                             "raise")
+    for proc_cls in (WIB2FrameProcessor, WIBFrameProcessor):
+        try:
+            proc_cls(device="cuda")
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("a processor on 'cuda' without a card did "
+                                 "not raise")
     feed = torch.zeros((32, 64), dtype=torch.int32)
     state = torch.zeros((tpg.KSTATE, 64), dtype=torch.int32)
     try:      # the kernel route never takes CPU tensors
@@ -97,6 +126,13 @@ if not torch.cuda.is_available():
         pass
     else:
         raise AssertionError("the CUDA kernel route took CPU packed words")
+    fir_state = torch.zeros((tpg.KSTATE, 64), dtype=torch.int32)
+    try:      # nor K5, the two-pass FIR schedule
+        tpg.launch_kernel(feed, fir_state, fir, 64, 2, fir_twopass=1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the CUDA kernel route took CPU tensors (K5)")
     try:      # nor does the wrapper take a device it has no route for
         tpg.process_window(feed.to("meta"), state.to("meta"), TPGConfig(),
                            64, 2)
@@ -122,6 +158,29 @@ def test_no_module_imports_jax():
         assert "import jax" not in text and "from jax" not in text, path
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert "import jax" not in smoke and "from jax" not in smoke
+
+
+def _import_roots(path: Path) -> set:
+    """The top-level package of every absolute import in a module (at any
+    depth: module level, functions, conditionals)."""
+    import ast
+    tree = ast.parse(path.read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+    return {n.split(".")[0] for n in names}
+
+
+def test_no_port_module_imports_the_jax_package():
+    """No module of the port imports ``fdreadoutlibs_tpu`` (nor jax): the
+    host modules it needs are its own copies."""
+    paths = sorted((ROOT / "fdreadoutlibs_tpu_torch").rglob("*.py"))
+    assert len(paths) > 30
+    for path in paths:
+        roots = _import_roots(path)
+        assert not roots & {"fdreadoutlibs_tpu", "jax", "jaxlib"}, \
+            (path, roots)
 
 
 def test_chip_smoke_imports_only_the_port():
