@@ -7,12 +7,15 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 
 1. device  — requires a CUDA card of capability (9, 0); prints its name and
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build   — compiles ``fdreadoutlibs_tpu_torch/csrc/tpg.cu`` with nvcc and
-   summarizes ``ptxas -v`` (registers, stack, spills);
+2. build   — compiles the kernel library's translation units
+   (``fdreadoutlibs_tpu_torch/csrc/tpg*.cu``, one ``nvcc`` each, all at
+   once) and summarizes ``ptxas -v`` (registers, stack, spills; K3's and
+   K3b's FIR kernels side by side);
 3. kernel  — the hand-written kernel against its plain PyTorch version on
    the card at T=8192 ticks x 2560 channels (tc=256, K=4): K1 (time2
    datapath) and K2 (plain-sample datapath) for SimpleThreshold, AbsRS and
-   StandardRS, K3 (FIR, threshold 5) on both datapaths with and without
+   StandardRS (K2 also for AbsRS with the float running sum, ``rs_float``),
+   K3 (FIR, threshold 5) on both datapaths with and without
    peak tracking.  Slots, nclose and state must be bit-equal and some
    chunk must close more than K hits (drops exercised); both are timed.
    A time2 case whose words split back into the ADCs takes the plain
@@ -51,13 +54,29 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    per batch, TPs sent and no timestamp errors, batches 0-1 of every link
    and plane equal to the plain version with the processors' seeding, tc
    and compaction, the same hits and TPs in all three runs, and a
-   per-stage split of one batch.
+   per-stage split of one batch;
+7. kernel entries — the entries that reach the variants of ``_tpg_kernel``
+   at APA width (2560 channels), 8 windows of 8192 ticks carrying state:
+   ``ingest.process_words14_feed(slab=True)`` (K4b-slab) on the words14
+   rows of ``make_batch`` frames, the same rows through
+   ``tpg.process_window(packed14="words14", words14_gather=True)``
+   (K4b-gather), ``process_window`` on the int16 samples (K2b; all three
+   AbsRS 150) and ``process_window(fir_packed=True)`` (K2 + K3b, FIR 5).
+   Each window is copied to the card, run, compacted on the device and
+   fetched; windows 0-1 equal the plain version's hits; ms per window (p50)
+   and RTF per entry.
 
 Phase 2 also builds the port's native host codecs (``native/``) and fails
 if they do not load, so no host stage is timed on the numpy fallback.
 Phase 3 also holds K5 (fir_twopass 1 and 2, peaks off and on, plain and
 time2 datapaths) bit-equal to K3 on the same inputs, and to K5's plain
-version once per schedule, and times both in the same call.
+version once per schedule, and times both in the same call.  It then holds
+the variants of the fused tick on the same inputs, each timed beside the
+kernel it varies and held once to its own plain version: K3b
+(``fir_packed``) on K3's plain (peaks off and on), time2 and words14 feeds,
+equal to K3; K2b on the four families' ADCs as int16, equal to K2's (K3's)
+plain result; K4b-slab (four families) and K4b-gather (AbsRS, FIR) on K4's
+words14 rows, equal to K4's plain result.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels (each with its launches on the main paths, its error against
@@ -130,22 +149,29 @@ PW_RUNS = (("packed, twopass 0", False, 0), ("packed, twopass 2", False, 2),
 PW_PLANES = (("collection", protowib.COLLECTION_INDEX_TO_CHAN),
              ("induction", protowib.INDUCTION_INDEX_TO_CHAN))
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5")
+KERNELS = tpg.KERNELS
 REPLACES = {"K1": "fdreadoutlibs_tpu/ops/pallas_tpg.py:439",
             "K2": "fdreadoutlibs_tpu/ops/pallas_tpg.py:399",
             "K3": "fdreadoutlibs_tpu/ops/pallas_tpg.py:464",
             "K4": "fdreadoutlibs_tpu/ops/pallas_tpg.py:241",
-            "K5": "fdreadoutlibs_tpu/ops/pallas_tpg.py:585"}
-SOURCE = "fdreadoutlibs_tpu_torch/csrc/tpg.cu"
+            "K5": "fdreadoutlibs_tpu/ops/pallas_tpg.py:585",
+            "K2b": "fdreadoutlibs_tpu/ops/pallas_tpg.py:475",
+            "K3b": "fdreadoutlibs_tpu/ops/pallas_tpg.py:466",
+            "K4b-slab": "fdreadoutlibs_tpu/ops/pallas_tpg.py:308",
+            "K4b-gather": "fdreadoutlibs_tpu/ops/pallas_tpg.py:268"}
+# the kernels are written in the shared header; csrc/tpg_*.cu instantiate
+SOURCE = "fdreadoutlibs_tpu_torch/csrc/tpg.cuh"
 
 # The bound of a kernel case: the larger of its bytes (feed read once,
 # state read and written once, slots and nclose written once) over the
 # HBM rate, and its int32 operations over the card's int32 issue rate (132
 # SMs x 64 INT32 lanes per clock at the measured SM clock).  Operations
-# per tick per channel, counted from csrc/tpg.cu (ThresholdChannel::tick,
-# FirChannel::tick; K5 does FirChannel's work in passes), plus the feed
-# decode per tick (time2: one shift or wrap; packed: the funnel shift and
-# mask).
+# per tick per channel of the function computed, counted from csrc/tpg.cuh
+# (ThresholdChannel::tick, FirChannel::tick; K5 does FirChannel's work in
+# passes), plus the feed decode per tick (time2: one shift or wrap;
+# packed: the funnel shift and mask).  A variant is bounded by the function
+# it computes, not by its own schedule: K3b by K3's ticks, K2b by its
+# family's ticks (with the int16 state's bytes), K4b by K4's decode.
 HBM_BYTES_PER_S = 3.35e12
 SMS, INT32_LANES = 132, 64
 OPS_PER_TICK = {"SimpleThreshold": 26, "AbsRS": 42, "StandardRS": 40,
@@ -196,6 +222,43 @@ def ptxas_summary(log: str) -> str:
     spill = [int(s) for s in re.findall(r"(\d+) bytes spill", log)]
     return (f"{len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
             f"stack frame max {max(stack)} B, spills max {max(spill)} B")
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes)} from the
+    ``ptxas -v`` report."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), spill)
+            name = None
+    return out
+
+
+def fir_registers(kernels: dict) -> dict:
+    """K3's and K3b's fused-tick kernels on the int32 datapaths: {"K3" or
+    "K3b": {"peaks" or "no peaks": (min regs, max regs, max spill B)}}."""
+    pat = re.compile(r"tpg_(?:slab_)?kernelINS_(?:10FirChannel|"
+                     r"16FirPackedChannel)ILb(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?")
+    out = {}
+    for name, (regs, spill) in kernels.items():
+        m = pat.search(name)
+        if m is None or m.group(4) == "1":          # int16: K2b
+            continue
+        kern = "K3b" if "FirPackedChannel" in name else "K3"
+        key = "peaks" if m.group(2) == "1" else "no peaks"
+        lo, hi, sp = out.setdefault(kern, {}).get(key, (999, 0, 0))
+        out[kern][key] = (min(lo, regs), max(hi, regs), max(sp, spill))
+    return out
 
 
 def plain_app_hits(adcs_batches, rmf, cfg, k_slots: int, dev):
@@ -273,12 +336,14 @@ def split_time2(words: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_work(feed, cfg, encoding: str, T: int, C: int) -> dict:
-    """Bytes and int32 operations one launch must do on these inputs."""
+    """Bytes and int32 operations one launch must do on these inputs (the
+    state in the feed's element size for the int16 mode)."""
     n_chunks = T // TC
     out = n_chunks * K * tpg.record_words(cfg) * C + n_chunks * C
-    return {"bytes": feed.numel() * 4 + 2 * tpg.KSTATE * C * 4 + out * 4,
-            "ops": T * C * (OPS_PER_TICK[cfg.algorithm.value]
-                            + DECODE_OPS[encoding])}
+    state_bytes = 2 * tpg.KSTATE * C * feed.element_size()
+    return {"bytes": feed.numel() * feed.element_size() + state_bytes
+            + out * 4, "ops": T * C * (OPS_PER_TICK[cfg.algorithm.value]
+                                       + DECODE_OPS[encoding])}
 
 
 def kernel_vs_plain(dev):
@@ -293,27 +358,37 @@ def kernel_vs_plain(dev):
     # the plain datapath first: a time2 case whose words split back into
     # the same ADCs takes that case's plain result (the same function of the
     # same samples); the reported K1 case runs its own plain version
+    # (the float running sum, rs_float, once on the plain datapath)
     cases = [("K2", f"{n} plain", c, False) for n, c in thr.items()] + \
-        [("K3", "FIR plain", fir, False),
+        [("K2", "AbsRS plain rs_float",
+          replace(thr["AbsRS"], rs_float=True), False),
+         ("K3", "FIR plain", fir, False),
          ("K3", "FIR plain peaks", replace(fir, track_peaks=True), False)] + \
         [("K1", f"{n} time2", c, True) for n, c in thr.items()] + \
         [("K3", "FIR time2", fir, True),
          ("K3", "FIR time2 peaks", replace(fir, track_peaks=True), True)]
     reported = {"K1": "AbsRS time2", "K2": "AbsRS plain", "K3": "FIR plain",
-                "K4": "AbsRS frames", "K5": "FIR plain twopass 2"}
+                "K4": "AbsRS frames", "K5": "FIR plain twopass 2",
+                "K2b": "AbsRS int16", "K3b": "FIR plain fir_packed",
+                "K4b-slab": "AbsRS words14 slab",
+                "K4b-gather": "AbsRS words14 gather"}
     adcs, rmf = tpg_stream(T_APA, C_APA, TC, K, SEED)
     fadcs = fir_stream(T_APA, C_APA, TC, K, SEED)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     out = {}
     plain = {}      # plain-datapath label -> (adcs, cfg, state, result)
     k3 = {}         # K3 label -> (feed, state, cfg, time2, result, ms)
+    k4 = {}         # K4 label -> (feed, ms)
 
-    def record(kern, label, err, ms, plain_ms, work, **extra):
+    case_ms = {}    # plain-datapath label -> the kernel's ms
+
+    def record(kern, label, err, ms, plain_ms, work, base=None):
+        """``base``: (the kernel it varies, its ms on the same inputs)."""
         prev = out.get(kern, {"max_abs_err": 0})
         entry = {"max_abs_err": max(prev["max_abs_err"], err)}
         if label == reported[kern]:
             entry.update(ms=ms, plain_ms=plain_ms, timed=label, work=work,
-                         **extra)
+                         base=base)
         out[kern] = {**prev, **entry}
 
     for kern, label, cfg, time2 in cases:
@@ -341,9 +416,10 @@ def kernel_vs_plain(dev):
             plain_ms = (time.perf_counter() - t0) * 1e3
         err = check_equal(label, got, want)
         what = check_strong(label, got)
+        ms = time_kernel(run, 20, flush)
         if not time2:
             plain[label] = (a, cfg, state, want)
-        ms = time_kernel(run, 20, flush)
+            case_ms[label] = ms
         if kern == "K3":
             k3[label] = (feed, state, cfg, time2, got, ms)
         print(f"  {kern} {label}: T={T_APA} x {C_APA} ch bit-equal ({what}); "
@@ -393,6 +469,7 @@ def kernel_vs_plain(dev):
                   flush=True)
             record("K4", label, err, ms, plain_ms,
                    kernel_work(feed, cfg, "packed14", T_APA, C_APA))
+            k4[label] = (feed, ms)
 
     # K5: the two-pass FIR schedule on K3's inputs, held to K3's result in
     # every case and to its own plain version once per schedule (the
@@ -426,8 +503,107 @@ def kernel_vs_plain(dev):
                   flush=True)
             record("K5", label, err, ms, plain_ms,
                    kernel_work(feed, cfg, "time2" if time2 else "plain",
-                               T_APA, C_APA), k3_ms=k3_ms)
+                               T_APA, C_APA), base=("K3", k3_ms))
+    variant_kernels(dev, plain, case_ms, k3, k4, flush, record, reported)
     return out
+
+
+def check_variant(kern, label, run, wants, plain_fn, base, work, flush,
+                  record, reported):
+    """One case of a kernel variant: its result bit-equal to each of
+    ``wants`` (label -> result: the kernel it varies, or that kernel's
+    plain result on the same samples) and, for the reported case, to its
+    own plain version (``plain_fn``); timed beside the kernel it varies
+    (``base`` = (name, ms) from this call)."""
+    got = run()
+    torch.cuda.synchronize()
+    err = 0
+    for what, want in wants.items():
+        err = max(err, check_equal(f"{label} vs {what}", got, want))
+    plain_ms = None
+    if label == reported[kern]:
+        t0 = time.perf_counter()
+        want = plain_fn()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(err, check_equal(label, got, want))
+    info = check_strong(label, got)
+    ms = time_kernel(run, 20, flush)
+    print(f"  {kern} {label}: bit-equal to " + ", ".join(wants)
+          + (" and to its plain version" if plain_ms else "")
+          + f" ({info}); kernel {ms:.4f} ms/batch, {base[0]} {base[1]:.4f} "
+          "ms/batch in this call"
+          + (f", plain {plain_ms:.1f} ms/batch" if plain_ms else ""),
+          flush=True)
+    record(kern, label, err, ms, plain_ms, work, base=base)
+
+
+def variant_kernels(dev, plain, case_ms, k3, k4, flush, record, reported):
+    """Phase 3, the variants of _tpg_kernel on the inputs above: K3b (the
+    SWAR carry) on K3's feeds, held to K3's result; K2b on the same ADCs
+    as int16, held to K2's (K3's) plain result (14-bit streams stay in
+    int16 range); K4b-slab (four families) and K4b-gather (AbsRS, FIR) on
+    K4's words14 rows, held to the plain result K4 was held to.  Each is
+    held to its own plain version once and timed beside the kernel it
+    varies."""
+    for src in ("FIR plain", "FIR plain peaks", "FIR time2"):
+        feed, state, cfg, time2, want_k3, k3_ms = k3[src]
+        check_variant(
+            "K3b", f"{src} fir_packed",
+            lambda feed=feed, state=state, cfg=cfg, time2=time2:
+                tpg.launch_kernel(feed, state, cfg, TC, K, time2,
+                                  fir_packed=True),
+            {"K3": want_k3},
+            lambda feed=feed, state=state, cfg=cfg, time2=time2:
+                tpg.process_window_plain(feed, state, cfg, TC, K, time2,
+                                         fir_packed=True),
+            ("K3", k3_ms),
+            kernel_work(feed, cfg, "time2" if time2 else "plain", T_APA,
+                        C_APA), flush, record, reported)
+    feed, k4_ms = k4["FIR words14"]
+    a, cfg, state, want = plain["FIR plain"]
+    check_variant(
+        "K3b", "FIR words14 fir_packed",
+        lambda: tpg.launch_kernel(feed, state, cfg, TC, K, False, "words14",
+                                  fir_packed=True),
+        {"K3 plain": want}, None, ("K4 words14", k4_ms),
+        kernel_work(feed, cfg, "packed14", T_APA, C_APA), flush, record,
+        reported)
+    for fam in ("SimpleThreshold", "AbsRS", "StandardRS", "FIR"):
+        a, cfg, state, want = plain[f"{fam} plain"]
+        feed16 = torch.from_numpy(a.astype(np.int16)).to(dev)
+        state16 = state.to(torch.int16)
+        if not torch.equal(state16.to(torch.int32), state):
+            raise AssertionError(f"{fam}: the seeded state leaves int16")
+        want16 = tuple(want[:2]) + (want[2].to(torch.int16),)
+        base = "K3" if fam == "FIR" else "K2"
+        check_variant(
+            "K2b", f"{fam} int16",
+            lambda feed16=feed16, state16=state16, cfg=cfg:
+                tpg.launch_kernel(feed16, state16, cfg, TC, K, False),
+            {f"{base} plain": want16},
+            lambda feed16=feed16, state16=state16, cfg=cfg:
+                tpg.process_window_plain(feed16, state16, cfg, TC, K, False),
+            (f"{base} plain datapath", case_ms[f"{fam} plain"]),
+            kernel_work(feed16, cfg, "plain", T_APA, C_APA), flush, record,
+            reported)
+        w14, k4_ms = k4[f"{fam} words14"]
+        for sched in ("slab", "gather"):
+            if sched == "gather" and fam not in ("AbsRS", "FIR"):
+                continue
+            opt = {f"words14_{sched}": True}
+            check_variant(
+                f"K4b-{sched}", f"{fam} words14 {sched}",
+                lambda w14=w14, state=state, cfg=cfg, opt=opt:
+                    tpg.launch_kernel(w14, state, cfg, TC, K, False,
+                                      "words14", **opt),
+                {"K4 (plain)": want},
+                lambda w14=w14, state=state, cfg=cfg, opt=opt:
+                    tpg.process_window_plain(w14, state, cfg, TC, K, False,
+                                             "words14", **opt),
+                ("K4 words14", k4_ms),
+                kernel_work(w14, cfg, "packed14", T_APA, C_APA),
+                flush, record, reported)
 
 
 def sm_clock_mhz() -> float:
@@ -949,6 +1125,137 @@ def protowib_slice(dev) -> dict:
     return totals
 
 
+ENTRY_WINDOWS = 8
+ENTRY_TICK_S = 32 / 62.5e6   # 512 ns per WIBEth tick
+
+
+def kernel_entries(dev) -> dict:
+    """Phase 7: the entries that reach the variants of _tpg_kernel, at APA
+    width (2560 channels) over ENTRY_WINDOWS windows of 8192 ticks carrying
+    state, each window copied to the card, run, compacted on the device
+    (``compact_on_device``) and fetched (``unpack_compact``).  The hits of
+    windows 0-1 equal the plain version's: one AbsRS plain result (the slab
+    entry's plain version) serves the three AbsRS entries, which compute
+    the same function of the same samples (their unpack is checked equal
+    to the ADCs; K2b's int16 arithmetic equals K2's on 14-bit streams, as
+    phase 3 holds).  Returns the kernel launch counts of the four runs."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 7)
+    ts = 0x1000000
+    w14, a32, a16 = [], [], []
+    for b in range(ENTRY_WINDOWS):
+        frames, adcs_b = make_batch(rng, N_LINKS, FRAMES, b, ts)
+        ts += FRAMES * 2048
+        words = wibeth.frames_bytes_to_u32(
+            frames.reshape(-1, wibeth.FRAME_SIZE)).reshape(N_LINKS, T_APA, 28)
+        w14.append(native.relayout_words14(words))
+        a = (adcs_b & 0x3FFF).transpose(1, 2, 0, 3).reshape(
+            T_APA, C_APA).astype(np.int32)
+        a32.append(a)
+        a16.append(a.astype(np.int16))
+    checked = a32[:N_CHECKED]
+    if not torch.equal(wibeth.unpack_words14(torch.from_numpy(w14[0]),
+                                             C_APA),
+                       torch.from_numpy(checked[0])):
+        raise AssertionError("the words14 rows do not unpack to the ADCs")
+    print(f"  data: {ENTRY_WINDOWS} windows of {N_LINKS} links x {FRAMES} "
+          f"frames in {time.perf_counter() - t0:.3f} s")
+    absrs = TPGConfig.from_raw("AbsRS", threshold=150)
+    fir = TPGConfig.from_raw("FIR", threshold=5, track_peaks=False)
+    rmf = absrs.rs_memory_factor_x10
+
+    def seeded(cfg, dtype=torch.int32):
+        return tpg.pack_state(seed_chanstate(
+            init_chanstate(C_APA), checked[0][0],
+            rmf if cfg is absrs else 0), C_APA, device=dev, dtype=dtype)
+
+    def hits_of(out, b):
+        slots, nclose, _ = out
+        return unpack_compact(compact_on_device(
+            slots, nclose, b * T_APA, C_APA, max(2048, 2 * C_APA)))
+
+    # (label, cfg, state dtype, host feed of window b, run, launches)
+    entries = (
+        ("process_words14_feed(slab=True)", absrs, torch.int32, w14.__getitem__,
+         lambda f, st, tc: ingest.process_words14_feed(
+             f, st, absrs, C_APA, tc=tc, k_slots=K, slab=True),
+         {"K4b-slab": 1}),
+        ("process_window(words14, words14_gather=True)", absrs, torch.int32,
+         w14.__getitem__,
+         lambda f, st, tc: tpg.process_window(
+             f, st, absrs, tc, K, time_packed=False, packed14="words14",
+             words14_gather=True),
+         {"K4b-gather": 1}),
+        ("process_window(int16 samples)", absrs, torch.int16,
+         a16.__getitem__,
+         lambda f, st, tc: tpg.process_window(f, st, absrs, tc, K,
+                                              time_packed=False),
+         {"K2b": 1}),
+        ("process_window(fir_packed=True)", fir, torch.int32,
+         a32.__getitem__,
+         lambda f, st, tc: tpg.process_window(f, st, fir, tc, K,
+                                              time_packed=False,
+                                              fir_packed=True),
+         {"K2": 1, "K3b": 1}))
+    plain = {}
+    totals = {k: 0 for k in KERNELS}
+    summary = {}
+    for label, cfg, dtype, host, run, per_window in entries:
+        tc = kernel_knobs(cfg)["tc"]
+        state = seeded(cfg, dtype)
+        fetched, ms = [], []
+        tpg.reset_launches()
+        for b in range(ENTRY_WINDOWS):
+            t1 = time.perf_counter()
+            feed = torch.from_numpy(host(b)).to(dev)
+            out = run(feed, state, tc)
+            state = out[2]
+            got = hits_of(out, b)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if b < N_CHECKED:
+                fetched.append(got)
+        launches = dict(tpg.process_window.kernel_launches)
+        want = {k: n * ENTRY_WINDOWS if k in per_window else 0
+                for k, n in {**launches, **per_window}.items()}
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, want {want}")
+        for k in KERNELS:
+            totals[k] += launches[k]
+        key = "FIR" if cfg is fir else "AbsRS"
+        if key not in plain:
+            p_state, plain[key] = seeded(cfg), []
+            for b, a in enumerate(checked):
+                if cfg is fir:
+                    out = tpg.process_window_plain(
+                        torch.from_numpy(a).to(dev), p_state, fir, tc, K,
+                        False, fir_packed=True)
+                else:
+                    out = tpg.process_window_plain(
+                        torch.from_numpy(w14[b]).to(dev), p_state, absrs, tc,
+                        K, False, "words14", words14_slab=True)
+                p_state = out[2]
+                plain[key].append(hits_of(out, b))
+        for b, ((h, d), (wh, wd)) in enumerate(zip(fetched, plain[key])):
+            if d != wd or not np.array_equal(h, wh):
+                raise AssertionError(
+                    f"{label} window {b}: hits ({len(h)}, dropped {d}) "
+                    f"differ from the plain version ({len(wh)}, dropped "
+                    f"{wd})")
+        steady = ms[1:]
+        rtf = len(steady) * T_APA * ENTRY_TICK_S / (sum(steady) / 1e3)
+        n_hits = [len(h) for h, _ in fetched]
+        print(f"  {label}: window 0 {ms[0]:.3f} ms (set-up); steady "
+              f"{len(steady)} windows ms p50 {statistics.median(steady):.3f} "
+              f"min {min(steady):.3f} max {max(steady):.3f}, RTF {rtf:.4f}; "
+              f"hits of windows 0-1 {n_hits} == plain; launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}",
+              flush=True)
+        summary[label] = {"ms_p50": statistics.median(steady),
+                          "rtf": round(rtf, 4)}
+    print("  kernel entries:", json.dumps(summary))
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -970,7 +1277,10 @@ def main() -> int:
         lib = _build.build("tpg")
         print(f"built {lib.name}")
         if "tpg" in _build.build_log:
-            print("  ptxas:", ptxas_summary(_build.build_log["tpg"]))
+            log = _build.build_log["tpg"]
+            print("  ptxas:", ptxas_summary(log))
+            print("  ptxas K3 vs K3b (registers min, max, spill stores B):",
+                  json.dumps(fir_registers(ptxas_kernels(log))))
         _build.load("tpg")
         # the host codecs timed below must be the native library's
         print(f"native host codecs loaded: {native.available()}")
@@ -1007,14 +1317,19 @@ def main() -> int:
     with phase("6 protowib slice"):
         pw = protowib_slice(dev)
 
+    with phase("7 kernel entries"):
+        entries = kernel_entries(dev)
+
     # launches on the main paths: the APA app's feeds, the WIB2 and the
-    # ProtoWIB processors' runs
+    # ProtoWIB processors' runs, the kernel entries
     launches = {
         "K1": app_launches["time2"],
-        "K2": app_launches["packed"] + packed["K2"] + pw["K2"],
+        "K2": app_launches["packed"] + packed["K2"] + pw["K2"]
+        + entries["K2"],
         "K3": packed["K3"] + time2["K3"] + pw["K3"],
         "K4": app_launches["fused"] + app_launches["words14"],
-        "K5": pw["K5"]}
+        "K5": pw["K5"],
+        **{k: entries[k] for k in ("K2b", "K3b", "K4b-slab", "K4b-gather")}}
     rows = []
     for k in KERNELS:
         bound_ms, bound_by = bound(kernels[k]["work"], sm_mhz)
@@ -1025,8 +1340,8 @@ def main() -> int:
                "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None}
-        if "k3_ms" in kernels[k]:
-            row["k3_ms_same_inputs"] = kernels[k]["k3_ms"]
+        if kernels[k].get("base"):
+            row["varies"], row["varies_ms_same_inputs"] = kernels[k]["base"]
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched on a main path")
         rows.append(row)

@@ -183,6 +183,33 @@ def unpack_words14(W: torch.Tensor, n_channels: int) -> torch.Tensor:
     return unpack_14bit_torch(words.reshape(T, G * 7), n_channels, ADC_BITS)
 
 
+def unpack_words14_gather(W: torch.Tensor, n_channels: int) -> torch.Tensor:
+    """The gather formulation of :func:`unpack_words14`
+    (``pallas_tpg._unpack14_rows_gather``, :268-305): each class r's low
+    word j_r and high word j_r + 1 (a zero row where the sample fits one
+    word) gathered into output-row order, then one shift/or/mask chain
+    with per-row shifts sh_r = 14r mod 32.  The logical right shift comes
+    from masking the words to 32 bits in int64.  Bit-equal to
+    :func:`unpack_words14`; (T, WR, 7, 128) -> (T, n_channels) int32."""
+    T, WR, seven, lanes = W.shape
+    if seven != 7 or lanes != 128:
+        raise ValueError(f"expected words14 rows (T, WR, 7, 128), got "
+                         f"{tuple(W.shape)}")
+    w = W.to(torch.int64) & 0xFFFFFFFF
+    zero = torch.zeros_like(w[:, :, :1])
+    lo, hi = [], []
+    for r in range(16):
+        j, sh = 14 * r // 32, 14 * r % 32
+        lo.append(w[:, :, j:j + 1])
+        hi.append(w[:, :, j + 1:j + 2] if sh + 14 > 32 else zero)
+    sh = (14 * torch.arange(16, device=W.device).view(1, 1, 16, 1)) & 31
+    v = ((torch.cat(lo, dim=2) >> sh) | (torch.cat(hi, dim=2) << ((32 - sh)
+                                                                 & 31))) \
+        & 0x3FFF                                     # (T, WR, 16, 128)
+    pos = torch.from_numpy(words14_positions(n_channels)).to(W.device)
+    return v.to(torch.int32).reshape(T, -1).index_select(1, pos)
+
+
 def words14_positions(n_channels: int) -> np.ndarray:
     """Flat lane of each channel in the JAX fused kernels' words14 layout
     (copy of ``pallas_tpg.words14_positions``, :332-345): channel

@@ -1,8 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into a shared library that ``ctypes``
-loads — no PyTorch headers, so a build takes seconds.  Libraries go to
+A kernel library ``<name>`` is every ``csrc/<name>*.cu`` translation unit
+(with the headers they share) compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per unit, all started together, and linked into one
+shared library with a plain C interface that ``ctypes`` loads — no PyTorch
+headers, so a unit takes seconds.  Libraries go to
 ``fdreadoutlibs_tpu_torch/_build/`` (gitignored) at first use, under a file
 name keyed on a hash of the sources and flags, so an edited source or flag
 rebuilds and a stale library is never loaded.
@@ -18,17 +20,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # ptxas resource report (registers, spills) of each library built by this
-# process, by kernel source name
+# process, by kernel library name
 build_log: dict[str, str] = {}
 
 
@@ -52,24 +57,67 @@ def keyed_path(stem: str, sources, flags) -> Path:
     return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
+def units(name: str) -> list[Path]:
+    """The translation units of kernel library ``name``: csrc/<name>*.cu."""
+    found = sorted(CSRC_DIR.glob(f"{name}*.cu"))
+    if not found:
+        raise FileNotFoundError(f"no csrc/{name}*.cu")
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` lives, keyed on the
-    contents of every source under csrc/ and on the flags."""
-    return keyed_path(name, CSRC_DIR.glob("*.cu*"), NVCC_FLAGS)
+    """Where the library ``name`` lives, keyed on the contents of every
+    source under csrc/ and on the flags."""
+    return keyed_path(name, CSRC_DIR.glob("*.cu*"), NVCC_FLAGS + LINK_FLAGS)
+
+
+def compile_units(compile_cmd, sources, out_dir: Path) -> tuple[list, str]:
+    """Run ``compile_cmd(src, obj)`` for every source at once, one process
+    each, into ``out_dir``.  Returns (objects, the compilers' stderr).
+    Raises on the first failure, after every process has ended."""
+    procs = []
+    try:
+        for src in sources:
+            obj = out_dir / f"{src.stem}.o"
+            procs.append((src, obj, subprocess.Popen(
+                compile_cmd(src, obj), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        logs, failed = [], []
+        for src, _, proc in procs:
+            out, err = proc.communicate()
+            logs.append(out + err)
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{out}{err}")
+        if failed:
+            raise RuntimeError("compile failed for " + "\n".join(failed))
+        return [obj for _, obj, _ in procs], "".join(logs)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its keyed library exists."""
+    """Compile and link the units of ``name`` unless its keyed library
+    exists."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
-    build_log[name] = res.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(prefix=f"{name}_",
+                                     dir=BUILD_DIR) as tmp_dir:
+        objs, log = compile_units(
+            lambda src, obj: [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(src)], units(name), Path(tmp_dir))
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        res = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed for {name}:\n{res.stderr}")
+    build_log[name] = log
     os.replace(tmp, out)               # atomic: readers never see a partial file
     return out
 

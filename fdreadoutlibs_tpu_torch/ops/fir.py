@@ -1,8 +1,8 @@
 """FIR+IQR SWTPG family (the WIB/WIB2 legacy kernels).
 
 Copied from ``fdreadoutlibs_tpu/ops/fir.py:1-338``, unchanged in its
-arithmetic; the packed SWAR state layout of ``tpg_tick_fir`` (:264-332,
-the ``fir_packed`` carry, K3b of ROADMAP.md) is not carried yet.
+arithmetic, with the packed SWAR state layout of ``tpg_tick_fir``
+(:264-332, the ``fir_packed`` carry: the plain version of K3b).
 
 Covers DesignFIR.{hpp,cpp} (scipy firwin ported to integer taps) and the
 FIR pipeline of wib2/tpg/ProcessNaive.hpp:40-160 / ProcessAVX2FIR.hpp and
@@ -236,8 +236,36 @@ def tpg_tick_fir(st: dict, s_raw, cfg: TPGConfig, xp, taps: tuple, fx=None):
     """
     fx = fx or I32Fx.make(xp)
     out = dict(st)
-    upd, sigma = fir_iqr_update(st, s_raw, cfg, xp, fx)
-    out.update(upd)
+    limit = cfg.accumulator_limit
+
+    # Packed SWAR state layout (the fir_packed kernel carry): the four IQR
+    # arrays ride as two int32 words with biased-unsigned 16-bit halves
+    # (q25+2^15 | (q75+2^15)<<16; same for the accumulators), and hit
+    # charge/tover/prev_was_over ride as one word (charge<<16 | tover,
+    # prev_was_over in bit 15 — tover <= 32767 by the add_clamp, so the
+    # bit is free), cutting the loop-carried arrays 17 -> 13.  The frugal
+    # updates run in the biased domain via frugal_update's translation
+    # equivariance (acc_bias docs).  In-range contract (14-bit streams):
+    # quantiles in [0, ~16400] so the biased halves fit 16 bits.
+    packed_iqr = "iqr_qpair" in st
+    _B = 1 << 15
+
+    if packed_iqr:
+        # IQR gated on the *pre-update* median (ProcessNaive.hpp:94-98)
+        med0 = st["pedestals"]
+        qp, ap = st["iqr_qpair"], st["iqr_apair"]
+        sb = s_raw + _B
+        q25b, a25b = frugal_update(qp & 0xFFFF, sb, ap & 0xFFFF, limit,
+                                   xp, mask=s_raw < med0, fx=fx, acc_bias=_B)
+        q75b, a75b = frugal_update((qp >> 16) & 0xFFFF, sb,
+                                   (ap >> 16) & 0xFFFF, limit,
+                                   xp, mask=s_raw > med0, fx=fx, acc_bias=_B)
+        out["iqr_qpair"] = q25b | (q75b << 16)
+        out["iqr_apair"] = a25b | (a75b << 16)
+        sigma = q75b - q25b
+    else:
+        upd, sigma = fir_iqr_update(st, s_raw, cfg, xp, fx)
+        out.update(upd)
     updp, s = fir_pedestal_sub(st, s_raw, cfg, xp, fx)
     out.update(updp)
 
@@ -252,7 +280,31 @@ def tpg_tick_fir(st: dict, s_raw, cfg: TPGConfig, xp, taps: tuple, fx=None):
 
     is_over = fir_threshold(filt, sigma, cfg, fx)
     to_add = fir_to_add(filt, is_over, cfg, xp, fx)
-    updh, closed, record = fir_hit_update(
-        st, is_over, to_add, filt if cfg.track_peaks else None, cfg, xp, fx)
-    out.update(updh)
+
+    if packed_iqr:
+        # unpack the hit word into the canonical rows, run the shared hit
+        # chain, re-pack; hit_charge/tover/prev updates are discarded
+        # (only hit_ct is carried) but the peak rows pass through
+        ct = st["hit_ct"]
+        st_h = dict(st)
+        st_h["hit_charge"] = ct >> 16          # sign-extending
+        st_h["hit_tover"] = ct & 0x7FFF
+        st_h["prev_was_over"] = (ct >> 15) & 1
+        updh, closed, record = fir_hit_update(
+            st_h, is_over, to_add, filt if cfg.track_peaks else None,
+            cfg, xp, fx)
+        for k in ("hit_peak_adc", "hit_peak_time"):
+            if k in updh:
+                out[k] = updh[k]
+        # w0 is exactly the kernel's packed record word — the emission
+        # reuses it instead of re-packing
+        w0 = (record["charge"] << 16) | record["tover"]
+        record["w0"] = w0
+        out["hit_ct"] = xp.where(closed, 0, w0) | \
+            xp.where(is_over, 0x8000, 0)
+    else:
+        updh, closed, record = fir_hit_update(
+            st, is_over, to_add, filt if cfg.track_peaks else None, cfg,
+            xp, fx)
+        out.update(updh)
     return out, closed, record

@@ -1,8 +1,8 @@
 """Exact emulation of the int16 fixed-point arithmetic the AVX2 kernels use.
 
-Copied from ``fdreadoutlibs_tpu/ops/fixedpoint.py:1-139`` (the int32
-emulation ``I32Fx`` and the helpers it calls); the native int16 mode
-``I16Fx`` (:142-196) is K2b of ROADMAP.md and is not carried yet.
+Copied from ``fdreadoutlibs_tpu/ops/fixedpoint.py:1-196``: the int32
+emulation ``I32Fx``, the helpers it calls, and the native int16 mode
+``I16Fx`` (the plain version of K2b), whose casts are torch's ``.to``.
 
 The reference relies on quirky-but-load-bearing int16 semantics; we compute
 in int32 and reproduce them bit-exactly:
@@ -13,11 +13,13 @@ in int32 and reproduce them bit-exactly:
 * ``mullo16`` — ``_mm256_mullo_epi16``: wrapping int16 product;
 * ``wrap_i16`` / ``sat_i16`` — int16 wraparound / clamp.
 
-All functions only use ``+ - * >> & |``, so they run unchanged on numpy
-arrays and torch int32 tensors.
+The I32Fx functions only use ``+ - * >> & |``, so they run unchanged on
+numpy arrays and torch int32 tensors; I16Fx runs on torch int16 tensors.
 """
 
 from __future__ import annotations
+
+import torch
 
 INT16_MAX = 32767
 INT16_MIN = -32768
@@ -102,4 +104,62 @@ class I32Fx:
             widen = staticmethod(lambda x: x)
             clip = staticmethod(lambda x, lo, hi: xp.clip(x, lo, hi))
             minimum = staticmethod(xp.minimum)
+        return _F
+
+
+class I16Fx:
+    """Fixed-point helper namespace: native int16 tensors — the tensor's
+    own wraparound replaces the emulation (``TorchXP(dtype=torch.int16)``).
+
+    Bit-identical to I32Fx wherever inputs are int16-range by construction
+    (every carried state value; pedestal-subtracted 14-bit samples).
+    """
+
+    dtype_name = "int16"
+
+    @staticmethod
+    def make(xp):
+        class _F:
+            dtype = xp.int16
+            one = xp.int16(1)
+            zero = xp.int16(0)
+            cast_in = staticmethod(lambda x: x.to(torch.int16))
+            wrap = staticmethod(lambda x: x)              # int16 wraps natively
+            mullo = staticmethod(lambda a, b: a * b)
+            sub16 = staticmethod(lambda a, b: a - b)
+
+            @staticmethod
+            def div10(a):
+                # mulhrs needs the 32-bit intermediate
+                a32 = a.to(torch.int32)
+                return (((a32 * 3276 >> 14) + 1) >> 1).to(torch.int16)
+
+            @staticmethod
+            def rs_div10(a):
+                # native int16 arithmetic already wrapped the sum; the
+                # mulhrs result (+-3276) casts back exactly
+                a32 = a.to(torch.int32)
+                return ((a32 * 3276 + 16384) >> 15).to(torch.int16)
+
+            @staticmethod
+            def add_clamp(a, b, cap, floor=None):
+                # widen for the clamps (naive int32-accumulate semantics;
+                # floor = adds_epi16 negative saturation, see I32Fx)
+                s = xp.minimum(a.to(torch.int32) + b.to(torch.int32), cap)
+                if floor is not None:
+                    s = xp.maximum(s, floor)
+                return s.to(torch.int16)
+
+            widen = staticmethod(lambda x: x.to(torch.int32))
+
+            # compare-and-select, as the JAX package's (its TPU lowering has
+            # no int16 min/max)
+            @staticmethod
+            def clip(x, lo, hi):
+                x = xp.where(x > hi, hi, x)
+                return xp.where(x < lo, lo, x)
+
+            @staticmethod
+            def minimum(a, b):
+                return xp.where(a > b, b, a)
         return _F

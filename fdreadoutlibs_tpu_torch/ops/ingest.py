@@ -13,7 +13,8 @@ Counterparts of ``fdreadoutlibs_tpu/ops/ingest.py``:
 * :func:`process_packed_frames_fused` (:84-104) and
   :func:`process_words14_feed` (:111-143) hand the packed words to the
   kernel, which unpacks them in-register (K4): the frame words as they
-  are, or the host's words14 relayout;
+  are, or the host's words14 relayout (with ``slab=True`` a chunk at a
+  time before the tick loop, K4b-slab);
 * :func:`compact_on_device` (:279-296), :func:`unpack_compact` (:299-305)
   and :func:`collect_hits` (:308-331) turn the slot buffers into hits;
 * :class:`StreamingIngest` (:334-619), the pipelined multi-link ingest.
@@ -105,17 +106,16 @@ def process_words14_feed(W: torch.Tensor, state: torch.Tensor,
                          fir_twopass: int = 0):
     """Direct words14 feed (K4): W is (T, WR, 7, 128) int32 rows from
     ``native.relayout_words14`` (or :func:`pack_words14`), unpacked
-    in-register by the kernel.  ``slab=True`` (the JAX package's two-stage
-    slab schedule) is K4b, not ported yet.  Same contract as
+    in-register by the kernel.  ``slab=True`` selects the two-stage slab
+    schedule (K4b-slab): each chunk's rows are unpacked at once into a
+    time2 slab in shared memory, then the tick loop runs the time2
+    datapath on it; it needs tc % 16 == 0 and raises ValueError with
+    ``fir_twopass``, as the JAX package does.  Same contract as
     :func:`process_packed_frames_fused`."""
-    if slab:
-        raise NotImplementedError(
-            "process_words14_feed(slab=True) is the words14 slab schedule, "
-            "K4b of ROADMAP.md, not ported yet")
     _check_channels(state, n_channels)
     return process_window(W, state, cfg, tc=tc, k_slots=k_slots,
                           time_packed=False, packed14="words14",
-                          fir_twopass=fir_twopass)
+                          fir_twopass=fir_twopass, words14_slab=slab)
 
 
 def pack_words14(words: torch.Tensor) -> torch.Tensor:

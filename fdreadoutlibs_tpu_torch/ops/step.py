@@ -2,8 +2,8 @@
 and oracle.
 
 Copied from ``fdreadoutlibs_tpu/ops/step.py:1-200``, unchanged in its
-arithmetic; the float running-sum branch (``rs_float=True``) is left out,
-since the port refuses that configuration (``ops/xp.check_supported``).
+arithmetic; the float running sum (``rs_float=True``, :97-104, :131-133)
+converts with torch's ``.to`` (numpy's ``.astype`` for the oracle).
 ``tests/test_torch_fir2.py`` holds this copy to the JAX package's, so the
 two packages keep one tick semantics.
 
@@ -19,10 +19,29 @@ points follow the AVX2 kernels via :mod:`fixedpoint`.
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from .config import Algorithm, TPGConfig
 from .fixedpoint import I32Fx
 
 INT16_MAX = 32767
+
+
+def _astype(x, dtype):
+    """``x`` (a torch tensor or a numpy array) as ``dtype``, given as a
+    tensor or array of that dtype or as "int32"/"float32"."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch if isinstance(x, torch.Tensor) else np, dtype)
+    else:
+        dtype = dtype.dtype
+    return x.to(dtype) if isinstance(x, torch.Tensor) else x.astype(dtype)
+
+
+def _round_half_away(v, xp):
+    """std::round: half away from zero (ProcessNaiveRS.hpp:103), as
+    trunc(v + copysign(0.5, v)) in float32 — not a round-half-even."""
+    return _astype(xp.trunc(v + xp.copysign(0.5, v)), "int32")
 
 
 def frugal_update(m, s, acc, limit: int, xp, mask=None, fx=None,
@@ -84,35 +103,48 @@ def tpg_tick(st: dict, s_raw, cfg: TPGConfig, xp, fx=None):
         x = s
     elif cfg.algorithm in (Algorithm.ABS_RS, Algorithm.STANDARD_RS):
         if cfg.rs_float:
-            raise NotImplementedError("rs_float=True is not ported")
-        # x10 integer fixed point with mulhrs division
-        # (ProcessAbsRSAVX2.hpp:137-144 / ProcessStandardRSAVX2.hpp:134-141).
-        # The reference chain is int16 lane ops throughout, so the
-        # intermediate wraps are deferred into fx.rs_div10 (mod-2^16
-        # congruence; fixedpoint.rs_div10_unwrapped docs).  Operands are
-        # int16-range by construction (state stored wrapped, |s| <= 16383
-        # for 14-bit streams), so the int32 sums cannot overflow.
-        if cfg.rs_mf_shift is not None:
-            # specialization: mf promised in {0, 1<<shift} -> the vector
-            # multiply becomes a masked shift (config.py docs)
-            first = xp.where(st["rs_memory_factor"] != 0,
-                             st["rs"] << cfg.rs_mf_shift, zero)
+            # ProcessNaiveRS.hpp:95-103: float R=0.8, scale=2, round()
+            v = 0.8 * _astype(st["rs"], "float32")
+            if cfg.algorithm == Algorithm.ABS_RS:
+                v = v + _astype(xp.abs(s), "float32") / 2.0
+            else:
+                v = v + _astype(s, "float32")
+            # float -> int32 -> the state's dtype (an int16 state wraps)
+            rs = _astype(_round_half_away(v, xp), s)
         else:
-            first = st["rs"] * st["rs_memory_factor"]
-        if cfg.algorithm == Algorithm.ABS_RS:
-            second = xp.abs(s) * fx.dtype(cfg.rs_scale_factor_x10)
-        else:
-            second = s
-        rs = fx.rs_div10(first + second)
+            # x10 integer fixed point with mulhrs division
+            # (ProcessAbsRSAVX2.hpp:137-144 /
+            # ProcessStandardRSAVX2.hpp:134-141).  The reference chain is
+            # int16 lane ops throughout, so the intermediate wraps are
+            # deferred into fx.rs_div10 (mod-2^16 congruence;
+            # fixedpoint.rs_div10_unwrapped docs).  Operands are
+            # int16-range by construction (state stored wrapped, |s| <=
+            # 16383 for 14-bit streams), so the int32 sums cannot overflow.
+            if cfg.rs_mf_shift is not None:
+                # specialization: mf promised in {0, 1<<shift} -> the
+                # vector multiply becomes a masked shift (config.py docs)
+                first = xp.where(st["rs_memory_factor"] != 0,
+                                 st["rs"] << cfg.rs_mf_shift, zero)
+            else:
+                first = st["rs"] * st["rs_memory_factor"]
+            if cfg.algorithm == Algorithm.ABS_RS:
+                second = xp.abs(s) * fx.dtype(cfg.rs_scale_factor_x10)
+            else:
+                second = s
+            rs = fx.rs_div10(first + second)
         # second frugal pedestal, on the RS waveform
         rs_ped, rs_acc = frugal_update(st["pedestals_rs"], rs, st["accum_rs"],
                                        cfg.accumulator_limit, xp, fx=fx)
         out["pedestals_rs"], out["accum_rs"] = rs_ped, rs_acc
-        # state stores the post-subtraction RS (ProcessAbsRSAVX2.hpp:159,318);
-        # rs in [-3276, 3276] (mulhrs bound) and the frugal median never
-        # steps past the values it tracks, so the int16 wrap of sub_epi16
-        # is unreachable — plain subtract, same value
-        x = rs - rs_ped
+        # state stores the post-subtraction RS (ProcessAbsRSAVX2.hpp:159,318)
+        if cfg.rs_float:
+            # float-mode rs can exceed int16; the sub's wrap is load-bearing
+            x = fx.sub16(rs, rs_ped)
+        else:
+            # fixed point: rs in [-3276, 3276] (mulhrs bound) and the
+            # frugal median never steps past the values it tracks, so the
+            # int16 wrap of sub_epi16 is unreachable — plain subtract
+            x = rs - rs_ped
         out["rs"] = x
     else:
         raise ValueError(f"tpg_tick does not handle {cfg.algorithm}; "

@@ -12,23 +12,28 @@ K-slot buffers — the contract of ``pallas_tpg.process_window_pallas``:
 * an empty slot is a zero end word.
 
 Three input encodings: time2 words (``time_packed=True``, tick 2j in the
-low and 2j+1 in the high 16 bits), one int32 sample per row
+low and 2j+1 in the high 16 bits), one sample per row
 (``time_packed=False``), and packed 14-bit WIBEth words (``packed14=``
 ``"frames"`` for the (L, T, 28) frame words, ``"words14"`` for the host's
 (T, WR, 7, 128) words14 relayout; :data:`PACKED14`).  On CUDA tensors it
-launches the hand-written Hopper kernels (``csrc/tpg.cu``: K1 = time2
-datapath, K2 = plain datapath, K3 = the FIR family on any, K4 = the
-in-kernel 14-bit unpack; K5 = the two-pass FIR schedule, selected by
-``fir_twopass`` 1 or 2 as ``pallas_tpg.process_window_pallas`` selects
-``_fir2_kernel``); on CPU tensors it runs the kernel's plain version:
-:func:`process_window_plain`, which loops over ticks calling
-``ops/step.py::dispatch_tick`` through the torch namespace (``ops/xp.py``),
-or :func:`process_window_twopass_plain` for K5, after the torch unpack for
-packed words.  There is no other route: a CUDA tensor that the kernel
-cannot take raises.
+launches the hand-written Hopper kernels (``csrc/tpg*.cu``, ROADMAP.md's
+names): K1 = time2 datapath, K2 = plain datapath, K3 = the FIR family on
+any, K4 = the in-kernel 14-bit unpack; K5 = the two-pass FIR schedule,
+selected by ``fir_twopass`` 1 or 2 as ``pallas_tpg.process_window_pallas``
+selects ``_fir2_kernel``; and the variants of ``_tpg_kernel`` that its
+arguments select: K2b = an int16 state (``pack_state(dtype=torch.int16)``,
+the native int16 arithmetic of ``fixedpoint.I16Fx`` on an int16 feed), K3b
+= ``fir_packed`` (the FIR family with the SWAR carry), K4b-gather =
+``words14_gather`` and K4b-slab = ``words14_slab`` (the words14 unpack as a
+gather, or as a whole-chunk slab before the time2 tick loop).  On CPU
+tensors it runs the kernel's plain version: :func:`process_window_plain`,
+which loops over ticks calling ``ops/step.py::dispatch_tick`` through the
+torch namespace (``ops/xp.py``), or :func:`process_window_twopass_plain`
+for K5, after the torch unpack for packed words.  There is no other route:
+a CUDA tensor that the kernel cannot take raises.
 
 The port's layouts drop the TPU tile blocking: state is (KSTATE, C) int32
-on the device (the FIR ring in rows ``_FIR_ROW0..+8``, oldest-first),
+(or int16) on the device (the FIR ring in rows ``_FIR_ROW0..+8``, oldest-first),
 slots (T/tc, K, nw, C), nclose (T/tc, C), for every encoding (the
 words14 lane positions of the JAX fused kernels are a TPU tile rule).
 :func:`state_from_jax` / :func:`state_to_jax` convert state to and from the
@@ -51,7 +56,7 @@ from .fir import (default_taps, fir_filter, fir_hit_update, fir_iqr_update,
                   fir_pedestal_sub, fir_threshold, fir_to_add)
 from .fixedpoint import wrap_i16
 from .step import dispatch_tick
-from .xp import TorchXP, check_supported, make_fx
+from .xp import DTYPES, TorchXP, check_supported, make_fx
 
 N_FIR_TAPS = 8
 KSTATE = NSTATE + 1 + N_FIR_TAPS           # + rs_memory_factor + FIR ring rows
@@ -70,10 +75,15 @@ _LIVE_FIR = _LIVE_SIMPLE + ("quantile25", "quantile75", "accum25", "accum75")
 _LANES = 128
 _SUBLANES = 8
 
-# csrc/tpg.cu family and encoding codes
+# csrc/tpg.cuh family and encoding codes
 _FAMILY = {Algorithm.SIMPLE_THRESHOLD: 0, Algorithm.ABS_RS: 1,
            Algorithm.STANDARD_RS: 2, Algorithm.FIR: 3}
-_PLAIN, _TIME2, _PACKED14 = 0, 1, 2
+_PLAIN, _TIME2, _PACKED14, _GATHER14, _SLAB14 = 0, 1, 2, 3, 4
+# the fir_packed carry's bias (fir.tpg_tick_fir)
+_B = 1 << 15
+# K4b-slab holds a chunk's time2 words of 128 channels in shared memory:
+# tc/2 * 512 B within the 227 KB a block may use
+_SLAB_TC_MAX = 896
 
 # packed 14-bit feed layouts (``packed14=``): the (L, T, 28) frame words of
 # L links, and the (T, WR, 7, 128) words14 rows of native.relayout_words14
@@ -109,20 +119,29 @@ def auto_tc(T: int, cap: int = 512) -> int:
 
 # ---- state layout ---------------------------------------------------------
 
-def pack_state(state: dict, n_channels: int, device="cpu") -> torch.Tensor:
-    """ChanState dict of (C,) arrays -> (KSTATE, C) int32 tensor."""
-    out = np.zeros((KSTATE, n_channels), dtype=np.int32)
+def pack_state(state: dict, n_channels: int, device="cpu",
+               dtype=torch.int32) -> torch.Tensor:
+    """ChanState dict of (C,) arrays -> (KSTATE, C) tensor.  dtype=
+    torch.int16 selects the native int16 state mode (K2b; pack the samples
+    as int16 too), values cast as ``pallas_tpg.pack_state`` casts them."""
+    if dtype not in DTYPES:
+        raise ValueError(f"state dtype must be int32 or int16, not {dtype}")
+    np_dtype = np.int16 if dtype == torch.int16 else np.int32
+    out = np.zeros((KSTATE, n_channels), dtype=np_dtype)
     for i, k in enumerate(_STATE_KEYS):
-        out[i] = np.broadcast_to(np.asarray(state[k]), (n_channels,))
+        out[i] = np.broadcast_to(np.asarray(state[k]).astype(np_dtype),
+                                 (n_channels,))
     fir = state.get("fir_prev")
     if fir is not None:
-        out[_FIR_ROW0:_FIR_ROW0 + N_FIR_TAPS] = np.asarray(fir)
+        out[_FIR_ROW0:_FIR_ROW0 + N_FIR_TAPS] = np.asarray(fir).astype(
+            np_dtype)
     return torch.from_numpy(out).to(device)
 
 
 def unpack_state(state: torch.Tensor) -> dict:
-    """(KSTATE, C) tensor -> ChanState-style dict of (C,) numpy arrays."""
-    arr = state.cpu().numpy()
+    """(KSTATE, C) tensor -> ChanState-style dict of (C,) int32 numpy
+    arrays."""
+    arr = state.cpu().numpy().astype(np.int32)
     st = {k: arr[i].copy() for i, k in enumerate(_STATE_KEYS)}
     st["fir_prev"] = arr[_FIR_ROW0:_FIR_ROW0 + N_FIR_TAPS].copy()
     return st
@@ -144,13 +163,15 @@ def _jax_lanes(n_channels: int, positions, granule: int) -> int:
 def state_from_jax(stack_np, n_channels: int, device="cpu",
                    positions=None) -> torch.Tensor:
     """JAX ``pack_state`` stack (NB, KSTATE, SUB, 128), as numpy -> the
-    port's (KSTATE, C) tensor in canonical channel order.  ``positions``
-    is the channel -> flat-lane map the stack was packed with (the fused
-    words14 kernels' ``words14_positions``); without it the stack must
-    have the canonical row count, else this raises."""
+    port's (KSTATE, C) tensor in canonical channel order, int16 for an
+    int16 stack and int32 otherwise.  ``positions`` is the channel ->
+    flat-lane map the stack was packed with (the fused words14 kernels'
+    ``words14_positions``); without it the stack must have the canonical
+    row count, else this raises."""
     arr = np.asarray(stack_np)
-    granule = 16 if arr.dtype.itemsize == 2 else _SUBLANES
-    arr = arr.astype(np.int32)
+    int16 = arr.dtype.itemsize == 2
+    granule = 16 if int16 else _SUBLANES
+    arr = arr.astype(np.int16 if int16 else np.int32)
     nb, kst, sub, lanes = arr.shape
     if kst != KSTATE or lanes != _LANES:
         raise ValueError(f"not a JAX state stack: shape {arr.shape}")
@@ -171,16 +192,18 @@ def state_from_jax(stack_np, n_channels: int, device="cpu",
 def state_to_jax(state: torch.Tensor, block_sublanes: int | None = None,
                  positions=None) -> np.ndarray:
     """The port's (KSTATE, C) tensor -> the JAX ``pack_state`` stack
-    (NB, KSTATE, SUB, 128) int32 numpy array, zero-padded to whole 8-row
-    sublane tiles like ``pack_state``; ``positions`` places channel c at
-    flat lane positions[c] (the words14 layout)."""
+    (NB, KSTATE, SUB, 128) numpy array of the state's dtype, zero-padded to
+    whole sublane tiles like ``pack_state`` (8 rows for int32, 16 for
+    int16); ``positions`` places channel c at flat lane positions[c] (the
+    words14 layout)."""
     C = state.shape[1]
-    n = _jax_lanes(C, positions, _SUBLANES)
+    int16 = state.dtype == torch.int16
+    n = _jax_lanes(C, positions, 16 if int16 else _SUBLANES)
     S = n // _LANES
     sub = block_sublanes or S
     if S % sub:
         raise ValueError(f"block_sublanes={sub} does not tile {S} rows")
-    flat = np.zeros((KSTATE, n), dtype=np.int32)
+    flat = np.zeros((KSTATE, n), dtype=np.int16 if int16 else np.int32)
     sel = slice(None, C) if positions is None else np.asarray(positions)
     flat[:, sel] = state.cpu().numpy()
     return flat.reshape(KSTATE, S // sub, sub, _LANES).transpose(1, 0, 2, 3) \
@@ -220,8 +243,14 @@ def _check_window(feed, state, tc: int, k_slots: int, time_packed: bool,
     if state.dim() != 2 or state.shape[0] != KSTATE:
         raise ValueError(f"expected state ({KSTATE}, C), got "
                          f"{tuple(state.shape)}")
-    if state.dtype != torch.int32:
-        raise ValueError("state must be int32")
+    if state.dtype not in DTYPES:
+        raise ValueError("state must be int32 or int16")
+    int16 = state.dtype == torch.int16
+    if int16 and (time_packed or packed14 is not None):
+        # pallas_tpg.py:830, :846-849: the int16 mode has the plain
+        # datapath only
+        raise ValueError("an int16 state runs the plain datapath only "
+                         "(time_packed=False, no packed14)")
     C = state.shape[1]
     if packed14 is not None:
         if time_packed:
@@ -232,8 +261,11 @@ def _check_window(feed, state, tc: int, k_slots: int, time_packed: bool,
         if feed.dim() != 2:
             raise ValueError(f"expected feed (rows, W), got "
                              f"{tuple(feed.shape)}")
-        if feed.dtype != torch.int32:
-            raise ValueError("feed must be int32")
+        if feed.dtype != state.dtype:
+            # pallas_tpg.py:850-852
+            raise ValueError(f"feed must be {state.dtype} like the state "
+                             "(pack the samples and the state with one "
+                             "dtype)")
         if feed.shape[1] < C:
             raise ValueError(f"feed rows hold {feed.shape[1]} lanes < {C} "
                              "channels")
@@ -257,11 +289,53 @@ def unpack_packed14(feed: torch.Tensor, packed14: str,
     return wibeth.unpack_words14(feed, n_channels)
 
 
+def _options(cfg: TPGConfig, state: torch.Tensor, tc: int,
+             packed14: str | None, fir_twopass: int, fir_packed,
+             words14_gather: bool, words14_slab: bool):
+    """The JAX argument rules of ``process_window_pallas`` (:829-876):
+    raise where it raises, drop what it ignores.  Returns the effective
+    (fir_packed, words14_gather, words14_slab)."""
+    _check_twopass(cfg, fir_twopass)
+    int16 = state.dtype == torch.int16
+    if fir_twopass and int16:
+        raise ValueError("fir_twopass requires the FIR family with int32 "
+                         "state")
+    # fir_packed=None is off; silently off but for FIR on an int32 state
+    fir_packed = bool(fir_packed) and cfg.algorithm == Algorithm.FIR \
+        and not int16
+    if fir_twopass and fir_packed:
+        raise ValueError("fir_twopass and fir_packed are exclusive (the "
+                         "packed SWAR carry is fused-tick-only)")
+    if packed14 == "frames" and (words14_gather or words14_slab):
+        raise ValueError("words14_gather and words14_slab take words14 rows "
+                         "(packed14='words14'), not frame words")
+    if words14_slab:
+        if packed14 != "words14":
+            raise ValueError("words14_slab requires words14 input")
+        if tc % 16:
+            raise ValueError(f"words14_slab needs tc % 16 == 0, got tc={tc}")
+        if fir_twopass:
+            raise ValueError("fir_twopass and words14_slab are exclusive "
+                             "(the slab unpack is fused-tick-only)")
+    return fir_packed, bool(words14_gather) and packed14 == "words14", \
+        bool(words14_slab)
+
+
 def _samples(feed: torch.Tensor, C: int, time_packed: bool,
-             packed14: str | None) -> torch.Tensor:
-    """The feed as (T, C) int32 samples: the torch unpack of packed words,
-    the time2 words split into their two ticks, or the rows."""
+             packed14: str | None, words14_gather: bool = False,
+             words14_slab: bool = False) -> torch.Tensor:
+    """The feed as (T, C) samples: the torch unpack of packed words (the
+    gather formulation with ``words14_gather``; with ``words14_slab`` the
+    unpacked samples paired into time2 words as the slab holds them, and
+    split again), the time2 words split into their two ticks, or the
+    rows."""
     if packed14 is not None:
+        if words14_slab:
+            x = unpack_packed14(feed, packed14, C)
+            return _samples((x[0::2] & 0xFFFF) | (x[1::2] << 16), C, True,
+                            None)
+        if words14_gather:
+            return wibeth.unpack_words14_gather(feed, C)
         return unpack_packed14(feed, packed14, C)
     x = feed[:, :C]
     if time_packed:
@@ -275,9 +349,13 @@ def _emit(slots_c, nclose_c, closed, rec, end_word: int, k_slots: int,
     ((K + 1, nw, C); slot K is a sink for closes beyond capacity, dropped
     but counted in ``nclose_c``)."""
     C = closed.shape[0]
-    words = [(rec["charge"] << 16) | rec["tover"]]
+
+    def pair(hi, lo):
+        return (hi.to(torch.int32) << 16) | lo.to(torch.int32)
+    # the fir_packed carry already holds the first word
+    words = [rec["w0"] if "w0" in rec else pair(rec["charge"], rec["tover"])]
     if nw == 3:
-        words.append((rec["peak_adc"] << 16) | rec["peak_time"])
+        words.append(pair(rec["peak_adc"], rec["peak_time"]))
     words.append(torch.full((C,), end_word, dtype=torch.int32,
                             device=closed.device))
     slot = torch.where(closed, torch.clamp(nclose_c, max=k_slots),
@@ -286,28 +364,67 @@ def _emit(slots_c, nclose_c, closed, rec, end_word: int, k_slots: int,
     nclose_c += closed.to(torch.int32)
 
 
+_PACKED_ROWS = ("quantile25", "quantile75", "accum25", "accum75",
+                "hit_charge", "hit_tover", "prev_was_over")
+
+
+def _pack_swar(row) -> dict:
+    """The fir_packed carry from the canonical state rows
+    (``pallas_tpg._tpg_kernel`` :491-501)."""
+    return {"iqr_qpair": ((row("quantile25") + _B) & 0xFFFF)
+            | ((row("quantile75") + _B) << 16),
+            "iqr_apair": ((row("accum25") + _B) & 0xFFFF)
+            | ((row("accum75") + _B) << 16),
+            "hit_ct": (row("hit_charge") << 16) | (row("hit_tover") & 0x7FFF)
+            | ((row("prev_was_over") != 0).to(torch.int32) << 15)}
+
+
+def _unpack_swar(st: dict) -> dict:
+    """The canonical state rows from the fir_packed carry (:561-574)."""
+    qp, ap, ct = st["iqr_qpair"], st["iqr_apair"], st["hit_ct"]
+    return {"quantile25": (qp & 0xFFFF) - _B,
+            "quantile75": ((qp >> 16) & 0xFFFF) - _B,
+            "accum25": (ap & 0xFFFF) - _B,
+            "accum75": ((ap >> 16) & 0xFFFF) - _B,
+            "hit_charge": ct >> 16, "hit_tover": ct & 0x7FFF,
+            "prev_was_over": (ct >> 15) & 1}
+
+
 def process_window_plain(feed: torch.Tensor, state: torch.Tensor,
                          cfg: TPGConfig, tc: int, k_slots: int,
                          time_packed: bool = True,
-                         packed14: str | None = None):
-    """The plain PyTorch version of K1-K4: a loop over ticks calling
-    ``ops/step.py::dispatch_tick`` on (C,) int32 tensors, with the slot
-    writes as masked stores.  The FIR ring rides the tick as a tuple of
-    the 8 state rows, oldest-first (the Pallas kernel's carry).  A packed
-    14-bit feed is unpacked first (:func:`unpack_packed14`).  Runs on any
-    device; returns fresh tensors."""
+                         packed14: str | None = None, fir_packed=None,
+                         words14_gather: bool = False,
+                         words14_slab: bool = False):
+    """The plain PyTorch version of K1-K4 and their variants: a loop over
+    ticks calling ``ops/step.py::dispatch_tick`` on (C,) tensors of the
+    state's dtype (int16: ``fixedpoint.I16Fx``, K2b), with the slot writes
+    as masked stores.  The FIR ring rides the tick as a tuple of the 8
+    state rows, oldest-first (the Pallas kernel's carry); with
+    ``fir_packed`` (K3b) the IQR rows and the hit word ride as the SWAR
+    carry, packed from the state rows before the loop and unpacked after
+    it.  A packed 14-bit feed is unpacked first (:func:`_samples`).  Runs
+    on any device; returns fresh tensors."""
     check_supported(cfg, state)
     T, C = _check_window(feed, state, tc, k_slots, time_packed, packed14)
-    x = _samples(feed, C, time_packed, packed14)
+    fir_packed, words14_gather, words14_slab = _options(
+        cfg, state, tc, packed14, 0, fir_packed, words14_gather,
+        words14_slab)
+    x = _samples(feed, C, time_packed, packed14, words14_gather,
+                 words14_slab)
     dev = state.device
-    xp = TorchXP(dev)
+    xp = TorchXP(dev, state.dtype)
     fx = make_fx(xp)
     keys = live_fields(cfg)
+    if fir_packed:
+        keys = tuple(k for k in keys if k not in _PACKED_ROWS)
     st = {k: state[_STATE_KEYS.index(k)] for k in keys}
     is_fir = cfg.algorithm == Algorithm.FIR
     if is_fir:
         st["fir_prev"] = tuple(state[_FIR_ROW0 + j]
                                for j in range(N_FIR_TAPS))
+    if fir_packed:
+        st.update(_pack_swar(lambda k: state[_STATE_KEYS.index(k)]))
     nw = record_words(cfg)
     n_chunks = T // tc
     slots = torch.zeros((n_chunks, k_slots + 1, nw, C), dtype=torch.int32,
@@ -318,8 +435,11 @@ def process_window_plain(feed: torch.Tensor, state: torch.Tensor,
         _emit(slots[t // tc], nclose[t // tc], closed, rec, t + 1, k_slots,
               nw)
     new_state = state.clone()
-    for k in keys:
-        new_state[_STATE_KEYS.index(k)] = st[k]
+    rows = {k: st[k] for k in keys}
+    if fir_packed:
+        rows.update(_unpack_swar(st))
+    for k, row in rows.items():
+        new_state[_STATE_KEYS.index(k)] = row
     if is_fir:
         for j, row in enumerate(st["fir_prev"]):
             new_state[_FIR_ROW0 + j] = row
@@ -347,7 +467,9 @@ def _fir2_slabs(cfg: TPGConfig, lift: bool) -> int:
 def process_window_twopass_plain(feed: torch.Tensor, state: torch.Tensor,
                                  cfg: TPGConfig, tc: int, k_slots: int,
                                  fir_twopass: int, time_packed: bool = True,
-                                 packed14: str | None = None):
+                                 packed14: str | None = None,
+                                 words14_gather: bool = False,
+                                 fir_packed=None, words14_slab: bool = False):
     """The plain PyTorch version of K5 (``pallas_tpg._fir2_kernel``,
     fir_twopass 1 or 2): per tc-tick chunk, on (tc, C) tensors,
 
@@ -366,14 +488,18 @@ def process_window_twopass_plain(feed: torch.Tensor, state: torch.Tensor,
       and slot k the sum of the record words where closed & (count == k).
 
     Same outputs as :func:`process_window_plain` on a FIR config, bit for
-    bit.  Takes every encoding the fused version takes."""
+    bit.  Takes every encoding the fused version takes (the words14 rows
+    also through the gather formulation, ``words14_gather``); ``fir_packed``
+    and ``words14_slab`` raise, as with ``process_window``."""
     check_supported(cfg, state)
-    _check_twopass(cfg, fir_twopass)
     if not fir_twopass:
+        _check_twopass(cfg, fir_twopass)
         raise ValueError("fir_twopass=0 is the fused tick: "
                          "process_window_plain")
     T, C = _check_window(feed, state, tc, k_slots, time_packed, packed14)
-    x = _samples(feed, C, time_packed, packed14)
+    _, words14_gather, _ = _options(cfg, state, tc, packed14, fir_twopass,
+                                    fir_packed, words14_gather, words14_slab)
+    x = _samples(feed, C, time_packed, packed14, words14_gather)
     dev = state.device
     xp = TorchXP(dev)
     fx = make_fx(xp)
@@ -459,29 +585,41 @@ def process_window_twopass_plain(feed: torch.Tensor, state: torch.Tensor,
 _INT32 = (-(1 << 31), (1 << 31) - 1)
 
 
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K2b", "K3b", "K4b-slab",
+           "K4b-gather")
+
+
 def kernels_of(cfg: TPGConfig, time_packed: bool,
-               packed14: str | None = None, fir_twopass: int = 0) -> tuple:
-    """ROADMAP.md's kernels that one launch runs: K1 (time2 datapath,
-    threshold/RS families), K2 (plain-sample datapath), K4 (in-kernel
-    14-bit unpack), K3 (FIR family, on any datapath) — or K5 alone, the
-    two-pass FIR schedule (its own C entry, on any datapath)."""
+               packed14: str | None = None, fir_twopass: int = 0, *,
+               int16: bool = False, fir_packed: bool = False,
+               words14_gather: bool = False,
+               words14_slab: bool = False) -> tuple:
+    """ROADMAP.md's kernels that one launch runs (the effective options of
+    :func:`_options`): K1 (time2 datapath, threshold/RS families), K2
+    (plain-sample datapath), K4 (in-kernel 14-bit unpack; K4b-gather or
+    K4b-slab for its schedules), K3 (FIR family, on any datapath; K3b with
+    the SWAR carry), K2b alone for an int16 state (every family) — or K5
+    alone, the two-pass FIR schedule (its own C entry, on any datapath)."""
     if fir_twopass:
         return ("K5",)
+    if int16:
+        return ("K2b",)
     is_fir = cfg.algorithm == Algorithm.FIR
     if packed14 is not None:
-        datapath = ("K4",)
+        datapath = ("K4b-slab",) if words14_slab else \
+            ("K4b-gather",) if words14_gather else ("K4",)
     elif time_packed:
         datapath = () if is_fir else ("K1",)
     else:
         datapath = ("K2",)
-    return datapath + (("K3",) if is_fir else ())
+    family = (("K3b",) if fir_packed else ("K3",)) if is_fir else ()
+    return datapath + family
 
 
 def reset_launches() -> None:
     """Zero the launch counts (total and per kernel)."""
     process_window.launches = 0
-    process_window.kernel_launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                      "K5": 0}
+    process_window.kernel_launches = {k: 0 for k in KERNELS}
 
 
 # csrc/tpg.cu::tpg_launch's C signature, and tpg_fir2_launch's: the same
@@ -489,7 +627,7 @@ def reset_launches() -> None:
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 8
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p] + [ctypes.c_int] * 9
-             + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+             + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 _FIR2_ARGTYPES = _ARGTYPES[:-2] + [ctypes.c_int, ctypes.c_void_p] + \
     _ARGTYPES[-2:]
 
@@ -503,7 +641,8 @@ def _kernel_fn(fir_twopass: int = 0):
 
 
 def _feed_layout(feed: torch.Tensor, time_packed: bool,
-                 packed14: str | None):
+                 packed14: str | None, words14_gather: bool = False,
+                 words14_slab: bool = False):
     """(feed_stride, encoding, groups_per_row, group_outer, group_inner,
     word_stride) of ``csrc/tpg.cu::tpg_launch`` for a contiguous feed."""
     if packed14 == "frames":                 # (L, T, 28)
@@ -511,7 +650,9 @@ def _feed_layout(feed: torch.Tensor, time_packed: bool,
         return W, _PACKED14, 4, T * W, 7, 1
     if packed14 == "words14":                # (T, WR, 7, 128)
         WR = feed.shape[1]
-        return WR * 7 * _LANES, _PACKED14, _LANES, 7 * _LANES, 1, _LANES
+        enc = _SLAB14 if words14_slab else \
+            _GATHER14 if words14_gather else _PACKED14
+        return WR * 7 * _LANES, enc, _LANES, 7 * _LANES, 1, _LANES
     return feed.shape[1], _TIME2 if time_packed else _PLAIN, 0, 0, 0, 0
 
 
@@ -539,12 +680,12 @@ def _fir_args(cfg: TPGConfig):
 
 def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
             tc: int, k_slots: int, time_packed: bool, packed14: str | None,
-            device: int, stream, fir_twopass: int = 0):
+            device: int, stream, fir_twopass: int = 0, fir_packed=None,
+            words14_gather: bool = False, words14_slab: bool = False):
     """Allocate the outputs (and K5's scratch slabs) beside ``state`` and
     call the C entry ``fn`` (``tpg_launch``, or ``tpg_fir2_launch`` when
-    ``fir_twopass``) on contiguous, checked tensors.  Returns (slots,
-    nclose, new_state)."""
-    _check_twopass(cfg, fir_twopass)
+    ``fir_twopass``) on contiguous, checked tensors, with the effective
+    options of :func:`_options`.  Returns (slots, nclose, new_state)."""
     T, C = _check_window(feed, state, tc, k_slots, time_packed, packed14)
     taps, tap_exponent, adc_max, sigma_cap, thr_mult = _fir_args(cfg)
     n_chunks = T // tc
@@ -562,13 +703,15 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                               dtype=torch.int32, device=state.device)
         twopass = (int(lift), scratch.data_ptr())
     err = fn(
-        feed.data_ptr(), *_feed_layout(feed, time_packed, packed14),
+        feed.data_ptr(), *_feed_layout(feed, time_packed, packed14,
+                                       words14_gather, words14_slab),
         n_chunks, tc, new_state.data_ptr(), C, slots.data_ptr(),
         nclose.data_ptr(), k_slots, _FAMILY[cfg.algorithm],
         int(cfg.peak_gated), int(floor), int(cfg.track_peaks),
         int(cfg.fir_avx_semantics), cfg.threshold, cfg.accumulator_limit,
         cfg.rs_scale_factor_x10, taps, tap_exponent, adc_max, sigma_cap,
-        thr_mult, *twopass, device, stream)
+        thr_mult, int(state.dtype == torch.int16), int(bool(fir_packed)),
+        int(cfg.rs_float), *twopass, device, stream)
     if err != 0:
         raise RuntimeError(f"tpg kernel launch failed: CUDA error {err}")
     return slots, nclose, new_state
@@ -576,47 +719,71 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
 
 def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                   tc: int, k_slots: int, time_packed: bool = True,
-                  packed14: str | None = None, fir_twopass: int = 0):
-    """Launch ``csrc/tpg.cu`` on CUDA tensors (the wrapper's CUDA route):
-    K1-K4, or K5 when ``fir_twopass`` is 1 or 2.  ``state`` is not
-    modified: the kernel updates a copy in place and returns it.  Raises
-    on anything the kernel does not take."""
+                  packed14: str | None = None, fir_twopass: int = 0,
+                  fir_packed=None, words14_gather: bool = False,
+                  words14_slab: bool = False):
+    """Launch ``csrc/tpg*.cu`` on CUDA tensors (the wrapper's CUDA route):
+    K1-K4 and their variants, or K5 when ``fir_twopass`` is 1 or 2.
+    ``state`` is not modified: the kernel updates a copy in place and
+    returns it.  Raises on anything the kernel does not take."""
     check_supported(cfg, state)
     if not (feed.is_cuda and state.is_cuda and feed.device == state.device):
         raise ValueError("the tpg kernel needs feed and state on one CUDA "
                          f"device, got {feed.device} and {state.device}")
     if not (feed.is_contiguous() and state.is_contiguous()):
         raise ValueError("feed and state must be contiguous")
+    if words14_slab and tc > _SLAB_TC_MAX:
+        raise ValueError(f"words14_slab holds tc/2 x 128 words in shared "
+                         f"memory: tc={tc} > {_SLAB_TC_MAX}")
+    fir_packed, words14_gather, words14_slab = _options(
+        cfg, state, tc, packed14, fir_twopass, fir_packed, words14_gather,
+        words14_slab)
     dev = state.device
     out = _launch(_kernel_fn(fir_twopass), feed, state, cfg, tc, k_slots,
                   time_packed, packed14,
                   dev.index if dev.index is not None
                   else torch.cuda.current_device(),
-                  torch.cuda.current_stream(dev).cuda_stream, fir_twopass)
+                  torch.cuda.current_stream(dev).cuda_stream, fir_twopass,
+                  fir_packed, words14_gather, words14_slab)
     process_window.launches += 1
-    for k in kernels_of(cfg, time_packed, packed14, fir_twopass):
+    for k in kernels_of(cfg, time_packed, packed14, fir_twopass,
+                        int16=state.dtype == torch.int16,
+                        fir_packed=fir_packed, words14_gather=words14_gather,
+                        words14_slab=words14_slab):
         process_window.kernel_launches[k] += 1
     return out
 
 
 def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                    tc: int, k_slots: int, time_packed: bool = True,
-                   packed14: str | None = None, fir_twopass: int = 0):
+                   packed14: str | None = None, fir_twopass: int = 0,
+                   fir_packed=None, words14_gather: bool = False,
+                   words14_slab: bool = False):
     """Run the TPG over one window, carrying state.
 
     Args:
       feed: (T/2, W) int32 time-paired words (tick 2j in the low 16 bits,
         2j+1 in the high 16 bits, channel c at column c, W >= C) — or, with
-        time_packed=False, (T, W) int32 samples — or, with ``packed14``
-        (time_packed=False), packed 14-bit words as int32: "frames" takes
-        (L, T, 28) frame words (channel = link*64 + c), "words14" the
-        (T, WR, 7, 128) rows of ``native.relayout_words14``; C % 16 == 0.
-      state: (KSTATE, C) int32, from :func:`pack_state`; not modified.
+        time_packed=False, (T, W) samples of the state's dtype — or, with
+        ``packed14`` (time_packed=False), packed 14-bit words as int32:
+        "frames" takes (L, T, 28) frame words (channel = link*64 + c),
+        "words14" the (T, WR, 7, 128) rows of ``native.relayout_words14``;
+        C % 16 == 0.
+      state: (KSTATE, C) int32, or int16 for the native int16 mode (K2b:
+        plain datapath only, an int16 feed), from :func:`pack_state`; not
+        modified.
       tc: ticks per chunk (divides T; even when time_packed).
       k_slots: per-channel hit capacity per chunk.
       fir_twopass: the FIR schedule (``utils.tuning.kernel_knobs``): 0 the
         fused tick (K3), 1 the two-pass schedule, 2 two-pass with lifted
         emission (K5); 1 and 2 raise ValueError for another family.
+      fir_packed: the SWAR carry (K3b); None or False is off, and it is
+        silently off unless the family is FIR and the state int32.
+      words14_gather: the words14 unpack as a gather (K4b-gather; with
+        fir_twopass too); words14_slab: the whole chunk unpacked before the
+        tick loop (K4b-slab; tc % 16 == 0, not with fir_twopass).  Both
+        take packed14="words14" only; the gather is ignored for the
+        unpacked encodings, as in the JAX package.
 
     Returns (slots (T/tc, K, nw, C), nclose (T/tc, C), new_state).
     """
@@ -624,11 +791,15 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
         if fir_twopass:
             return process_window_twopass_plain(feed, state, cfg, tc,
                                                 k_slots, fir_twopass,
-                                                time_packed, packed14)
+                                                time_packed, packed14,
+                                                words14_gather, fir_packed,
+                                                words14_slab)
         return process_window_plain(feed, state, cfg, tc, k_slots,
-                                    time_packed, packed14)
+                                    time_packed, packed14, fir_packed,
+                                    words14_gather, words14_slab)
     return launch_kernel(feed, state, cfg, tc, k_slots, time_packed,
-                         packed14, fir_twopass)
+                         packed14, fir_twopass, fir_packed, words14_gather,
+                         words14_slab)
 
 
 # CUDA kernel launches (never the plain path): in all, and per kernel

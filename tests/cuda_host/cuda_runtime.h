@@ -1,15 +1,19 @@
 // Host stand-in for the CUDA runtime, for the CPU tests only: enough of it
-// to compile fdreadoutlibs_tpu_torch/csrc/tpg.cu with a C++ compiler and
+// to compile fdreadoutlibs_tpu_torch/csrc/tpg*.cu with a C++ compiler and
 // -DTPG_HOST_EMULATION (tests/test_torch_kernel_host.py).  A grid without
 // barriers runs serially, one thread after another; a block whose threads
-// meet at __syncthreads() runs as that many host threads (host_run_block),
-// the barrier a real one among them, and its __shared__ arrays are shared
-// by them.  The kernel's arithmetic and addressing are the card's; its
-// scheduling, caching and timing are not.
+// meet at __syncthreads() or exchange values with __shfl_sync runs as that
+// many host threads (host_run_block), the barrier a real one among them,
+// a shuffle a meeting of the warp's lanes in its mask, and its __shared__
+// arrays (static and dynamic) are shared by them.  The kernel's arithmetic
+// and addressing are the card's; its scheduling, caching and timing are
+// not.
 #pragma once
 
+#include <cmath>
 #include <condition_variable>
 #include <cstdint>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -44,14 +48,20 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
   return static_cast<unsigned>(v >> (sh & 31u));
 }
 
-// A reusable barrier for the n threads of one block.
+// float ops rounded on their own (no contraction into an FMA)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+
+// A reusable barrier for n threads; wait(m) meets m of them instead (the
+// live lanes of a warp's shuffle).
 class HostBarrier {
  public:
-  explicit HostBarrier(unsigned n) : n_(n) {}
-  void wait() {
+  explicit HostBarrier(unsigned n = 0) : n_(n) {}
+  void wait() { wait(n_); }
+  void wait(unsigned n) {
     std::unique_lock<std::mutex> lock(mu_);
     const unsigned gen = gen_;
-    if (++waiting_ == n_) {
+    if (++waiting_ == n) {
       waiting_ = 0;
       ++gen_;
       cv_.notify_all();
@@ -68,15 +78,46 @@ class HostBarrier {
   unsigned gen_ = 0;
 };
 
+// A warp's shuffle exchange: its lanes' values and their meeting point.
+struct HostWarp {
+  HostBarrier meet;
+  unsigned values[32] = {};
+};
+
 inline HostBarrier* host_block_barrier = nullptr;
+inline HostWarp* host_block_warps = nullptr;
+inline std::vector<unsigned char>* host_block_shared = nullptr;
 
 inline void __syncthreads() { host_block_barrier->wait(); }
 
-// Run `body` as one block of n threads (threadIdx.x = 0..n-1).
+// The lanes in `mask` each give a value and take lane src's.
+template <class T>
+T __shfl_sync(unsigned mask, T value, int src) {
+  HostWarp& warp = host_block_warps[threadIdx.x / 32];
+  const unsigned n = static_cast<unsigned>(__builtin_popcount(mask));
+  warp.values[threadIdx.x % 32] = static_cast<unsigned>(value);
+  warp.meet.wait(n);
+  const T out = static_cast<T>(warp.values[src & 31]);
+  warp.meet.wait(n);   // nobody writes again before every lane has read
+  return out;
+}
+
+// The block's dynamic shared memory (the launch's byte count).
+template <class T>
+T* host_dynamic_shared() {
+  return reinterpret_cast<T*>(host_block_shared->data());
+}
+
+// Run `body` as one block of n threads (threadIdx.x = 0..n-1) with
+// `shared_bytes` of dynamic shared memory.
 template <class F>
-void host_run_block(unsigned n, F body) {
+void host_run_block(unsigned n, F body, size_t shared_bytes = 0) {
   HostBarrier barrier(n);
+  std::unique_ptr<HostWarp[]> warps(new HostWarp[(n + 31) / 32]);
+  std::vector<unsigned char> shared(shared_bytes);
   host_block_barrier = &barrier;
+  host_block_warps = warps.get();
+  host_block_shared = &shared;
   std::vector<std::thread> threads;
   threads.reserve(n);
   for (unsigned t = 0; t < n; ++t)
@@ -86,4 +127,6 @@ void host_run_block(unsigned n, F body) {
     });
   for (std::thread& th : threads) th.join();
   host_block_barrier = nullptr;
+  host_block_warps = nullptr;
+  host_block_shared = nullptr;
 }

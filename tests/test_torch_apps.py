@@ -207,20 +207,11 @@ def test_feeds_agree_and_flags_exclusive():
 
 def _unported(case):
     from fdreadoutlibs_tpu.ops import TPGConfig
-    from fdreadoutlibs_tpu_torch.ops import ingest, tpg
-    if case == "daphne_stream":
-        ingest.StreamingIngest(TPGConfig(), n_links=1, format="daphne_stream",
-                               device="cpu")
-    else:                                               # K4b
-        state = tpg.pack_state({k: 0 for k in tpg._STATE_KEYS}, 16)
-        ingest.process_words14_feed(
-            torch.zeros((64, 1, 7, 128), dtype=torch.int32), state,
-            TPGConfig(), 16, tc=64, slab=True)
+    from fdreadoutlibs_tpu_torch.ops import ingest
+    ingest.StreamingIngest(TPGConfig(), n_links=1, format=case, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["daphne_stream", "words14_slab"])
+@pytest.mark.parametrize("case", ["daphne_stream"])
 def test_unported_feeds_refused(case):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md" if case == "daphne_stream"
-                       else "K4b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _unported(case)

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernel against its plain version on the card (K1,
 K2 and K3: both datapaths, all four families; K4: both packed layouts, all
 four families; K5: fir_twopass 1 and 2 on every encoding, also against
-K3), and the APA app (every feed), ``StreamingIngest``, the WIB2 and
+K3, and through the words14 gather; K2b, K3b, K4b-gather, K4b-slab and
+the float running sum), and the APA app (every feed), ``StreamingIngest``, the WIB2 and
 ProtoWIB processors and ``run_model`` on the card against the same on the
 CPU.  Marked ``cuda``:
 each test skips where torch finds no card.  This file imports no JAX, so on
@@ -318,3 +319,83 @@ def test_run_model_on_card_matches_cpu(card, twopass, tmp_path, monkeypatch):
         np.testing.assert_array_equal(hits, want)
         for key in want_st:
             np.testing.assert_array_equal(st[key], want_st[key])
+
+
+RS_FLOAT_CONFIGS = [
+    TPGConfig(algorithm=Algorithm.ABS_RS, threshold=150, rs_float=True),
+    TPGConfig(algorithm=Algorithm.STANDARD_RS, threshold=60, rs_float=True),
+]
+VARIANT_CONFIGS = CONFIGS + FIR_CONFIGS + RS_FLOAT_CONFIGS
+VARIANT_IDS = IDS + ["AbsRS-float", "StandardRS-float"]
+
+
+def _variant_inputs(cfg, C, T, tc, k, card):
+    if cfg.algorithm == Algorithm.FIR:
+        adcs, rmf = fir_stream(T, C, tc, k, seed=C + 3), 0
+    else:
+        adcs, rmf = tpg_stream(T, C, tc, k, seed=C + 3)
+    st = seed_chanstate(init_chanstate(C), adcs[0], rmf)
+    # whole 64-channel links of frame words; the kernels read the first C
+    padded = np.pad(adcs, ((0, 0), (0, -C % 64)), constant_values=900)
+    words = torch.from_numpy(frame_words(padded).view(np.int32))
+    return adcs, st, pack_words14(words).to(card)
+
+
+@pytest.mark.parametrize("cfg", VARIANT_CONFIGS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (208, 960, 192)])
+def test_variant_kernels_match_plain(card, cfg, C, T, tc):
+    """K4b-gather and K4b-slab on words14 rows, K2b on the int16 state and
+    feed, and K3b (fir_packed) on every encoding for FIR, each against its
+    plain version; the float running sum rides every one of them.  C = 208
+    leaves a partly empty block and a half warp."""
+    k = 4
+    adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
+    state = tpg.pack_state(st, C, device=card)
+    runs = [(w14, state, dict(time_packed=False, packed14="words14",
+                              words14_gather=True)),
+            (w14, state, dict(time_packed=False, packed14="words14",
+                              words14_slab=True)),
+            (torch.from_numpy(adcs.astype(np.int16)).to(card),
+             tpg.pack_state(st, C, device=card, dtype=torch.int16),
+             dict(time_packed=False))]
+    if cfg.algorithm == Algorithm.FIR:
+        for kw in (dict(time_packed=False), dict(time_packed=True),
+                   dict(time_packed=False, packed14="words14"),
+                   dict(time_packed=False, packed14="words14",
+                        words14_gather=True),
+                   dict(time_packed=False, packed14="words14",
+                        words14_slab=True)):
+            feed = w14 if "packed14" in kw else torch.from_numpy(
+                time2_words(adcs) if kw["time_packed"] else adcs).to(card)
+            runs.append((feed, state, dict(kw, fir_packed=True)))
+    for feed, s0, kw in runs:
+        before = dict(tpg.process_window.kernel_launches)
+        got = tpg.process_window(feed, s0, cfg, tc=tc, k_slots=k, **kw)
+        opts = {o: kw.get(o, False) for o in ("fir_packed", "words14_gather",
+                                              "words14_slab")}
+        for name in tpg.kernels_of(cfg, kw["time_packed"],
+                                   kw.get("packed14"),
+                                   int16=s0.dtype == torch.int16, **opts):
+            assert tpg.process_window.kernel_launches[name] == \
+                before[name] + 1, (name, kw)
+        want = tpg.process_window_plain(feed, s0, cfg, tc, k, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kw
+        assert int(got[1].max()) > k, kw            # drops exercised
+
+
+@pytest.mark.parametrize("fir_twopass", [1, 2])
+@pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (208, 1000, 200)])
+def test_k5_gather_matches_plain(card, C, T, tc, fir_twopass):
+    """K5 decoding words14 rows through K4b-gather's warp shuffle."""
+    cfg = FIR_CONFIGS[1]
+    adcs, st, w14 = _variant_inputs(cfg, C, T, tc, 4, card)
+    state = tpg.pack_state(st, C, device=card)
+    got = tpg.process_window(w14, state, cfg, tc=tc, k_slots=4,
+                             time_packed=False, packed14="words14",
+                             fir_twopass=fir_twopass, words14_gather=True)
+    want = tpg.process_window_twopass_plain(
+        torch.from_numpy(adcs).to(card), state, cfg, tc, 4, fir_twopass,
+        False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

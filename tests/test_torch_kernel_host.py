@@ -1,13 +1,16 @@
-"""The CUDA source itself on the CPU: ``csrc/tpg.cu`` compiled with the
+"""The CUDA source itself on the CPU: ``csrc/tpg*.cu`` compiled with the
 host C++ compiler against a stand-in CUDA runtime
 (``tests/cuda_host/cuda_runtime.h``, ``-DTPG_HOST_EMULATION``: a grid
-without barriers runs serially; K5's blocks run as host threads that meet
-at a real barrier), called through the wrapper's own argument marshalling
-(``ops/tpg._launch``) and held bit-equal to the plain version for every
-encoding (K1 time2, K2 plain, K4 frame words and words14 rows) and family
-(K3 FIR included), and K5 (fir_twopass 1 and 2) for the FIR variants, at
-a shape with whole 16-tick groups and one with a ragged chunk tail.  What
-only the card shows (the build for sm_90a, scheduling, timing) is
+without barriers runs serially; the blocks of K5, K4b-slab and K4b-gather
+run as host threads that meet at a real barrier or shuffle), called
+through the wrapper's own argument marshalling (``ops/tpg._launch``) and
+held bit-equal to the plain version for every encoding (K1 time2, K2
+plain, K4 frame words and words14 rows, K4b-gather and K4b-slab on words14
+rows) and family (K3 FIR, K3b with the SWAR carry, the float running sum),
+the int16 state (K2b), and K5 (fir_twopass 1 and 2, also through the
+gather) for the FIR variants, at a shape with whole 16-tick groups and one
+with a ragged chunk tail or a partly empty block and warp.  What only the
+card shows (the build for sm_90a, scheduling, timing) is
 ``tests/test_torch_cuda.py``'s and ``chip_smoke.py``'s."""
 
 import ctypes
@@ -39,19 +42,28 @@ CONFIGS = {
     "FIR": dataclasses.replace(_FIR, track_peaks=False),
     "FIR-peaks-gated": dataclasses.replace(_FIR, peak_gated=True),
     "FIR-naive": dataclasses.replace(_FIR, fir_avx_semantics=False),
+    "AbsRS-float": TPGConfig.from_raw("AbsRS", threshold=150, rs_float=True),
+    "StandardRS-float": TPGConfig(algorithm=Algorithm.STANDARD_RS,
+                                  threshold=150, rs_float=True),
 }
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
+    """The kernel library's translation units compiled with g++ at once,
+    as ``ops/_build.py`` compiles them with nvcc, and linked."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
-    lib = tmp_path_factory.mktemp("tpg_host") / "libtpg_host.so"
-    res = subprocess.run(
-        [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", "-x",
-         "c++", "-DTPG_HOST_EMULATION", f"-I{STUB}", "-o", str(lib),
-         str(_build.CSRC_DIR / "tpg.cu")], capture_output=True, text=True)
+    out = tmp_path_factory.mktemp("tpg_host")
+    objs, _ = _build.compile_units(
+        lambda src, obj: [cxx, "-std=c++17", "-O1", "-fPIC", "-pthread",
+                          "-x", "c++", "-DTPG_HOST_EMULATION", f"-I{STUB}",
+                          "-c", "-o", str(obj), str(src)],
+        _build.units("tpg"), out)
+    lib = out / "libtpg_host.so"
+    res = subprocess.run([cxx, "-shared", "-pthread", "-o", str(lib),
+                          *map(str, objs)], capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     return ctypes.CDLL(str(lib))
 
@@ -128,3 +140,66 @@ def test_fir2_kernel_source_matches_plain(host_fir2, name, fir_twopass):
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (C, time2, packed14)
         assert int(want[1].max()) > k
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_kernel_variants_match_plain(host_kernel, name):
+    """K4b-gather and K4b-slab on words14 rows, K2b on the int16 state and
+    feed, and with fir_packed K3b on every encoding, against their plain
+    versions; C = 208 leaves a partly empty block (the slab's barrier) and
+    a half warp (the gather's shuffle mask)."""
+    cfg = CONFIGS[name]
+    k = 2
+    for C, T, tc in [(256, 320, 64), (208, 192, 48)]:
+        feeds, state = _inputs(cfg, C, T, tc, k)
+        adcs, w14 = feeds[0][0], feeds[3][0]
+        for opts in (dict(words14_gather=True), dict(words14_slab=True)):
+            want = tpg.process_window_plain(w14, state, cfg, tc, k, False,
+                                            "words14", **opts)
+            got = tpg._launch(host_kernel, w14, state, cfg, tc, k, False,
+                              "words14", 0, None, **opts)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (C, opts)
+        s16 = state.to(torch.int16)
+        want = tpg.process_window_plain(adcs.to(torch.int16), s16, cfg, tc,
+                                        k, False)
+        got = tpg._launch(host_kernel, adcs.to(torch.int16), s16, cfg, tc, k,
+                          False, None, 0, None)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (C, "int16")
+        assert int((want[0][:, :, -1] != 0).sum()) > 0
+        if cfg.algorithm != Algorithm.FIR:
+            continue
+        for feed, time2, packed14 in feeds:
+            if time2 and tc % 2:
+                continue
+            for opts in (dict(), dict(words14_gather=True),
+                         dict(words14_slab=True)):
+                if opts and packed14 != "words14":
+                    continue
+                want = tpg.process_window_plain(feed, state, cfg, tc, k,
+                                                time2, packed14,
+                                                fir_packed=True, **opts)
+                got = tpg._launch(host_kernel, feed, state, cfg, tc, k,
+                                  time2, packed14, 0, None, fir_packed=True,
+                                  **opts)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (C, time2, packed14, opts)
+
+
+@pytest.mark.parametrize("fir_twopass", [1, 2])
+def test_fir2_kernel_gather_matches_plain(host_fir2, fir_twopass):
+    """K5 through the words14 gather (``tpg_fir2_launch`` with K4b-gather's
+    decode) against K5's plain version, a half warp included."""
+    cfg = CONFIGS["FIR-peaks-gated"]
+    k = 2
+    for C, T, tc in [(256, 320, 64), (208, 200, 50)]:
+        feeds, state = _inputs(cfg, C, T, tc, k)
+        w14 = feeds[3][0]
+        want = tpg.process_window_twopass_plain(feeds[0][0], state, cfg, tc,
+                                                k, fir_twopass, False)
+        got = tpg._launch(host_fir2, w14, state, cfg, tc, k, False,
+                          "words14", 0, None, fir_twopass,
+                          words14_gather=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), C

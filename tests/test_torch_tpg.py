@@ -139,20 +139,6 @@ def test_constants_match_jax():
             assert tpg.auto_tc(T_, cap) == jtpg.auto_tc(T_, cap)
 
 
-@pytest.mark.parametrize("cfg,state_dtype", [
-    (TPGConfig(algorithm=Algorithm.ABS_RS), torch.int16),
-    (TPGConfig(algorithm=Algorithm.ABS_RS, rs_float=True), torch.int32)],
-    ids=["int16-state", "rs_float"])
-def test_unported_configs_refused(cfg, state_dtype):
-    """The native int16 state mode (K2b) and the float RS are refused, on
-    the CPU as on the card."""
-    feed = torch.zeros((32, 64), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tpg.process_window(feed, torch.zeros((tpg.KSTATE, 64),
-                                             dtype=state_dtype),
-                           cfg, tc=64, k_slots=2)
-
-
 def test_window_shape_checks():
     cfg = CONFIGS[0]
     state = torch.zeros((tpg.KSTATE, 64), dtype=torch.int32)
