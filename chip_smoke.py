@@ -66,6 +66,22 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    fetched; windows 0-1 equal the plain version's hits; ms per window (p50)
    and RTF per entry.
 
+8. probes — the probe entries at full size, each checking parity before it
+   times anything: P1 ``probes.roofline.probe_arms`` (the int32 issue rate
+   and dependent-op latency, every arm at 20 000 and 120 000 iterations,
+   with the loop's machine code read) and the TPG kernels of phase 3
+   against it; P2 ``probes.i16_ops.support_matrix`` and ``throughput_ab``
+   (the one-op int16 record and the int32 / int16 / two-per-register mix);
+   P3 ``probes.swar_frugal.run`` (the frugal chain, one channel per
+   register against two, 8192 x 2560); ``probes.slots_ab.run`` (the direct
+   store against ``SLOT_WORD_CARRY`` on every datapath, 8192 x 2560,
+   k_slots 1).  P1 holds every arm (each ilp at each geometry it is timed
+   at) and P3 every arm to the plain version inside the entry, and their
+   rows carry the error measured there; the one-op and mix kernels are held
+   once more at their rows' shapes; the carry layout is run on the reported
+   case of K1-K4 and the variants, held bit-equal to the plain result of
+   phase 3 and timed beside the direct store.
+
 Phase 2 also builds the port's native host codecs (``native/``) and fails
 if they do not load, so no host stage is timed on the numpy fallback.
 Phase 3 also holds K5 (fir_twopass 1 and 2, peaks off and on, plain and
@@ -82,7 +98,8 @@ The last lines are the card's name and power limit, one JSON object with
 the kernels (each with its launches on the main paths, its error against
 the plain version, its time, the plain version's, and its bound: the
 larger of the bytes it must move over 3.35 TB/s and its int32 operations
-over the card's int32 issue rate at the measured SM clock), and the result
+over the int32 rate P1 sustained in this run, never less than 132 SMs x 64
+lanes at the measured SM clock), and the result
 line ``{"ok": true, "device": {...}}``.  Imports only ``torch``, numpy and
 the port.
 """
@@ -93,7 +110,6 @@ import json
 import os
 import re
 import statistics
-import subprocess
 import sys
 import time
 from dataclasses import replace
@@ -101,7 +117,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from fdreadoutlibs_tpu_torch import native
+from fdreadoutlibs_tpu_torch import native, probes
 from fdreadoutlibs_tpu_torch.apps.apa_readout import APAReadoutApp, make_batch
 from fdreadoutlibs_tpu_torch.formats import protowib, wib2, wibeth
 from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, _build,
@@ -109,6 +125,10 @@ from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, _build,
                                          seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.ingest import (compact_on_device,
                                                 unpack_compact)
+from fdreadoutlibs_tpu_torch.probes import (i16_ops, roofline, slots_ab,
+                                            swar_frugal)
+from fdreadoutlibs_tpu_torch.probes.roofline import (DECODE_OPS, INT32_LANES,
+                                                     OPS_PER_TICK)
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor, \
     WIBFrameProcessor
 from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
@@ -117,6 +137,8 @@ from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
                                              time2_words, tpg_stream,
                                              wib2_superchunks)
 from fdreadoutlibs_tpu_torch.tp.wib_tp_handler import WIBTPHandler
+from fdreadoutlibs_tpu_torch.utils.preflight import (device_preflight,
+                                                     nvidia_smi, sm_clock_mhz)
 from fdreadoutlibs_tpu_torch.utils.tuning import kernel_knobs
 
 N_LINKS = 40                 # one APA
@@ -164,19 +186,17 @@ SOURCE = "fdreadoutlibs_tpu_torch/csrc/tpg.cuh"
 
 # The bound of a kernel case: the larger of its bytes (feed read once,
 # state read and written once, slots and nclose written once) over the
-# HBM rate, and its int32 operations over the card's int32 issue rate (132
-# SMs x 64 INT32 lanes per clock at the measured SM clock).  Operations
-# per tick per channel of the function computed, counted from csrc/tpg.cuh
-# (ThresholdChannel::tick, FirChannel::tick; K5 does FirChannel's work in
-# passes), plus the feed decode per tick (time2: one shift or wrap;
-# packed: the funnel shift and mask).  A variant is bounded by the function
+# HBM rate, and its int32 operations over the int32 rate the issue probe
+# sustained in this run on an add/shift/xor mix (phase 8; never less than
+# 132 SMs x 64 INT32 lanes per clock at the measured SM clock: the card
+# does more than the nominal lanes on such a mix).  Operations
+# per tick per channel of the function computed and of the feed decode:
+# probes/roofline.py::OPS_PER_TICK and DECODE_OPS, the one copy (K5 does
+# FirChannel's work in passes).  A variant is bounded by the function
 # it computes, not by its own schedule: K3b by K3's ticks, K2b by its
-# family's ticks (with the int16 state's bytes), K4b by K4's decode.
+# family's ticks (with the int16 state's bytes), K4b by K4's decode; the
+# carry layout by the kernel it varies.
 HBM_BYTES_PER_S = 3.35e12
-SMS, INT32_LANES = 132, 64
-OPS_PER_TICK = {"SimpleThreshold": 26, "AbsRS": 42, "StandardRS": 40,
-                "FIR": 68}
-DECODE_OPS = {"plain": 0, "time2": 1, "packed14": 2}
 
 
 def phase(name):
@@ -190,13 +210,6 @@ def phase(name):
                 print(f"[{name}] ok in {time.perf_counter() - self.t0:.3f} s",
                       flush=True)
     return _Phase()
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def time_kernel(fn, n: int, flush: torch.Tensor) -> float:
@@ -252,7 +265,8 @@ def fir_registers(kernels: dict) -> dict:
     out = {}
     for name, (regs, spill) in kernels.items():
         m = pat.search(name)
-        if m is None or m.group(4) == "1":          # int16: K2b
+        # int16 is K2b's; the carry layout's units are reported apart
+        if m is None or m.group(4) == "1" or "tpg_carry_" in name:
             continue
         kern = "K3b" if "FirPackedChannel" in name else "K3"
         key = "peaks" if m.group(2) == "1" else "no peaks"
@@ -382,13 +396,15 @@ def kernel_vs_plain(dev):
 
     case_ms = {}    # plain-datapath label -> the kernel's ms
 
-    def record(kern, label, err, ms, plain_ms, work, base=None):
-        """``base``: (the kernel it varies, its ms on the same inputs)."""
+    def record(kern, label, err, ms, plain_ms, work, base=None, case=None):
+        """``base``: (the kernel it varies, its ms on the same inputs);
+        ``case``: (the launch, the plain result) of the reported case, kept
+        for the carry layout's comparison in phase 8."""
         prev = out.get(kern, {"max_abs_err": 0})
         entry = {"max_abs_err": max(prev["max_abs_err"], err)}
         if label == reported[kern]:
             entry.update(ms=ms, plain_ms=plain_ms, timed=label, work=work,
-                         base=base)
+                         base=base, case=case)
         out[kern] = {**prev, **entry}
 
     for kern, label, cfg, time2 in cases:
@@ -428,7 +444,7 @@ def kernel_vs_plain(dev):
                  f" (plain result of '{same}')"), flush=True)
         record(kern, label, err, ms, plain_ms,
                kernel_work(feed, cfg, "time2" if time2 else "plain", T_APA,
-                           C_APA))
+                           C_APA), case=(run, want))
 
     # K4: the same ADCs as packed words.  Its plain version is the torch
     # unpack and then K2's (K3's) plain loop: the unpack is checked equal to
@@ -468,7 +484,8 @@ def kernel_vs_plain(dev):
                   + (f", plain {plain_ms:.1f} ms/batch" if plain_ms else ""),
                   flush=True)
             record("K4", label, err, ms, plain_ms,
-                   kernel_work(feed, cfg, "packed14", T_APA, C_APA))
+                   kernel_work(feed, cfg, "packed14", T_APA, C_APA),
+                   case=(run, want))
             k4[label] = (feed, ms)
 
     # K5: the two-pass FIR schedule on K3's inputs, held to K3's result in
@@ -535,7 +552,8 @@ def check_variant(kern, label, run, wants, plain_fn, base, work, flush,
           "ms/batch in this call"
           + (f", plain {plain_ms:.1f} ms/batch" if plain_ms else ""),
           flush=True)
-    record(kern, label, err, ms, plain_ms, work, base=base)
+    record(kern, label, err, ms, plain_ms, work, base=base,
+           case=(run, want) if plain_ms else None)
 
 
 def variant_kernels(dev, plain, case_ms, k3, k4, flush, record, reported):
@@ -606,18 +624,12 @@ def variant_kernels(dev, plain, case_ms, k3, k4, flush, record, reported):
                 flush, record, reported)
 
 
-def sm_clock_mhz() -> float:
-    """The card's SM clock now (right after a timing loop), in MHz."""
-    return float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
-         "nounits"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0])
-
-
-def bound(work: dict, sm_mhz: float):
-    """(bound_ms, bound_by) of a kernel case's bytes and operations."""
+def bound(work: dict, sm_mhz: float, measured_gops: float):
+    """(bound_ms, bound_by) of a kernel case's bytes and operations, the
+    operations over the int32 rate the issue probe sustained in this run
+    (``roofline.bound_ms``)."""
     bytes_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
-    ops_ms = work["ops"] / (SMS * INT32_LANES * sm_mhz * 1e6) * 1e3
+    ops_ms = roofline.bound_ms(work["ops"], sm_mhz, measured_gops)
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
 
@@ -1256,32 +1268,274 @@ def kernel_entries(dev) -> dict:
     return totals
 
 
+def carry_registers(kernels: dict) -> dict:
+    """``ptxas -v`` of the fused ticks, the carry layout against the direct
+    store: {family: {"direct": [min, max registers], "carry": [min, max],
+    "carry_spill_B": max}} over the encodings and variants."""
+    fam = {"ThresholdChannelILi0": "SimpleThreshold",
+           "ThresholdChannelILi1": "AbsRS",
+           "ThresholdChannelILi2": "StandardRS", "10FirChannel": "FIR",
+           "16FirPackedChannel": "FIR fir_packed"}
+    out = {}
+    for name, (regs, spill) in kernels.items():
+        if "fir2_kernel" in name:
+            continue
+        arm = "carry" if "tpg_carry_" in name else "direct"
+        for pat, family in fam.items():
+            if pat in name:
+                o = out.setdefault(family, {"direct": [999, 0],
+                                            "carry": [999, 0],
+                                            "carry_spill_B": 0})
+                o[arm] = [min(o[arm][0], regs), max(o[arm][1], regs)]
+                if arm == "carry":
+                    o["carry_spill_B"] = max(o["carry_spill_B"], spill)
+    return out
+
+
+# int32 operations per element and step of P2's mix (sub, shift, xor, and,
+# add) and per channel and tick of P3's chain (sub, clip as min and max, add,
+# two compares, three selects)
+MIX_OPS, FRUGAL_OPS = 5, 9
+
+
+def probes_phase(dev, kernels: dict):
+    """Phase 8.  Drives the four probe entries (their launches counted;
+    each holds its kernels to their plain versions before it times
+    anything), then holds the one-op and mix kernels and the carry layout
+    to their plain versions at the rows' own shapes.  Every row's
+    ``max_abs_err`` is the error measured where its comparison is made.
+    Returns (rows, the int32 rate P1 sustained in 1e9 ops per second)."""
+    probes.reset_launches()
+    tpg.reset_launches()
+    # ---- the entries, at full size; each checks parity before timing
+    t0 = time.perf_counter()
+    # every arm is held to the plain version at its own ilp, blocks and
+    # threads before any arm is timed (roofline.check_arm)
+    p1 = roofline.probe_arms(dev, roofline.ARMS, roofline.ITERS)
+    sass_text = _build.sass("probes")
+    p1_sass = roofline.loop_sass(sass_text)
+    mhz = p1["sm_mhz"]
+    per_step = {k: v["alu_per_step"] for k, v in p1_sass.items()}
+    print(f"  P1 issue rate (SM clock {mhz} MHz; SASS per step of 3 source "
+          f"ops: {json.dumps(per_step)}, loop of ilp 1: "
+          f"{json.dumps(p1_sass[1]['loop'])})")
+    for name, a in p1["arms"].items():
+        print(f"    {name}: {a['blocks']} x {a['threads']} ilp {a['ilp']}: "
+              f"{a['gops']:.1f} Gops/s, {a['ops_per_clk_per_sm']:.2f} "
+              f"ops/clock/SM (nominal {INT32_LANES}), "
+              f"{a['cycles_per_dep_op']:.3f} SM cycles per dependent op, "
+              f"{a['ms']:.3f} ms at {roofline.ITERS[1]} iterations; "
+              f"max abs err {a['max_abs_err']} against the plain version at "
+              f"{a['check_iters']} iterations")
+    kernel_ms = {}
+    for k in KERNELS:
+        fam = kernels[k]["timed"].split()[0]
+        decode = "time2" if k == "K1" else "packed14" \
+            if k.startswith("K4") else "plain"
+        kernel_ms[f"{k} ({kernels[k]['timed']})"] = (fam, decode,
+                                                     kernels[k]["ms"])
+    summary = roofline.summarize(p1, kernel_ms, T_APA, C_APA)
+    print(f"  TPG kernels against P1 (ceiling {summary['ceiling_gops']:.1f} "
+          f"Gops/s; {summary['tpg_cycles_per_dep_op']:.3f} cycles per "
+          "dependent op at 20 x 128, ilp 1):")
+    for label, r in summary["kernels"].items():
+        print(f"    {label}: {r['ms']:.4f} ms, {r['gops']:.1f} Gops/s = "
+              f"{r['pct_of_ceiling']:.2f}% of the ceiling; "
+              f"{r['cycles_per_tick_per_thread']:.1f} cycles per tick per "
+              f"thread for {r['ops_per_tick']} ops = "
+              f"{r['dep_ops_per_tick_at_probe_latency']:.1f} dependent ops "
+              "at the probe's latency")
+    print(f"  P1 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    matrix = i16_ops.support_matrix(dev)
+    bad = [k for k, v in matrix.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"P2: one-op kernels differ from their plain "
+                             f"versions: {bad}")
+    print("  P2 one-op record (instructions beyond the copy kernel's):",
+          json.dumps(i16_ops.op_sass(sass_text)))
+    mix = i16_ops.throughput_ab(dev, n_iters=i16_ops.N_ITERS,
+                                geometries=i16_ops.GEOMETRIES)
+    print("  P2 mix:", json.dumps(mix))
+    print("  P2 mix SASS per step of one array:",
+          json.dumps(i16_ops.mix_sass(sass_text)))
+    print(f"  P2 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    p3 = swar_frugal.run(dev, C_APA, T_APA)
+    print("  P3 frugal chain:", json.dumps(p3))
+    print("  P3 SASS per tick:",
+          json.dumps(swar_frugal.frugal_sass(sass_text)))
+    print(f"  P3 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    ab = slots_ab.run(dev, C_APA, T_APA, datapaths="all")
+    for label, r in ab.items():
+        print(f"  slots A/B {label}: stacked {r['A_stacked']['ms']:.4f} ms, "
+              f"null x{r['A2_null']['vs_A']:.4f}, carry "
+              f"{r['B_word_carry']['ms']:.4f} ms (x"
+              f"{r['B_word_carry']['vs_A']:.4f} of stacked); {r['hits']} "
+              f"hits, {r['dropped']} dropped, carry == stacked")
+    print(f"  slots A/B in {time.perf_counter() - t0:.1f} s", flush=True)
+    counts = {**probes.launches,
+              **{f"carry {k}": n
+                 for k, n in tpg.process_window.carry_launches.items()}}
+    print("  launches of the probe entries:", json.dumps(counts))
+
+    # ---- each probe kernel against its plain version, for its row
+    ceiling = summary["ceiling_gops"]
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, work,
+            **extra):
+        if launches <= 0:
+            raise AssertionError(f"{name} was not launched by its entry")
+        bound_ms, bound_by = bound(work, mhz, ceiling)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, **extra}
+
+    def must_equal(what, got, want) -> int:
+        err = probes.max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"{what}: the kernel differs from its "
+                                 f"plain version (max abs err {err})")
+        return err
+
+    # P1: the row is the TPG kernels' geometry; its error is the largest
+    # over all arms' checks, so no instantiation or geometry goes unheld
+    rows = []
+    blocks, threads = roofline.TPG_GEOMETRY
+    n = blocks * threads
+    arm = p1["arms"]["tpg_ilp1"]
+    rows.append(row(
+        f"probe P1 issue rate (20 x 128, ilp 1, {roofline.ITERS[1]} "
+        "iterations)", "fdreadoutlibs_tpu_torch/csrc/probes_issue.cu",
+        "scripts/roofline.py:182", counts["P1"],
+        max(a["max_abs_err"] for a in p1["arms"].values()), arm["ms"],
+        arm["plain_ms"],
+        {"bytes": 2 * 4 * n, "ops": roofline.OPS_PER_STEP * roofline.UNITS
+         * n * roofline.ITERS[1]}, plain_n_iters=arm["check_iters"],
+        arms_checked=len(p1["arms"]),
+        cycles_per_dep_op=arm["cycles_per_dep_op"], ceiling_gops=ceiling))
+
+    op_ms = op_plain_ms = 0.0
+    op_err = 0
+    for name in i16_ops.OP_NAMES:
+        a, b = i16_ops.op_inputs(name, dev)
+        got = i16_ops.one_op(name, a, b)
+        want, ms = clock(lambda: i16_ops.op_plain(name, a, b))
+        op_err = max(op_err, must_equal(f"P2 {name}", got, want))
+        op_plain_ms += ms
+        op_ms += probes.event_ms(lambda: i16_ops.one_op(name, a, b), 5)
+    n_ops = len(i16_ops.OP_NAMES)
+    rows.append(row(
+        f"probe P2 one-op int16 kernels (mean of {n_ops}, (16, 128))",
+        "fdreadoutlibs_tpu_torch/csrc/probes_i16.cu",
+        "scripts/probe_i16_ops.py:47", counts["P2-ops"], op_err,
+        op_ms / n_ops,
+        op_plain_ms / n_ops, {"bytes": 3 * 2 * 16 * 128, "ops": 16 * 128}))
+
+    b_tpg, per_block = i16_ops.GEOMETRIES["tpg"]
+    feeds = i16_ops.mix_inputs(b_tpg * per_block, dev)
+    plain_mix = {}
+    mix_err = 0
+    for arm_name in i16_ops.ARMS:
+        got = i16_ops.mix(feeds[arm_name], i16_ops.N_ITERS, arm_name, b_tpg)
+        want, plain_mix[arm_name] = clock(lambda: i16_ops.mix_plain(
+            feeds[arm_name], i16_ops.N_ITERS, arm_name))
+        mix_err = max(mix_err, must_equal(f"P2 mix {arm_name}", got, want))
+    rows.append(row(
+        f"probe P2 mix (int32 arm, {b_tpg * per_block} elements, "
+        f"{i16_ops.N_ITERS} steps)",
+        "fdreadoutlibs_tpu_torch/csrc/probes_i16.cu",
+        "scripts/probe_i16_ops.py:146", counts["P2-mix"], mix_err,
+        mix["tpg"]["ms_i32"], plain_mix["i32"],
+        {"bytes": 2 * 4 * i16_ops.N_ARRAYS * b_tpg * per_block,
+         "ops": MIX_OPS * i16_ops.N_ARRAYS * b_tpg * per_block
+         * i16_ops.N_ITERS},
+        ms_i16=mix["tpg"]["ms_i16"], ms_packed=mix["tpg"]["ms_packed"],
+        plain_ms_i16=plain_mix["i16"], plain_ms_packed=plain_mix["packed"],
+        i16_speedup=mix["tpg"]["i16_speedup"],
+        packed_speedup=mix["tpg"]["packed_speedup"],
+        saturating=mix["saturating"]))
+
+    for arm_name, key in (("unpacked", "P3-unpacked"), ("packed",
+                                                        "P3-packed")):
+        width = C_APA if arm_name == "unpacked" else C_APA // 2
+        rows.append(row(
+            f"probe P3 frugal chain {arm_name} (T={T_APA} x {C_APA})",
+            "fdreadoutlibs_tpu_torch/csrc/probes_swar.cu",
+            "scripts/bench_swar_frugal.py:128", counts[key],
+            max(p3[a]["max_abs_err"] for a in swar_frugal.ARMS
+                if (a == "unpacked") == (arm_name == "unpacked")),
+            p3[arm_name]["ms"], p3[arm_name]["plain_ms"],
+            {"bytes": 4 * (T_APA * width + 4 * width),
+             "ops": FRUGAL_OPS * T_APA * C_APA},
+            swar_speedup=p3["swar_speedup"],
+            **({"ms_packed_simd": p3["packed_simd"]["ms"],
+                "ms_packed_minmax": p3["packed_minmax"]["ms"]}
+               if arm_name == "packed" else {})))
+
+    # ---- the carry layout on the reported case of each fused kernel,
+    # against phase 3's plain result, timed in turns with the direct store
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for k in KERNELS:
+        if k == "K5":                     # the two-pass schedule never
+            continue                      # reads the flag
+        run, want = kernels[k]["case"]
+        with slots_ab.slot_word_carry():
+            got = run()
+            torch.cuda.synchronize()
+            err = check_equal(f"SLOT_WORD_CARRY {k}", got, want)
+            carry_ms = time_kernel(run, 10, flush)
+        direct_ms = time_kernel(run, 10, flush)
+        with slots_ab.slot_word_carry():
+            carry_ms = (carry_ms + time_kernel(run, 10, flush)) / 2
+        print(f"  SLOT_WORD_CARRY on {k} ({kernels[k]['timed']}, K={K}): "
+              f"bit-equal to the plain version; carry {carry_ms:.4f} ms, "
+              f"direct {direct_ms:.4f} ms in this call", flush=True)
+        rows.append(row(
+            f"tpg SLOT_WORD_CARRY on {k} ({kernels[k]['timed']})",
+            "fdreadoutlibs_tpu_torch/csrc/tpg.cuh",
+            "fdreadoutlibs_tpu/ops/pallas_tpg.py:67", counts[f"carry {k}"],
+            err, carry_ms, kernels[k]["plain_ms"], kernels[k]["work"], varies=k,
+            varies_ms_same_inputs=direct_ms))
+    return rows, ceiling
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     with phase("1 device"):
+        # refuses a card that is not capability (9, 0): built for sm_90a
+        info = device_preflight(dev)
         name = torch.cuda.get_device_name(0)
-        cap = torch.cuda.get_device_capability(0)
         smi = nvidia_smi()
-        print(f"device: {name}, capability {cap}, count "
-              f"{torch.cuda.device_count()}, torch {torch.__version__}, "
-              f"CUDA {torch.version.cuda}")
+        print(f"device: {name}, count {torch.cuda.device_count()}, "
+              f"versions {json.dumps(info)}")
         print(smi)
-        if cap != (9, 0):
-            raise RuntimeError(f"the kernels are built for sm_90a; this "
-                               f"card is capability {cap}")
 
     with phase("2 build"):
-        lib = _build.build("tpg")
-        print(f"built {lib.name}")
+        for lib_name in ("probes", "tpg"):
+            t0 = time.perf_counter()
+            lib = _build.build(lib_name)
+            print(f"built {lib.name} ({len(_build.units(lib_name))} units) "
+                  f"in {time.perf_counter() - t0:.1f} s")
+            if lib_name in _build.build_log:
+                print(f"  ptxas {lib_name}:",
+                      ptxas_summary(_build.build_log[lib_name]))
+            _build.load(lib_name)
         if "tpg" in _build.build_log:
-            log = _build.build_log["tpg"]
-            print("  ptxas:", ptxas_summary(log))
+            regs = ptxas_kernels(_build.build_log["tpg"])
             print("  ptxas K3 vs K3b (registers min, max, spill stores B):",
-                  json.dumps(fir_registers(ptxas_kernels(log))))
-        _build.load("tpg")
+                  json.dumps(fir_registers(regs)))
+            print("  ptxas direct store vs SLOT_WORD_CARRY (registers min, "
+                  "max):", json.dumps(carry_registers(regs)))
         # the host codecs timed below must be the native library's
         print(f"native host codecs loaded: {native.available()}")
         if not native.available():
@@ -1320,6 +1574,9 @@ def main() -> int:
     with phase("7 kernel entries"):
         entries = kernel_entries(dev)
 
+    with phase("8 probes"):
+        probe_rows, ceiling = probes_phase(dev, kernels)
+
     # launches on the main paths: the APA app's feeds, the WIB2 and the
     # ProtoWIB processors' runs, the kernel entries
     launches = {
@@ -1332,7 +1589,7 @@ def main() -> int:
         **{k: entries[k] for k in ("K2b", "K3b", "K4b-slab", "K4b-gather")}}
     rows = []
     for k in KERNELS:
-        bound_ms, bound_by = bound(kernels[k]["work"], sm_mhz)
+        bound_ms, bound_by = bound(kernels[k]["work"], sm_mhz, ceiling)
         row = {"name": f"tpg {k} ({kernels[k]['timed']})", "route": "cuda",
                "source": SOURCE, "replaces": REPLACES[k],
                "launches": launches[k],
@@ -1346,7 +1603,7 @@ def main() -> int:
             raise AssertionError(f"{k} was not launched on a main path")
         rows.append(row)
     print(smi)
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + probe_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

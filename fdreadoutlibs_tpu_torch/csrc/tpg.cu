@@ -70,7 +70,10 @@ bool make_params(Params& p, const void* feed, int feed_stride, int encoding,
 // (the group_* and word_stride arguments are read only for those).
 // `int16` selects the int16 state and feed (kPlain only), `fir_packed` the
 // SWAR carry (FIR on an int32 state), `rs_float` the float running sum (the
-// RS families; ignored for the others).
+// RS families; ignored for the others), `slot_word_carry` the emission
+// layout that keeps a chunk's records in registers and shared memory until
+// its end (ops/tpg.py::SLOT_WORD_CARRY; the launch is refused when that
+// staging does not fit a block's shared memory).
 //
 // tpg_launch: K1-K4 and K2b, K3b, K4b, the fused tick of every family.
 extern "C" int tpg_launch(const void* feed, int feed_stride, int encoding,
@@ -83,7 +86,8 @@ extern "C" int tpg_launch(const void* feed, int feed_stride, int encoding,
                           int rs_scale_factor_x10, const int* taps,
                           int tap_exponent, int adc_max, int sigma_cap,
                           int thr_mult, int int16, int fir_packed,
-                          int rs_float, int device, void* stream) {
+                          int rs_float, int slot_word_carry, int device,
+                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
@@ -100,18 +104,26 @@ extern "C" int tpg_launch(const void* feed, int feed_stride, int encoding,
                   track_peaks != 0, avx != 0,       fir_packed != 0,
                   rs_float != 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int16) return static_cast<int>(launch_int16(p, v, s));
+  const bool carry = slot_word_carry != 0;
+  if (int16)
+    return static_cast<int>(carry ? launch_carry_int16(p, v, s)
+                                  : launch_int16(p, v, s));
   switch (encoding) {
     case kPlain:
-      return static_cast<int>(launch_plain(p, v, s));
+      return static_cast<int>(carry ? launch_carry_plain(p, v, s)
+                                    : launch_plain(p, v, s));
     case kTime2:
-      return static_cast<int>(launch_time2(p, v, s));
+      return static_cast<int>(carry ? launch_carry_time2(p, v, s)
+                                    : launch_time2(p, v, s));
     case kPacked14:
-      return static_cast<int>(launch_packed14(p, v, s));
+      return static_cast<int>(carry ? launch_carry_packed14(p, v, s)
+                                    : launch_packed14(p, v, s));
     case kGather14:
-      return static_cast<int>(launch_gather14(p, v, s));
+      return static_cast<int>(carry ? launch_carry_gather14(p, v, s)
+                                    : launch_gather14(p, v, s));
     case kSlab14:
-      return static_cast<int>(launch_slab14(p, v, s));
+      return static_cast<int>(carry ? launch_carry_slab14(p, v, s)
+                                    : launch_slab14(p, v, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -119,7 +131,9 @@ extern "C" int tpg_launch(const void* feed, int feed_stride, int encoding,
 
 // tpg_fir2_launch: K5, the two-pass FIR schedule (the FIR family on an
 // int32 state only, without fir_packed or the slab; `family`,
-// `charge_floor` and `rs_float` are taken for a common argument list).
+// `charge_floor`, `rs_float` and `slot_word_carry` are taken for a common
+// argument list: the two-pass schedule has the direct store only, as
+// _fir2_kernel never reads SLOT_WORD_CARRY).
 // `lift` selects fir_twopass=2.  `scratch` holds the slabs,
 // (tc + 8) x n_channels int32 each: 4, + 1 with track_peaks, + 2 (+ 1 with
 // track_peaks) with lift.
@@ -131,9 +145,10 @@ extern "C" int tpg_fir2_launch(
     int track_peaks, int avx, int threshold, int accumulator_limit,
     int rs_scale_factor_x10, const int* taps, int tap_exponent, int adc_max,
     int sigma_cap, int thr_mult, int int16, int fir_packed, int rs_float,
-    int lift, void* scratch, int device, void* stream) {
+    int slot_word_carry, int lift, void* scratch, int device, void* stream) {
   (void)charge_floor;
   (void)rs_float;
+  (void)slot_word_carry;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
@@ -160,4 +175,17 @@ extern "C" int tpg_fir2_launch(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The dynamic shared memory one block of a fused launch takes, in bytes, as
+// the launch computes it (tpg.cuh::block_shared_bytes), and through
+// `max_bytes` the most a launch may take before it is refused.  No launch.
+extern "C" long long tpg_shared_bytes(int n_words, int ticks_per_chunk,
+                                      int k_slots, int slab, int carry,
+                                      int* max_bytes) {
+  Params p{};
+  p.ticks_per_chunk = ticks_per_chunk;
+  p.k_slots = k_slots;
+  if (max_bytes != nullptr) *max_bytes = kMaxSlabBytes;
+  return block_shared_bytes(p, n_words, slab != 0, carry != 0);
 }

@@ -1,6 +1,7 @@
 // The SWTPG tick for Hopper: the kernels of ROADMAP.md, shared by the
 // translation units csrc/tpg*.cu (one per input encoding, one for the
-// int16 state, two for K5; tpg.cu holds the C entries).
+// int16 state, two for K5, six tpg_carry_*.cu for the SLOT_WORD_CARRY
+// layout; tpg.cu holds the C entries).
 //
 // Replaces fdreadoutlibs_tpu/ops/pallas_tpg.py::_tpg_kernel:
 //   K1  the time2 datapath (time_packed=True, tick 2j in the low and 2j+1 in
@@ -96,6 +97,20 @@
 // words of biased 16-bit halves and charge/tover/prev_was_over as one, so
 // the loop carries 3 registers where K3 carries 7; the frugal updates run in
 // the biased domain (acc_bias = 1 << 15).  State in and out stays canonical.
+//
+// SLOT_WORD_CARRY (CarrySlots, the units csrc/tpg_carry_*.cu; replaces the
+// trace-time layout pallas_tpg.py:67, :506-516, :575-581 and _emit_records
+// :426-430): a chunk's K x kWords record words stay out of global memory
+// through the chunk.  The first kCarrySlots = 4 slots are registers, written
+// by a chain of predicated selects on nclose unrolled to that ceiling (a
+// register cannot be indexed at run time); slots above it are staged in the
+// thread's column of the block's dynamic shared memory.  Both are stored
+// once, where the chunk stores nclose.  A chunk of tc ticks closes at most
+// ceil(tc / 2) hits per channel (a close needs an over tick before it), so
+// min(K, ceil(tc / 2)) slots are carried (carry_limit) and the others keep
+// the zeros the slot buffer arrives with.  The layout is the
+// kernels' template parameter kCarry, instantiated in units of its own, so
+// the direct-store kernels are the same code as without it.
 //
 // rs_float (kRsFloat, ProcessNaiveRS): v = 0.8f * rs + (AbsRS ? |s| / 2 :
 // s) and trunc(v + copysign(0.5, v)), each float op rounded on its own
@@ -197,6 +212,19 @@ cudaError_t launch_gather14(const Params& p, const Variant& v,
                             cudaStream_t s);
 cudaError_t launch_slab14(const Params& p, const Variant& v, cudaStream_t s);
 cudaError_t launch_int16(const Params& p, const Variant& v, cudaStream_t s);
+// the same with the SLOT_WORD_CARRY emission layout (csrc/tpg_carry_*.cu)
+cudaError_t launch_carry_plain(const Params& p, const Variant& v,
+                               cudaStream_t s);
+cudaError_t launch_carry_time2(const Params& p, const Variant& v,
+                               cudaStream_t s);
+cudaError_t launch_carry_packed14(const Params& p, const Variant& v,
+                                  cudaStream_t s);
+cudaError_t launch_carry_gather14(const Params& p, const Variant& v,
+                                  cudaStream_t s);
+cudaError_t launch_carry_slab14(const Params& p, const Variant& v,
+                                cudaStream_t s);
+cudaError_t launch_carry_int16(const Params& p, const Variant& v,
+                               cudaStream_t s);
 // K5 on plain and time2 feeds, and on packed (K4 and K4b-gather) feeds
 cudaError_t launch_fir2_unpacked(const Params& p, const Variant& v,
                                  int encoding, bool lift, int32_t* scratch,
@@ -278,6 +306,15 @@ __device__ __forceinline__ void frugal(int& m, int& acc, int s, int limit) {
   }
 }
 
+// ---- emission layouts: where a chunk's hit records live until its end ----
+//
+// A tick hands every close to slot_emit() on the chunk's `slots`: for the
+// direct store the pointer to word 0 of slot 0 of that chunk and channel
+// (slot k's word j is base[(k * kWords + j) * C]), passed by value as it
+// always was, so the direct-store kernels are the same code as before the
+// carry layout; for SLOT_WORD_CARRY a pointer to the chunk's CarrySlots,
+// flushed where the chunk stores nclose.
+
 // Store a closed hit's record into its slot while the chunk has room.
 template <int kWords>
 __device__ __forceinline__ void emit(int& nclose, int32_t* slot_base,
@@ -291,6 +328,117 @@ __device__ __forceinline__ void emit(int& nclose, int32_t* slot_base,
     rec[(kWords - 1) * C] = end_word;
   }
   ++nclose;
+}
+
+// The direct store: straight into the slot.
+template <int kWords>
+__device__ __forceinline__ void slot_emit(int32_t* slot_base, int& nclose,
+                                          const Params& p, int w0, int w1,
+                                          int end_word) {
+  emit<kWords>(nclose, slot_base, p, w0, w1, end_word);
+}
+
+// Record slots a thread carries in registers (SLOT_WORD_CARRY).
+constexpr int kCarrySlots = 4;
+
+// The slots a chunk can fill: a close needs an over tick before it, so a
+// chunk closes at most ceil(tc / 2) hits per channel.
+__host__ __device__ inline int carry_limit(const Params& p) {
+  const int most = (p.ticks_per_chunk + 1) / 2;
+  return p.k_slots < most ? p.k_slots : most;
+}
+
+// The int32 words of a block's staging for the slots above kCarrySlots.
+__host__ __device__ constexpr long long carry_stage_words(int limit,
+                                                          int n_words) {
+  return static_cast<long long>(limit > kCarrySlots ? limit - kCarrySlots
+                                                    : 0) *
+         n_words * kBlock;
+}
+
+// Dynamic shared memory of one block in bytes: K4b-slab's time2 slab of one
+// chunk, then the carry layout's staging.  A launch that needs more than
+// kMaxSlabBytes is refused (ops/tpg.py::carry_shared_bytes restates this
+// for its own refusal; tpg_shared_bytes in tpg.cu gives the tests both).
+inline long long block_shared_bytes(const Params& p, int n_words, bool slab,
+                                    bool carry) {
+  return 4LL * ((slab ? p.ticks_per_chunk / 2 * kBlock : 0) +
+                (carry ? carry_stage_words(carry_limit(p), n_words) : 0));
+}
+
+// SLOT_WORD_CARRY: the chunk's records as kCarrySlots x kWords registers,
+// each close a chain of predicated selects on nclose (_emit_records
+// :426-430), and above that ceiling the thread's column of the block's
+// staging in shared memory (word j of slot kCarrySlots + i at
+// stage[(i * kWords + j) * kBlock]); all stored once at the chunk's end.
+template <int kWords>
+struct CarrySlots {
+  int32_t* base;
+  int32_t* stage;
+  int limit;
+  int w[kCarrySlots][kWords];
+
+  __device__ __forceinline__ void begin(int32_t* chunk_base,
+                                        int32_t* thread_stage,
+                                        const Params& p) {
+    base = chunk_base;
+    stage = thread_stage;
+    limit = carry_limit(p);
+#pragma unroll
+    for (int k = 0; k < kCarrySlots; ++k)
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) w[k][j] = 0;
+  }
+
+  __device__ __forceinline__ void emit(int& nclose, int w0, int w1,
+                                       int end_word) {
+    int rec[kWords];
+    rec[0] = w0;
+    if (kWords == 3) rec[1] = w1;
+    rec[kWords - 1] = end_word;
+    if (nclose < limit) {
+      if (nclose < kCarrySlots) {
+#pragma unroll
+        for (int k = 0; k < kCarrySlots; ++k) {
+          const bool sel = nclose == k;
+#pragma unroll
+          for (int j = 0; j < kWords; ++j) w[k][j] = sel ? rec[j] : w[k][j];
+        }
+      } else {
+        int32_t* at = stage + static_cast<size_t>(nclose - kCarrySlots) *
+                                  kWords * kBlock;
+#pragma unroll
+        for (int j = 0; j < kWords; ++j) at[j * kBlock] = rec[j];
+      }
+    }
+    ++nclose;
+  }
+
+  __device__ __forceinline__ void flush(int nclose, const Params& p) {
+    const size_t C = static_cast<size_t>(p.n_channels);
+#pragma unroll
+    for (int k = 0; k < kCarrySlots; ++k) {
+      if (k < limit) {
+#pragma unroll
+        for (int j = 0; j < kWords; ++j) base[(k * kWords + j) * C] = w[k][j];
+      }
+    }
+    const int n = nclose < limit ? nclose : limit;
+    for (int k = kCarrySlots; k < n; ++k) {
+      const int32_t* at = stage + static_cast<size_t>(k - kCarrySlots) *
+                                      kWords * kBlock;
+#pragma unroll
+      for (int j = 0; j < kWords; ++j)
+        base[(static_cast<size_t>(k) * kWords + j) * C] = at[j * kBlock];
+    }
+  }
+};
+
+template <int kWords>
+__device__ __forceinline__ void slot_emit(CarrySlots<kWords>* slots,
+                                          int& nclose, const Params&, int w0,
+                                          int w1, int end_word) {
+  slots->emit(nclose, w0, w1, end_word);
 }
 
 // step.py::tpg_tick: SimpleThreshold, AbsRS, StandardRS.
@@ -362,9 +510,9 @@ struct ThresholdChannel {
   }
 
   // One sample; `end_word` is the window tick + 1.
-  template <int kU>
-  __device__ __forceinline__ void tick(int s_raw, int end_word,
-                                       int32_t* slot_base, const Params& p) {
+  template <int kU, class Slots>
+  __device__ __forceinline__ void tick(int s_raw, int end_word, Slots slots,
+                                       const Params& p) {
     frugal<kI16>(ped, acc, s_raw, p.accumulator_limit);
     const int s = w16<kI16>(s_raw - ped);
     int x;
@@ -396,8 +544,8 @@ struct ThresholdChannel {
     int tv = tover + (over ? 1 : 0);
     tv = tv < kInt16Max ? tv : kInt16Max;
     if (closed) {
-      emit<kWords>(nclose, slot_base, p, pack16(ch, tv), pack16(pk, pt),
-                   end_word);
+      slot_emit<kWords>(slots, nclose, p, pack16(ch, tv), pack16(pk, pt),
+                        end_word);
       charge = tover = peak_adc = peak_time = 0;
     } else {
       charge = ch;
@@ -606,9 +754,9 @@ struct FirChannel {
 
   __device__ __forceinline__ void realign(int n) { realign_ring(ring, n); }
 
-  template <int kU>
-  __device__ __forceinline__ void tick(int s_raw, int end_word,
-                                       int32_t* slot_base, const Params& p) {
+  template <int kU, class Slots>
+  __device__ __forceinline__ void tick(int s_raw, int end_word, Slots slots,
+                                       const Params& p) {
     int sigma;
     const int s = front.step(s_raw, p, sigma);
     // the filter over the previous 8 samples, then the current sample
@@ -620,7 +768,7 @@ struct FirChannel {
     prev_over = over ? 1 : 0;
     int w0, w1;
     hit.step(over, fir_to_add(over, filt, p), filt, closed, w0, w1);
-    if (closed) emit<kWords>(nclose, slot_base, p, w0, w1, end_word);
+    if (closed) slot_emit<kWords>(slots, nclose, p, w0, w1, end_word);
   }
 };
 
@@ -690,9 +838,9 @@ struct FirPackedChannel {
 
   __device__ __forceinline__ void realign(int n) { realign_ring(ring, n); }
 
-  template <int kU>
-  __device__ __forceinline__ void tick(int s_raw, int end_word,
-                                       int32_t* slot_base, const Params& p) {
+  template <int kU, class Slots>
+  __device__ __forceinline__ void tick(int s_raw, int end_word, Slots slots,
+                                       const Params& p) {
     const int limit = p.accumulator_limit;
     // the two quantile chains in the biased domain, gated on the
     // pre-update median
@@ -717,7 +865,7 @@ struct FirPackedChannel {
     hit.step(over, fir_to_add(over, filt, p), filt, closed, w0, w1);
     // where(closed, 0, w0) | where(over, 0x8000, 0)
     ct = pack16(hit.charge, hit.tover) | (over ? 0x8000 : 0);
-    if (closed) emit<kWords>(nclose, slot_base, p, w0, w1, end_word);
+    if (closed) slot_emit<kWords>(slots, nclose, p, w0, w1, end_word);
   }
 };
 
@@ -877,50 +1025,77 @@ __device__ __forceinline__ void load_group(int (&w)[kRowsPerGroup<kEnc>],
 
 // The ticks of one group, expanded at compile time; kGuard runs only the
 // first n (a chunk's ragged tail).
-template <int kEnc, bool kGuard, class Ch, int... kU>
+template <int kEnc, bool kGuard, class Ch, class Slots, int... kU>
 __device__ __forceinline__ void run_ticks(
     Ch& ch, const int (&w)[kRowsPerGroup<kEnc>], int n, int tick0,
-    int32_t* slot_base, const Params& p, std::integer_sequence<int, kU...>) {
+    Slots slots, const Params& p, std::integer_sequence<int, kU...>) {
   ((!kGuard || kU < n
-        ? ch.template tick<kU>(sample<kEnc, kU>(w), tick0 + kU + 1,
-                               slot_base, p)
+        ? ch.template tick<kU>(sample<kEnc, kU>(w), tick0 + kU + 1, slots, p)
         : void()),
    ...);
 }
 
-template <int kEnc, bool kGuard, class Ch>
+template <int kEnc, bool kGuard, class Ch, class Slots>
 __device__ __forceinline__ void run_group(Ch& ch, Cursor<kEnc>& cur, int n,
-                                          int tick0, int32_t* slot_base,
+                                          int tick0, Slots slots,
                                           const Params& p) {
   int w[kRowsPerGroup<kEnc>];
   load_group<kEnc, kGuard>(w, cur, n);
-  run_ticks<kEnc, kGuard>(ch, w, n, tick0, slot_base, p,
+  run_ticks<kEnc, kGuard>(ch, w, n, tick0, slots, p,
                           std::make_integer_sequence<int, kGroup>{});
 }
 
-// One chunk of a channel's chain from its cursor (at the chunk's first
-// tick), the ragged tail guarded.
-template <int kEnc, class Ch>
-__device__ __forceinline__ void run_chunk(Ch& ch, Cursor<kEnc>& cur,
-                                          const Params& p, int chunk,
-                                          int c) {
-  const size_t C = static_cast<size_t>(p.n_channels);
+// The groups of one chunk from its cursor (at the chunk's first tick), the
+// ragged tail guarded.
+template <int kEnc, class Ch, class Slots>
+__device__ __forceinline__ void run_groups(Ch& ch, Cursor<kEnc>& cur,
+                                           const Params& p, int t0,
+                                           Slots slots) {
   const int tc = p.ticks_per_chunk;
-  const int t0 = chunk * tc;   // window tick of the chunk's first sample
+  int g = 0;
+  for (; g + kGroup <= tc; g += kGroup)
+    run_group<kEnc, false>(ch, cur, kGroup, t0 + g, slots, p);
+  if (g < tc) {
+    run_group<kEnc, true>(ch, cur, tc - g, t0 + g, slots, p);
+    ch.realign(tc - g);
+  }
+}
+
+// One chunk of a channel's chain; `stage` is the thread's column of the
+// carry layout's staging (unused by the direct store).
+template <int kEnc, bool kCarry, class Ch>
+__device__ __forceinline__ void run_chunk(Ch& ch, Cursor<kEnc>& cur,
+                                          const Params& p, int chunk, int c,
+                                          int32_t* stage) {
+  const size_t C = static_cast<size_t>(p.n_channels);
+  const int t0 = chunk * p.ticks_per_chunk;   // the chunk's first window tick
   ch.nclose = 0;
   int32_t* slot_base =
       p.slots + static_cast<size_t>(chunk) * p.k_slots * Ch::kWords * C + c;
-  int g = 0;
-  for (; g + kGroup <= tc; g += kGroup)
-    run_group<kEnc, false>(ch, cur, kGroup, t0 + g, slot_base, p);
-  if (g < tc) {
-    run_group<kEnc, true>(ch, cur, tc - g, t0 + g, slot_base, p);
-    ch.realign(tc - g);
+  if constexpr (kCarry) {
+    CarrySlots<Ch::kWords> carry;
+    carry.begin(slot_base, stage, p);
+    run_groups<kEnc>(ch, cur, p, t0, &carry);
+    carry.flush(ch.nclose, p);
+  } else {
+    run_groups<kEnc>(ch, cur, p, t0, slot_base);
   }
   p.nclose[static_cast<size_t>(chunk) * C + c] = ch.nclose;
 }
 
-template <class Ch, int kEnc>
+// The thread's column of the block's dynamic shared memory from word
+// `offset` on (the carry layout's staging), or nothing for the direct store.
+template <bool kCarry>
+__device__ __forceinline__ int32_t* carry_stage(int offset) {
+  if constexpr (kCarry) {
+    TPG_DYNAMIC_SHARED(int32_t, shared_words);
+    return shared_words + offset + threadIdx.x;
+  } else {
+    return nullptr;
+  }
+}
+
+template <class Ch, int kEnc, bool kCarry = false>
 __global__ void __launch_bounds__(kBlock) tpg_kernel(Params p) {
   const int c = blockIdx.x * kBlock + threadIdx.x;
   if (c >= p.n_channels) return;
@@ -929,9 +1104,10 @@ __global__ void __launch_bounds__(kBlock) tpg_kernel(Params p) {
   Ch ch;
   ch.load(st, C);
   Cursor<kEnc> cur = make_cursor<kEnc>(p, c);
+  int32_t* const stage = carry_stage<kCarry>(0);
   for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
     seek<kEnc>(cur, p, chunk * p.ticks_per_chunk);
-    run_chunk<kEnc>(ch, cur, p, chunk, c);
+    run_chunk<kEnc, kCarry>(ch, cur, p, chunk, c, stage);
   }
   ch.store(st, C);
 }
@@ -942,9 +1118,10 @@ __global__ void __launch_bounds__(kBlock) tpg_kernel(Params p) {
 // thread x at slab[j * 128 + x]; after a barrier the thread runs the time2
 // tick loop on its column.  Threads past the last channel stay for the
 // barriers.
-template <class Ch>
+template <class Ch, bool kCarry = false>
 __global__ void __launch_bounds__(kBlock) tpg_slab_kernel(Params p) {
-  TPG_DYNAMIC_SHARED(int32_t, slab);   // (tc / 2) x kBlock time2 words
+  // (tc / 2) x kBlock time2 words, then the carry layout's staging
+  TPG_DYNAMIC_SHARED(int32_t, slab);
   const int c = blockIdx.x * kBlock + threadIdx.x;
   const bool live = c < p.n_channels;
   const size_t C = static_cast<size_t>(p.n_channels);
@@ -953,6 +1130,9 @@ __global__ void __launch_bounds__(kBlock) tpg_slab_kernel(Params p) {
   Ch ch;
   if (live) ch.load(st, C);
   Cursor<kPacked14> src = make_cursor<kPacked14>(p, live ? c : 0);
+  int32_t* const stage =
+      kCarry ? slab + static_cast<size_t>(tc / 2) * kBlock + threadIdx.x
+             : nullptr;
   for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
     __syncthreads();   // the slab's previous chunk has been read
     if (live) {
@@ -971,47 +1151,62 @@ __global__ void __launch_bounds__(kBlock) tpg_slab_kernel(Params p) {
       Cursor<kSlab14> cur{};
       cur.fp = slab + threadIdx.x;
       cur.stride = kBlock;
-      run_chunk<kSlab14>(ch, cur, p, chunk, c);
+      run_chunk<kSlab14, kCarry>(ch, cur, p, chunk, c, stage);
     }
   }
   if (live) ch.store(st, C);
 }
 
-template <class Ch, int kEnc>
+template <class Ch, int kEnc, bool kCarry = false>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int blocks = (p.n_channels + kBlock - 1) / kBlock;
+  // dynamic shared memory: the slab, then the carry layout's staging
+  const long long smem_ll =
+      block_shared_bytes(p, Ch::kWords, kEnc == kSlab14, kCarry);
+  if (smem_ll > kMaxSlabBytes) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(smem_ll);
   if constexpr (kEnc == kSlab14) {
-    const int smem = p.ticks_per_chunk / 2 * kBlock * 4;
 #ifdef TPG_HOST_EMULATION
     // host build for the CPU tests (tests/cuda_host/cuda_runtime.h): a
     // block's threads run as host threads that meet at a real barrier
     (void)stream;
     for (blockIdx.x = 0; blockIdx.x < static_cast<unsigned>(blocks);
          ++blockIdx.x)
-      host_run_block(kBlock, [&] { tpg_slab_kernel<Ch>(p); }, smem);
+      host_run_block(kBlock, [&] { tpg_slab_kernel<Ch, kCarry>(p); }, smem);
 #else
     cudaError_t err = cudaFuncSetAttribute(
-        tpg_slab_kernel<Ch>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        tpg_slab_kernel<Ch, kCarry>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    tpg_slab_kernel<Ch><<<blocks, kBlock, smem, stream>>>(p);
+    tpg_slab_kernel<Ch, kCarry><<<blocks, kBlock, smem, stream>>>(p);
 #endif
   } else {
 #ifdef TPG_HOST_EMULATION
-    // host build: the grid runs serially, one thread after another; the
+    // host build: the grid runs serially, one thread after another (the
+    // carry layout's staging shared by a block's threads in turn); the
     // gather's warp shuffles need a block's threads at once
     (void)stream;
     for (blockIdx.x = 0; blockIdx.x < static_cast<unsigned>(blocks);
          ++blockIdx.x) {
       if (kEnc == kGather14) {
-        host_run_block(kBlock, [&] { tpg_kernel<Ch, kEnc>(p); });
+        host_run_block(kBlock, [&] { tpg_kernel<Ch, kEnc, kCarry>(p); },
+                       smem);
       } else {
+        std::vector<unsigned char> shared(smem);
+        host_block_shared = &shared;
         for (threadIdx.x = 0; threadIdx.x < kBlock; ++threadIdx.x)
-          tpg_kernel<Ch, kEnc>(p);
+          tpg_kernel<Ch, kEnc, kCarry>(p);
+        host_block_shared = nullptr;
       }
     }
 #else
-    tpg_kernel<Ch, kEnc><<<blocks, kBlock, 0, stream>>>(p);
+    if (kCarry && smem > 0) {
+      cudaError_t err = cudaFuncSetAttribute(
+          tpg_kernel<Ch, kEnc, kCarry>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+    }
+    tpg_kernel<Ch, kEnc, kCarry><<<blocks, kBlock, smem, stream>>>(p);
 #endif
   }
   return cudaGetLastError();
@@ -1065,8 +1260,8 @@ struct Fir2Front {
 
   __device__ __forceinline__ void realign(int) {}
 
-  template <int kU>
-  __device__ __forceinline__ void tick(int s_raw, int end_word, int32_t*,
+  template <int kU, class Slots>
+  __device__ __forceinline__ void tick(int s_raw, int end_word, Slots,
                                        const Params& p) {
     const size_t u = static_cast<size_t>(end_word - 1 - t0);
     int sg;
@@ -1237,11 +1432,11 @@ cudaError_t pick(bool flag, F&& f) {
 }
 
 // The fused tick (K1-K4 and their variants) of every family on encoding
-// kEnc: only the combinations the JAX package admits are instantiated
+// kEnc, with the direct store or the carry layout (kCarry): only the combinations the JAX package admits are instantiated
 // (the peak gate only with peak registers, the charge floor of the RS
 // families always on, rs_float for the RS families, the SWAR carry for
 // FIR on an int32 state).
-template <int kEnc>
+template <int kEnc, bool kCarry = false>
 cudaError_t dispatch_fused(const Params& p, const Variant& v,
                            cudaStream_t s) {
   constexpr bool kI16 = kEnc == kPlain16;
@@ -1255,10 +1450,10 @@ cudaError_t dispatch_fused(const Params& p, const Variant& v,
           if constexpr (!kI16) {
             if (v.fir_packed)
               return launch<FirPackedChannel<kPeaks && kGated, kPeaks, kAvx>,
-                            kEnc>(p, s);
+                            kEnc, kCarry>(p, s);
           }
           return launch<FirChannel<kPeaks && kGated, kPeaks, kAvx, kI16>,
-                        kEnc>(p, s);
+                        kEnc, kCarry>(p, s);
         });
       });
     }
@@ -1267,19 +1462,19 @@ cudaError_t dispatch_fused(const Params& p, const Variant& v,
         return pick(v.charge_floor, [&](auto fl) {
           return launch<ThresholdChannel<kSimpleThreshold, kGated,
                                          decltype(fl)::value, kI16, false>,
-                        kEnc>(p, s);
+                        kEnc, kCarry>(p, s);
         });
       case kAbsRS:
         return pick(v.rs_float, [&](auto rf) {
           return launch<ThresholdChannel<kAbsRS, kGated, true, kI16,
                                          decltype(rf)::value>,
-                        kEnc>(p, s);
+                        kEnc, kCarry>(p, s);
         });
       case kStandardRS:
         return pick(v.rs_float, [&](auto rf) {
           return launch<ThresholdChannel<kStandardRS, kGated, true, kI16,
                                          decltype(rf)::value>,
-                        kEnc>(p, s);
+                        kEnc, kCarry>(p, s);
         });
       default:
         return cudaErrorInvalidValue;

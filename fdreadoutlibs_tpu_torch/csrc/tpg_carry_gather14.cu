@@ -1,0 +1,11 @@
+// K4b-gather (and K3, K3b): words14 rows through the warp shuffle,
+// with the SLOT_WORD_CARRY emission layout (CarrySlots in tpg.cuh).
+// One translation unit of the kernel library: the fused tick's
+// instantiations for this encoding with the carry layout, apart from the
+// direct-store unit so both build in parallel.
+#include "tpg.cuh"
+
+cudaError_t tpg::launch_carry_gather14(const Params& p, const Variant& v,
+                                       cudaStream_t s) {
+  return dispatch_fused<kGather14, true>(p, v, s);
+}

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -65,10 +66,28 @@ def units(name: str) -> list[Path]:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """Every file the library ``name`` is built from: its units and the
+    headers under csrc/ that they include, directly or through another."""
+    seen = {p.name: p for p in units(name)}
+    todo = list(seen.values())
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC_DIR / inc
+            if inc not in seen and path.exists():
+                seen[inc] = path
+                todo.append(path)
+    return sorted(seen.values())
+
+
 def library_path(name: str) -> Path:
-    """Where the library ``name`` lives, keyed on the contents of every
-    source under csrc/ and on the flags."""
-    return keyed_path(name, CSRC_DIR.glob("*.cu*"), NVCC_FLAGS + LINK_FLAGS)
+    """Where the library ``name`` lives, keyed on the contents of its own
+    sources (:func:`sources`) and on the flags: an edit to another
+    library's unit or header rebuilds nothing here."""
+    return keyed_path(name, sources(name), NVCC_FLAGS + LINK_FLAGS)
 
 
 def compile_units(compile_cmd, sources, out_dir: Path) -> tuple[list, str]:
@@ -120,6 +139,20 @@ def build(name: str) -> Path:
     build_log[name] = log
     os.replace(tmp, out)               # atomic: readers never see a partial file
     return out
+
+
+def sass(name: str) -> str:
+    """The machine code (SASS) of every kernel of the built library
+    ``name``, as ``cuobjdump -sass`` prints it (the tool ships with the
+    CUDA toolkit, beside ``nvcc``)."""
+    tool = shutil.which("cuobjdump") or \
+        str(Path(_nvcc()).with_name("cuobjdump"))
+    res = subprocess.run([tool, "-sass", str(build(name))],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass failed for {name}:\n"
+                           f"{res.stderr}")
+    return res.stdout
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -25,7 +25,10 @@ arguments select: K2b = an int16 state (``pack_state(dtype=torch.int16)``,
 the native int16 arithmetic of ``fixedpoint.I16Fx`` on an int16 feed), K3b
 = ``fir_packed`` (the FIR family with the SWAR carry), K4b-gather =
 ``words14_gather`` and K4b-slab = ``words14_slab`` (the words14 unpack as a
-gather, or as a whole-chunk slab before the time2 tick loop).  On CPU
+gather, or as a whole-chunk slab before the time2 tick loop).  With
+:data:`SLOT_WORD_CARRY` set, the fused kernels keep a chunk's records in
+registers and shared memory and store them at the chunk's end (the emission
+layout ``pallas_tpg.SLOT_WORD_CARRY``; same outputs).  On CPU
 tensors it runs the kernel's plain version: :func:`process_window_plain`,
 which loops over ticks calling ``ops/step.py::dispatch_tick`` through the
 torch namespace (``ops/xp.py``), or :func:`process_window_twopass_plain`
@@ -57,6 +60,25 @@ from .fir import (default_taps, fir_filter, fir_hit_update, fir_iqr_update,
 from .fixedpoint import wrap_i16
 from .step import dispatch_tick
 from .xp import DTYPES, TorchXP, check_supported, make_fx
+
+# Emission record layout of the fused kernels (K1-K4 and their variants),
+# read at each launch — counterpart of ``pallas_tpg.SLOT_WORD_CARRY`` (:67),
+# which is read at trace time.  False: a close stores its record straight
+# into its slot in global memory.  True: the chunk's K x nw record words
+# ride in registers (the first ``_CARRY_SLOTS`` slots, written by a chain
+# of predicated selects) and in shared memory (the slots above) and are
+# stored once, where the chunk stores nclose (``csrc/tpg.cuh::CarrySlots``).
+# The outputs are the same bit for bit, so the plain version does not read
+# it; K5 has the direct store only, as ``_fir2_kernel``.  No entry sets it:
+# ``probes/slots_ab.py`` and the tests flip and restore it.
+SLOT_WORD_CARRY = False
+# csrc/tpg.cuh: kCarrySlots, kBlock, kMaxSlabBytes, restated so that a launch
+# the kernel would refuse raises here with the sizes in words
+# (:func:`carry_shared_bytes`); tests/test_torch_kernel_host.py holds them to
+# the C side's own ``tpg_shared_bytes``
+_CARRY_SLOTS = 4
+_BLOCK = 128
+_SHARED_MAX = 232448
 
 N_FIR_TAPS = 8
 KSTATE = NSTATE + 1 + N_FIR_TAPS           # + rs_memory_factor + FIR ring rows
@@ -617,9 +639,22 @@ def kernels_of(cfg: TPGConfig, time_packed: bool,
 
 
 def reset_launches() -> None:
-    """Zero the launch counts (total and per kernel)."""
+    """Zero the launch counts: total, per kernel with the direct store,
+    and per kernel with the carry layout (:data:`SLOT_WORD_CARRY`)."""
     process_window.launches = 0
     process_window.kernel_launches = {k: 0 for k in KERNELS}
+    process_window.carry_launches = {k: 0 for k in KERNELS}
+
+
+def carry_shared_bytes(cfg: TPGConfig, tc: int, k_slots: int,
+                       words14_slab: bool = False) -> int:
+    """Dynamic shared memory of one block under :data:`SLOT_WORD_CARRY`:
+    the staging of the slots above the register ceiling (a chunk of tc
+    ticks closes at most ceil(tc / 2) hits per channel, so no more slots
+    are carried), after K4b-slab's time2 slab."""
+    staged = max(0, min(k_slots, (tc + 1) // 2) - _CARRY_SLOTS)
+    slab = tc // 2 * _BLOCK * 4 if words14_slab else 0
+    return slab + staged * record_words(cfg) * _BLOCK * 4
 
 
 # csrc/tpg.cu::tpg_launch's C signature, and tpg_fir2_launch's: the same
@@ -627,7 +662,7 @@ def reset_launches() -> None:
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 8
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p] + [ctypes.c_int] * 9
-             + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+             + [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 _FIR2_ARGTYPES = _ARGTYPES[:-2] + [ctypes.c_int, ctypes.c_void_p] + \
     _ARGTYPES[-2:]
 
@@ -685,8 +720,19 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
     """Allocate the outputs (and K5's scratch slabs) beside ``state`` and
     call the C entry ``fn`` (``tpg_launch``, or ``tpg_fir2_launch`` when
     ``fir_twopass``) on contiguous, checked tensors, with the effective
-    options of :func:`_options`.  Returns (slots, nclose, new_state)."""
+    options of :func:`_options` and the emission layout
+    :data:`SLOT_WORD_CARRY` names now.  Returns (slots, nclose,
+    new_state)."""
     T, C = _check_window(feed, state, tc, k_slots, time_packed, packed14)
+    carry = bool(SLOT_WORD_CARRY) and not fir_twopass
+    if carry and carry_shared_bytes(cfg, tc, k_slots,
+                                    words14_slab) > _SHARED_MAX:
+        raise ValueError(
+            f"SLOT_WORD_CARRY stages min(k_slots, ceil(tc / 2)) - "
+            f"{_CARRY_SLOTS} slots per thread in shared memory: tc={tc}, "
+            f"k_slots={k_slots} need "
+            f"{carry_shared_bytes(cfg, tc, k_slots, words14_slab)} B > "
+            f"{_SHARED_MAX} B a block may use")
     taps, tap_exponent, adc_max, sigma_cap, thr_mult = _fir_args(cfg)
     n_chunks = T // tc
     nw = record_words(cfg)
@@ -711,7 +757,7 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
         int(cfg.fir_avx_semantics), cfg.threshold, cfg.accumulator_limit,
         cfg.rs_scale_factor_x10, taps, tap_exponent, adc_max, sigma_cap,
         thr_mult, int(state.dtype == torch.int16), int(bool(fir_packed)),
-        int(cfg.rs_float), *twopass, device, stream)
+        int(cfg.rs_float), int(carry), *twopass, device, stream)
     if err != 0:
         raise RuntimeError(f"tpg kernel launch failed: CUDA error {err}")
     return slots, nclose, new_state
@@ -746,11 +792,14 @@ def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                   torch.cuda.current_stream(dev).cuda_stream, fir_twopass,
                   fir_packed, words14_gather, words14_slab)
     process_window.launches += 1
+    counts = process_window.carry_launches \
+        if SLOT_WORD_CARRY and not fir_twopass \
+        else process_window.kernel_launches
     for k in kernels_of(cfg, time_packed, packed14, fir_twopass,
                         int16=state.dtype == torch.int16,
                         fir_packed=fir_packed, words14_gather=words14_gather,
                         words14_slab=words14_slab):
-        process_window.kernel_launches[k] += 1
+        counts[k] += 1
     return out
 
 
@@ -802,5 +851,6 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                          words14_slab)
 
 
-# CUDA kernel launches (never the plain path): in all, and per kernel
+# CUDA kernel launches (never the plain path): in all, per kernel, and per
+# kernel with the carry layout
 reset_launches()

@@ -1,6 +1,6 @@
 // Host stand-in for the CUDA runtime, for the CPU tests only: enough of it
-// to compile fdreadoutlibs_tpu_torch/csrc/tpg*.cu with a C++ compiler and
-// -DTPG_HOST_EMULATION (tests/test_torch_kernel_host.py).  A grid without
+// to compile fdreadoutlibs_tpu_torch/csrc/tpg*.cu and csrc/probes*.cu with a
+// C++ compiler and -DTPG_HOST_EMULATION (tests/test_torch_kernel_host.py).  A grid without
 // barriers runs serially, one thread after another; a block whose threads
 // meet at __syncthreads() or exchange values with __shfl_sync runs as that
 // many host threads (host_run_block), the barrier a real one among them,
@@ -19,6 +19,7 @@
 #include <vector>
 
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __launch_bounds__(n)
@@ -29,6 +30,7 @@ struct HostDim3 {
   unsigned x = 0, y = 0, z = 0;
 };
 inline HostDim3 blockIdx;
+inline HostDim3 blockDim;
 inline thread_local HostDim3 threadIdx;
 
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -51,6 +53,42 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
 // float ops rounded on their own (no contraction into an FMA)
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+
+// The SIMD-in-word intrinsics on two signed 16-bit halves, as per-half
+// arithmetic (the probes' packed arms).
+template <class F>
+inline unsigned host_per_half(unsigned a, unsigned b, F f) {
+  const unsigned lo = static_cast<uint16_t>(
+      f(static_cast<int16_t>(a), static_cast<int16_t>(b)));
+  const unsigned hi = static_cast<uint16_t>(
+      f(static_cast<int16_t>(a >> 16), static_cast<int16_t>(b >> 16)));
+  return lo | (hi << 16);
+}
+inline unsigned __vadd2(unsigned a, unsigned b) {
+  return host_per_half(a, b, [](int x, int y) { return x + y; });
+}
+inline unsigned __vsub2(unsigned a, unsigned b) {
+  return host_per_half(a, b, [](int x, int y) { return x - y; });
+}
+inline unsigned __vcmplts2(unsigned a, unsigned b) {
+  return host_per_half(a, b, [](int x, int y) { return x < y ? 0xFFFF : 0; });
+}
+inline unsigned __vcmpgts2(unsigned a, unsigned b) {
+  return host_per_half(a, b, [](int x, int y) { return x > y ? 0xFFFF : 0; });
+}
+inline unsigned __vmaxs2(unsigned a, unsigned b) {
+  return host_per_half(a, b, [](int x, int y) { return x > y ? x : y; });
+}
+inline unsigned __vmins2(unsigned a, unsigned b) {
+  return host_per_half(a, b, [](int x, int y) { return x < y ? x : y; });
+}
+// two of Hopper's DPX forms: max(a, b, c) and max(a + b, c) per half
+inline unsigned __vimax3_s16x2(unsigned a, unsigned b, unsigned c) {
+  return __vmaxs2(__vmaxs2(a, b), c);
+}
+inline unsigned __viaddmax_s16x2(unsigned a, unsigned b, unsigned c) {
+  return __vmaxs2(__vadd2(a, b), c);
+}
 
 // A reusable barrier for n threads; wait(m) meets m of them instead (the
 // live lanes of a warp's shuffle).

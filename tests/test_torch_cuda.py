@@ -2,7 +2,9 @@
 K2 and K3: both datapaths, all four families; K4: both packed layouts, all
 four families; K5: fir_twopass 1 and 2 on every encoding, also against
 K3, and through the words14 gather; K2b, K3b, K4b-gather, K4b-slab and
-the float running sum), and the APA app (every feed), ``StreamingIngest``, the WIB2 and
+the float running sum; the ``SLOT_WORD_CARRY`` layout on every one of those
+datapaths; the probes' kernels P1-P3), and the APA app (every feed),
+``StreamingIngest``, the WIB2 and
 ProtoWIB processors and ``run_model`` on the card against the same on the
 CPU.  Marked ``cuda``:
 each test skips where torch finds no card.  This file imports no JAX, so on
@@ -25,6 +27,9 @@ from fdreadoutlibs_tpu_torch.models import run_model
 from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, init_chanstate,
                                          seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.ingest import StreamingIngest, pack_words14
+from fdreadoutlibs_tpu_torch import probes
+from fdreadoutlibs_tpu_torch.probes import (i16_ops, roofline, slots_ab,
+                                            swar_frugal)
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor, \
     WIBFrameProcessor
 from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
@@ -399,3 +404,154 @@ def test_k5_gather_matches_plain(card, C, T, tc, fir_twopass):
         False)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cfg", VARIANT_CONFIGS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("C,T,tc,k", [(2560, 1024, 256, 4),
+                                      (208, 960, 192, 6)])
+def test_slot_word_carry_matches_plain(card, cfg, C, T, tc, k):
+    """``SLOT_WORD_CARRY`` on every datapath the flag reaches (K1-K4, K2b,
+    K3b, K4b), against the plain version and the direct store: k = 4 fills
+    the register slots, k = 6 the shared-memory staging; C = 208 leaves a
+    partly empty block and a half warp.  K5 ignores the flag."""
+    adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
+    state = tpg.pack_state(st, C, device=card)
+    padded = np.pad(adcs, ((0, 0), (0, -C % 64)), constant_values=900)
+    frames = torch.from_numpy(frame_words(padded).view(np.int32)).to(card)
+    runs = [(torch.from_numpy(adcs).to(card), state, dict(time_packed=False)),
+            (torch.from_numpy(time2_words(adcs)).to(card), state,
+             dict(time_packed=True)),
+            (frames, state, dict(time_packed=False, packed14="frames")),
+            (w14, state, dict(time_packed=False, packed14="words14")),
+            (w14, state, dict(time_packed=False, packed14="words14",
+                              words14_gather=True)),
+            (w14, state, dict(time_packed=False, packed14="words14",
+                              words14_slab=True)),
+            (torch.from_numpy(adcs.astype(np.int16)).to(card),
+             tpg.pack_state(st, C, device=card, dtype=torch.int16),
+             dict(time_packed=False))]
+    if cfg.algorithm == Algorithm.FIR:
+        runs += [(f, s0, dict(kw, fir_packed=True)) for f, s0, kw in runs
+                 if s0.dtype == torch.int32]
+    for feed, s0, kw in runs:
+        direct = tpg.process_window(feed, s0, cfg, tc=tc, k_slots=k, **kw)
+        before = dict(tpg.process_window.carry_launches)
+        with slots_ab.slot_word_carry():
+            got = tpg.process_window(feed, s0, cfg, tc=tc, k_slots=k, **kw)
+        opts = {o: kw.get(o, False) for o in ("fir_packed", "words14_gather",
+                                              "words14_slab")}
+        for name in tpg.kernels_of(cfg, kw["time_packed"],
+                                   kw.get("packed14"),
+                                   int16=s0.dtype == torch.int16, **opts):
+            assert tpg.process_window.carry_launches[name] == \
+                before[name] + 1, (name, kw)
+        want = tpg.process_window_plain(feed, s0, cfg, tc, k, **kw)
+        for g, w, d in zip(got, want, direct):
+            assert torch.equal(g, w), kw
+            assert torch.equal(g, d), kw
+        assert int(got[1].max()) > k, kw            # drops exercised
+    if cfg.algorithm == Algorithm.FIR:
+        feed, s0, kw = runs[0]
+        before = tpg.process_window.kernel_launches["K5"]
+        with slots_ab.slot_word_carry():
+            got = tpg.process_window(feed, s0, cfg, tc=tc, k_slots=k,
+                                     fir_twopass=1, **kw)
+        assert tpg.process_window.kernel_launches["K5"] == before + 1
+        for g, d in zip(got, tpg.process_window(feed, s0, cfg, tc=tc,
+                                                k_slots=k, **kw)):
+            assert torch.equal(g, d)
+
+
+def test_slot_word_carry_refuses_a_staging_too_large(card):
+    """A k whose staging cannot fit a block's shared memory raises: it
+    never takes the direct store quietly."""
+    cfg = CONFIGS[2]
+    C, T = 128, 2048
+    state = tpg.pack_state(seed_chanstate(init_chanstate(C),
+                                          np.full(C, 900), 0), C, device=card)
+    feed = torch.full((T, C), 900, dtype=torch.int32, device=card)
+    with slots_ab.slot_word_carry():
+        with pytest.raises(ValueError, match="SLOT_WORD_CARRY"):
+            tpg.process_window(feed, state, cfg, tc=1024, k_slots=1000,
+                               time_packed=False)
+        # the same k at a tc whose chunks can close fewer hits fits
+        got = tpg.process_window(feed, state, cfg, tc=256, k_slots=1000,
+                                 time_packed=False)
+    want = tpg.process_window(feed, state, cfg, tc=256, k_slots=1000,
+                              time_packed=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("ilp", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("blocks,threads", [(20, 128), (3, 40)])
+def test_issue_probe_matches_plain(card, ilp, blocks, threads):
+    """P1 at the TPG kernels' geometry and at an odd one (no whole warp)."""
+    x = roofline.chains_input(ilp, blocks * threads, card)
+    before = probes.launches["P1"]
+    got = roofline.issue_chains(x, 7, blocks, threads)
+    assert probes.launches["P1"] == before + 1
+    assert torch.equal(got, roofline.issue_plain(x, 7))
+
+
+def test_issue_probe_arms_are_checked_before_timing(card):
+    """``probe_arms`` holds every arm to the plain version at its own ilp
+    and geometry (the saturating 264 x 1024 among them) and reports the
+    error it measured."""
+    before = probes.launches["P1"]
+    out = roofline.probe_arms(card, iters=(2_000, 12_000), trials=3)
+    assert set(out["arms"]) == {a[0] for a in roofline.ARMS}
+    for name, arm in out["arms"].items():
+        assert arm["max_abs_err"] == 0 and arm["plain_ms"] > 0, name
+        assert arm["check_iters"] == roofline.CHECK_ITERS
+    # per arm: the check, two warm-ups and three trials at two counts
+    assert probes.launches["P1"] == before + 9 * len(roofline.ARMS)
+
+
+@pytest.mark.parametrize("name", i16_ops.OP_NAMES)
+def test_i16_op_matches_plain(card, name):
+    """P2's one-op kernels, the script's inputs and a full-range draw."""
+    for seed in (None, 5):
+        a, b = i16_ops.op_inputs(name, card, seed)
+        before = probes.launches["P2-ops"]
+        got = i16_ops.one_op(name, a, b)
+        assert probes.launches["P2-ops"] == before + 1
+        assert torch.equal(got, i16_ops.op_plain(name, a, b)), seed
+
+
+@pytest.mark.parametrize("arm", i16_ops.ARMS)
+@pytest.mark.parametrize("blocks,per_block", [(20, 128), (3, 80)])
+def test_i16_mix_matches_plain(card, arm, blocks, per_block):
+    feeds = i16_ops.mix_inputs(blocks * per_block, card)
+    before = probes.launches["P2-mix"]
+    got = i16_ops.mix(feeds[arm], 100, arm, blocks)
+    assert probes.launches["P2-mix"] == before + 1
+    assert torch.equal(got, i16_ops.mix_plain(feeds[arm], 100, arm))
+
+
+@pytest.mark.parametrize("C,T", [(2560, 512), (200, 200)])
+def test_frugal_probe_matches_plain(card, C, T):
+    """P3: every arm against its plain version, every packed arm equal to
+    unpacked after un-biasing; T = 200 leaves a tail after the 16-tick
+    groups, C = 200 a partly empty block."""
+    inputs = swar_frugal.arm_inputs(swar_frugal.make_adcs(T, C, seed=C), card)
+    before = dict(probes.launches)
+    checked = swar_frugal.check_parity(inputs)
+    assert probes.launches["P3-unpacked"] == before["P3-unpacked"] + 1
+    assert probes.launches["P3-packed"] == before["P3-packed"] + 3
+    assert {a: c["max_abs_err"] for a, c in checked.items()} == \
+        {a: 0 for a in swar_frugal.ARMS}
+    for arm in swar_frugal.ARMS[2:]:
+        got = swar_frugal.frugal(*inputs[arm], arm)
+        want = swar_frugal.packed_plain(*inputs[arm])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_probe_entries_refuse_cpu_routes(card):
+    """A kernel entry given tensors on two devices raises."""
+    x = roofline.chains_input(1, 128, card)
+    with pytest.raises(ValueError):
+        roofline.issue_launch(probes.library(), x, 1, 2, 128)   # wrong n
+    a, b = i16_ops.op_inputs("add", card)
+    with pytest.raises(ValueError):
+        i16_ops.one_op("add", a, b.cpu())

@@ -1,5 +1,7 @@
-"""The CUDA source itself on the CPU: ``csrc/tpg*.cu`` compiled with the
-host C++ compiler against a stand-in CUDA runtime
+"""The CUDA source itself on the CPU: ``csrc/tpg*.cu`` (the
+``SLOT_WORD_CARRY`` units ``csrc/tpg_carry_*.cu`` among them) and
+``csrc/probes*.cu`` compiled with the host C++ compiler against a stand-in
+CUDA runtime
 (``tests/cuda_host/cuda_runtime.h``, ``-DTPG_HOST_EMULATION``: a grid
 without barriers runs serially; the blocks of K5, K4b-slab and K4b-gather
 run as host threads that meet at a real barrier or shuffle), called
@@ -9,7 +11,10 @@ plain, K4 frame words and words14 rows, K4b-gather and K4b-slab on words14
 rows) and family (K3 FIR, K3b with the SWAR carry, the float running sum),
 the int16 state (K2b), and K5 (fir_twopass 1 and 2, also through the
 gather) for the FIR variants, at a shape with whole 16-tick groups and one
-with a ragged chunk tail or a partly empty block and warp.  What only the
+with a ragged chunk tail or a partly empty block and warp.  The carry
+layout runs every encoding and variant with the flag flipped, below, at and
+above its register ceiling; the probes' kernels (P1-P3) run through their
+modules' own marshalling against their plain versions.  What only the
 card shows (the build for sm_90a, scheduling, timing) is
 ``tests/test_torch_cuda.py``'s and ``chip_smoke.py``'s."""
 
@@ -26,6 +31,7 @@ import torch
 from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, _build,
                                          init_chanstate, seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.ingest import pack_words14
+from fdreadoutlibs_tpu_torch.probes import i16_ops, roofline, swar_frugal
 from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
                                              time2_words, tpg_stream)
 
@@ -48,24 +54,41 @@ CONFIGS = {
 }
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The kernel library's translation units compiled with g++ at once,
-    as ``ops/_build.py`` compiles them with nvcc, and linked."""
+def _host_build(name, out):
+    """The translation units of kernel library ``name`` compiled with g++
+    at once, as ``ops/_build.py`` compiles them with nvcc, and linked."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
-    out = tmp_path_factory.mktemp("tpg_host")
     objs, _ = _build.compile_units(
         lambda src, obj: [cxx, "-std=c++17", "-O1", "-fPIC", "-pthread",
                           "-x", "c++", "-DTPG_HOST_EMULATION", f"-I{STUB}",
                           "-c", "-o", str(obj), str(src)],
-        _build.units("tpg"), out)
-    lib = out / "libtpg_host.so"
+        _build.units(name), out)
+    lib = out / f"lib{name}_host.so"
     res = subprocess.run([cxx, "-shared", "-pthread", "-o", str(lib),
                           *map(str, objs)], capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return _host_build("tpg", tmp_path_factory.mktemp("tpg_host"))
+
+
+@pytest.fixture(scope="module")
+def host_probes(tmp_path_factory):
+    return _host_build("probes", tmp_path_factory.mktemp("probes_host"))
+
+
+@pytest.fixture
+def carry():
+    """``tpg.SLOT_WORD_CARRY`` flipped for one test and restored."""
+    orig = tpg.SLOT_WORD_CARRY
+    tpg.SLOT_WORD_CARRY = True
+    yield
+    tpg.SLOT_WORD_CARRY = orig
 
 
 @pytest.fixture(scope="module")
@@ -203,3 +226,153 @@ def test_fir2_kernel_gather_matches_plain(host_fir2, fir_twopass):
                           words14_gather=True)
         for g, w in zip(got, want):
             assert torch.equal(g, w), C
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_slot_word_carry_source_matches_plain(host_kernel, carry, name):
+    """The ``SLOT_WORD_CARRY`` units on every encoding and variant against
+    the plain version (which the layout does not change): k = 2 within the
+    register ceiling with drops, k = 5 and 6 above it (the shared-memory
+    staging; the burst channel closes k + 2 hits in a chunk), tc = 200 a
+    ragged chunk tail, C = 208 a partly empty block and a half warp."""
+    cfg = CONFIGS[name]
+    is_fir = cfg.algorithm == Algorithm.FIR
+    for C, T, tc, k in [(256, 320, 64, 2), (208, 400, 200, 5),
+                        (208, 384, 192, 6)]:
+        feeds, state = _inputs(cfg, C, T, tc, k)
+        adcs, w14 = feeds[0][0], feeds[3][0]
+        want = tpg.process_window_plain(adcs, state, cfg, tc, k, False)
+        assert int(want[1].max()) > k
+        runs = [(f, state, dict(time_packed=t2, packed14=p14))
+                for f, t2, p14 in feeds]
+        runs.append((w14, state, dict(time_packed=False, packed14="words14",
+                                      words14_gather=True)))
+        if tc % 16 == 0:
+            runs.append((w14, state, dict(time_packed=False,
+                                          packed14="words14",
+                                          words14_slab=True)))
+        if is_fir:
+            runs += [(f, s0, dict(kw, fir_packed=True)) for f, s0, kw in runs]
+        for feed, s0, kw in runs:
+            got = tpg._launch(host_kernel, feed, s0, cfg, tc, k,
+                              kw.pop("time_packed"), kw.pop("packed14"), 0,
+                              None, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (C, k, kw)
+        s16 = state.to(torch.int16)
+        want = tpg.process_window_plain(adcs.to(torch.int16), s16, cfg, tc,
+                                        k, False)
+        got = tpg._launch(host_kernel, adcs.to(torch.int16), s16, cfg, tc, k,
+                          False, None, 0, None)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (C, k, "int16")
+
+
+def test_slot_word_carry_any_k(host_kernel, carry):
+    """A k far above what a chunk can close carries ceil(tc / 2) slots and
+    leaves the others zero; a staging that cannot fit a block's shared
+    memory raises instead of taking the direct store."""
+    cfg = CONFIGS["AbsRS"]
+    C, T, tc = 64, 128, 64
+    feeds, state = _inputs(cfg, C, T, tc, 3)
+    for k in (1, 3, 4, 1000):
+        want = tpg.process_window_plain(feeds[0][0], state, cfg, tc, k,
+                                        False)
+        got = tpg._launch(host_kernel, feeds[0][0], state, cfg, tc, k, False,
+                          None, 0, None)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), k
+    assert tpg.carry_shared_bytes(cfg, 64, 1000) == 28 * 3 * 128 * 4
+    big = torch.zeros((1024, C), dtype=torch.int32)
+    with pytest.raises(ValueError, match="SLOT_WORD_CARRY"):
+        tpg._launch(host_kernel, big, state, cfg, 1024, 1000, False, None, 0,
+                    None)
+
+
+@pytest.mark.parametrize("name", ["AbsRS", "FIR"])
+def test_carry_shared_bytes_matches_source(host_lib, name):
+    """The wrapper's refusal and the launch's own are one rule:
+    ``tpg.carry_shared_bytes`` and ``tpg._SHARED_MAX`` against the C entry
+    built from ``csrc/tpg.cuh``'s constants (record words 3 and 2), below,
+    at and above the register ceiling, with and without the slab."""
+    cfg = CONFIGS[name]
+    fn = host_lib.tpg_shared_bytes
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_longlong
+    most = ctypes.c_int(0)
+    for tc in (2, 31, 32, 200, 256, 512, 2048):
+        for k in (1, 3, 4, 5, 17, 155, 156, 1000, 100000):
+            for slab in (False, True):
+                want = fn(tpg.record_words(cfg), tc, k, int(slab), 1,
+                          ctypes.byref(most))
+                assert tpg.carry_shared_bytes(cfg, tc, k, slab) == want, \
+                    (tc, k, slab)
+    assert most.value == tpg._SHARED_MAX
+    # without the carry layout only the slab is left
+    assert fn(3, 256, 1000, 1, 0, None) == 128 * tpg._BLOCK * 4
+    assert fn(3, 256, 1000, 0, 0, None) == 0
+
+
+@pytest.mark.parametrize("ilp", [1, 2, 4, 8, 16])
+def test_issue_probe_source_matches_plain(host_probes, ilp):
+    """P1's kernel on the script's arange chains and on seeded full-range
+    ones; 3 blocks of 40 threads is no whole warp."""
+    for blocks, threads, n_iters in [(2, 128, 3), (3, 40, 5)]:
+        n = blocks * threads
+        rng = np.random.default_rng(ilp)
+        for x in (roofline.chains_input(ilp, n, "cpu"),
+                  torch.from_numpy(rng.integers(
+                      -2**31, 2**31, size=(ilp, n)).astype(np.int32))):
+            got = roofline.issue_launch(host_probes, x, n_iters, blocks,
+                                        threads)
+            assert torch.equal(got, roofline.issue_plain(x, n_iters))
+
+
+@pytest.mark.parametrize("name", i16_ops.OP_NAMES)
+def test_i16_op_source_matches_plain(host_probes, name):
+    """P2's one-op kernels on the script's inputs and on a seeded draw over
+    the whole int16 range (wraps, the sign masks, -32768)."""
+    for seed in (None, 5):
+        a, b = i16_ops.op_inputs(name, "cpu", seed)
+        got = i16_ops.op_launch(host_probes, name, a, b)
+        assert torch.equal(got, i16_ops.op_plain(name, a, b)), seed
+
+
+@pytest.mark.parametrize("arm", i16_ops.ARMS)
+def test_i16_mix_source_matches_plain(host_probes, arm):
+    """P2's mix: every arm against its plain version; the packed arm's
+    words are the int16 arm's elements."""
+    blocks, per_block, n_iters = 3, 80, 50
+    feeds = i16_ops.mix_inputs(blocks * per_block)
+    a = feeds[arm]
+    got = i16_ops.mix_launch(host_probes, a, n_iters, arm, blocks,
+                             a.shape[1] // blocks)
+    assert torch.equal(got, i16_ops.mix_plain(a, n_iters, arm))
+    if arm == "packed":
+        i16 = i16_ops.mix_launch(host_probes, feeds["i16"], n_iters, "i16",
+                                 blocks, per_block)
+        assert torch.equal(i16.view(torch.int32), got)
+
+
+@pytest.mark.parametrize("arm", swar_frugal.ARMS)
+def test_frugal_probe_source_matches_plain(host_probes, arm):
+    """P3's kernels: T = 200 leaves an 8-tick tail after the 16-tick
+    groups, 200 channels a partly empty block; every packed arm equals
+    unpacked after un-biasing and its plain version."""
+    inputs = swar_frugal.arm_inputs(swar_frugal.make_adcs(200, 200, seed=3),
+                                    "cpu")
+    adc, m0, a0 = inputs[arm]
+    got = swar_frugal.frugal_launch(host_probes, adc, m0, a0, arm)
+    want = swar_frugal.frugal(adc, m0, a0, arm)           # the plain version
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[0], m0)                    # medians moved
+    mu, au = swar_frugal.unpacked_plain(*inputs["unpacked"])
+    if arm != "unpacked":
+        assert torch.equal(swar_frugal.unpack_pairs(got[0], swar_frugal.BA),
+                           mu)
+        assert torch.equal(swar_frugal.unpack_pairs(got[1], swar_frugal.BC),
+                           au)
+    # a feed wider than the state: the stride is the feed's
+    wide = torch.nn.functional.pad(adc, (0, 5)).contiguous()
+    again = swar_frugal.frugal_launch(host_probes, wide, m0, a0, arm)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])

@@ -13,7 +13,7 @@ SCRIPT = r'''
 import importlib, importlib.abc, pkgutil, sys
 
 def blocked(name):
-    return (name.split(".")[0] in ("jax", "jaxlib")
+    return (name.split(".")[0] in ("jax", "jaxlib", "scripts")
             or name == "fdreadoutlibs_tpu"
             or name.startswith("fdreadoutlibs_tpu."))
 
@@ -86,6 +86,24 @@ fir = TPGConfig.from_raw("FIR", threshold=5, track_peaks=False)
 hits = [run_model(adcs, fir, b, device="cpu")[0]
         for b in ("reference", "scan", "pallas")]
 assert len(hits[0]) > 0 and all(np.array_equal(h, hits[0]) for h in hits)
+
+# the probes' entries on CPU tensors run their plain versions
+from fdreadoutlibs_tpu_torch import probes
+from fdreadoutlibs_tpu_torch.probes import (i16_ops, roofline, slots_ab,
+                                            swar_frugal)
+x = roofline.chains_input(2, 128, "cpu")
+assert torch.equal(roofline.issue_chains(x, 2, 1, 128),
+                   roofline.issue_plain(x, 2))
+a, b = i16_ops.op_inputs("select_mask", "cpu")
+assert i16_ops.one_op("select_mask", a, b).dtype == torch.int16
+feeds = i16_ops.mix_inputs(128)
+assert torch.equal(i16_ops.mix(feeds["packed"], 4, "packed", 1),
+                   i16_ops.mix(feeds["i16"], 4, "i16", 1).view(torch.int32))
+swar_frugal.check_parity(swar_frugal.arm_inputs(
+    swar_frugal.make_adcs(32, 64), "cpu"))
+assert slots_ab.run("cpu", C=64, T=128, families=("AbsRS",))[
+    "AbsRS plain"]["hits"] > 0
+assert not any(probes.launches.values())
 assert not [k for k in sys.modules if blocked(k)]
 
 if not torch.cuda.is_available():
@@ -141,6 +159,19 @@ if not torch.cuda.is_available():
     else:
         raise AssertionError("process_window took a meta tensor")
     assert tpg.process_window.launches == 0
+    for mod in (roofline, i16_ops, swar_frugal, slots_ab):
+        try:      # a probe's entry point never carries on without a card
+            mod.main([])
+        except RuntimeError as e:
+            assert "preflight" in str(e), e
+        else:
+            raise AssertionError(f"{mod.__name__} ran without a card")
+    try:
+        roofline.probe_arms()
+    except (RuntimeError, AssertionError):
+        pass
+    else:
+        raise AssertionError("probe_arms ran without a card")
 print("NOJAX OK")
 '''
 
@@ -173,14 +204,17 @@ def _import_roots(path: Path) -> set:
 
 
 def test_no_port_module_imports_the_jax_package():
-    """No module of the port imports ``fdreadoutlibs_tpu`` (nor jax): the
-    host modules it needs are its own copies."""
+    """No module of the port imports ``fdreadoutlibs_tpu`` (nor jax, nor the
+    JAX package's ``scripts``): the host modules it needs are its own
+    copies."""
     paths = sorted((ROOT / "fdreadoutlibs_tpu_torch").rglob("*.py"))
-    assert len(paths) > 30
+    assert len(paths) > 35
+    assert {"roofline.py", "i16_ops.py", "swar_frugal.py", "slots_ab.py",
+            "preflight.py"} <= {p.name for p in paths}
     for path in paths:
         roots = _import_roots(path)
-        assert not roots & {"fdreadoutlibs_tpu", "jax", "jaxlib"}, \
-            (path, roots)
+        assert not roots & {"fdreadoutlibs_tpu", "jax", "jaxlib",
+                            "scripts"}, (path, roots)
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -194,7 +228,7 @@ def test_chip_smoke_imports_only_the_port():
               if isinstance(n, ast.ImportFrom) and n.module]
     roots = {n.split(".")[0] for n in names}
     assert "fdreadoutlibs_tpu_torch" in roots
-    assert not roots & {"fdreadoutlibs_tpu", "jax", "jaxlib"}, roots
+    assert not roots & {"fdreadoutlibs_tpu", "jax", "jaxlib", "scripts"}, roots
 
 
 def test_chip_smoke_fails_without_card():
