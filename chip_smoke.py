@@ -9,8 +9,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    ``nvidia-smi --query-gpu=name,power.limit``;
 2. build   — compiles the kernel library's translation units
    (``fdreadoutlibs_tpu_torch/csrc/tpg*.cu``, one ``nvcc`` each, all at
-   once) and summarizes ``ptxas -v`` (registers, stack, spills; K3's and
-   K3b's FIR kernels side by side);
+   once) and summarizes ``ptxas -v`` (registers, stack, spills; the FIR
+   kernels side by side: the pipeline's K3, K5 and staged arm, K3b and
+   FirChannel on packed words);
 3. kernel  — the hand-written kernel against its plain PyTorch version on
    the card at T=8192 ticks x 2560 channels (tc=256, K=4): K1 (time2
    datapath) and K2 (plain-sample datapath) for SimpleThreshold, AbsRS and
@@ -85,8 +86,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 Phase 2 also builds the port's native host codecs (``native/``) and fails
 if they do not load, so no host stage is timed on the numpy fallback.
 Phase 3 also holds K5 (fir_twopass 1 and 2, peaks off and on, plain and
-time2 datapaths) bit-equal to K3 on the same inputs, and to K5's plain
-version once per schedule, and times both in the same call.  It then holds
+time2 datapaths) bit-equal to K3 and to the plain result K3 was held to on
+the same inputs, and to K5's own plain version once per schedule, and
+times both in the same call (K3 on plain and time2 rows and K5 are the FIR
+pipeline of ``csrc/tpg.cuh``; phase 8 reads each of its warps' group loops
+in the machine code and gives the chain floor beside the time).  It then holds
 the variants of the fused tick on the same inputs, each timed beside the
 kernel it varies and held once to its own plain version: K3b
 (``fir_packed``) on K3's plain (peaks off and on), time2 and words14 feeds,
@@ -95,7 +99,9 @@ plain result; K4b-slab (four families) and K4b-gather (AbsRS, FIR) on K4's
 words14 rows, equal to K4's plain result.
 
 The last lines are the card's name and power limit, one JSON object with
-the kernels (each with its launches on the main paths, its error against
+the kernels (each with the launches of its kernel function on the main
+paths, ``tpg.kernel_of``, and beside them ``datapath_launches``, every
+launch whose datapath holds it, ``tpg.kernels_of``; its error against
 the plain version, its time, the plain version's, and its bound: the
 larger of the bytes it must move over 3.35 TB/s and its int32 operations
 over the int32 rate P1 sustained in this run, never less than 132 SMs x 64
@@ -125,8 +131,8 @@ from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, _build,
                                          seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.ingest import (compact_on_device,
                                                 unpack_compact)
-from fdreadoutlibs_tpu_torch.probes import (i16_ops, roofline, slots_ab,
-                                            swar_frugal)
+from fdreadoutlibs_tpu_torch.probes import (fir_pipe, i16_ops, roofline,
+                                            slots_ab, swar_frugal)
 from fdreadoutlibs_tpu_torch.probes.roofline import (DECODE_OPS, INT32_LANES,
                                                      OPS_PER_TICK)
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor, \
@@ -199,6 +205,18 @@ SOURCE = "fdreadoutlibs_tpu_torch/csrc/tpg.cuh"
 HBM_BYTES_PER_S = 3.35e12
 
 
+# launches of each kernel function on the main paths (tpg.kernel_of: K2 the
+# threshold families on plain samples, K3 the FIR fused tick), added up
+# right after each run that drives a main path
+function_launches = {k: 0 for k in KERNELS}
+
+
+def tally() -> None:
+    """Add the kernel functions' launches of the run just driven."""
+    for k, n in tpg.process_window.function_launches.items():
+        function_launches[k] += n
+
+
 def phase(name):
     class _Phase:
         def __enter__(self):
@@ -257,19 +275,37 @@ def ptxas_kernels(log: str) -> dict:
     return out
 
 
+# csrc/tpg.cuh::fir_pipe_kernel's modes (its second template argument)
+PIPE_MODES = {"0": "staged arm", "1": "K3", "2": "K5 twopass 1",
+              "3": "K5 twopass 2"}
+
+
 def fir_registers(kernels: dict) -> dict:
-    """K3's and K3b's fused-tick kernels on the int32 datapaths: {"K3" or
-    "K3b": {"peaks" or "no peaks": (min regs, max regs, max spill B)}}."""
-    pat = re.compile(r"tpg_(?:slab_)?kernelINS_(?:10FirChannel|"
-                     r"16FirPackedChannel)ILb(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?")
+    """The FIR kernels on an int32 state, direct store: the pipeline's
+    (K3 on plain and time2 rows, K5 on every encoding, the staged arm), K3b
+    and FirChannel's fused tick on packed words (K4's FIR): {kernel:
+    {"peaks" or "no peaks": (min regs, max regs, max spill B)}}."""
+    fused = re.compile(r"tpg_(?:slab_)?kernelINS_(?:10FirChannel|"
+                       r"16FirPackedChannel)ILb(\d)ELb(\d)ELb(\d)E"
+                       r"(?:Lb(\d)E)?")
+    pipe = re.compile(r"fir_pipe_kernelILi\d+ELi(\d)ELb\dELb(\d)ELb\dE"
+                      r"Lb(\d)E")
     out = {}
     for name, (regs, spill) in kernels.items():
-        m = pat.search(name)
-        # int16 is K2b's; the carry layout's units are reported apart
-        if m is None or m.group(4) == "1" or "tpg_carry_" in name:
+        m, mp = fused.search(name), pipe.search(name)
+        if mp is not None:
+            kern = PIPE_MODES[mp.group(1)] + (" carry" if mp.group(3) == "1"
+                                              else "")
+            peaks = mp.group(2)
+        elif m is not None and m.group(4) != "1" and \
+                "tpg_carry_" not in name:
+            # int16 is K2b's; the carry layout's units are reported apart
+            kern = "K3b" if "FirPackedChannel" in name else \
+                "FirChannel (FIR on packed words)"
+            peaks = m.group(2)
+        else:
             continue
-        kern = "K3b" if "FirPackedChannel" in name else "K3"
-        key = "peaks" if m.group(2) == "1" else "no peaks"
+        key = "peaks" if peaks == "1" else "no peaks"
         lo, hi, sp = out.setdefault(kern, {}).get(key, (999, 0, 0))
         out[kern][key] = (min(lo, regs), max(hi, regs), max(sp, spill))
     return out
@@ -437,7 +473,7 @@ def kernel_vs_plain(dev):
             plain[label] = (a, cfg, state, want)
             case_ms[label] = ms
         if kern == "K3":
-            k3[label] = (feed, state, cfg, time2, got, ms)
+            k3[label] = (feed, state, cfg, time2, got, ms, want)
         print(f"  {kern} {label}: T={T_APA} x {C_APA} ch bit-equal ({what}); "
               f"kernel {ms:.4f} ms/batch"
               + (f", plain {plain_ms:.1f} ms/batch" if plain_ms else
@@ -488,11 +524,13 @@ def kernel_vs_plain(dev):
                    case=(run, want))
             k4[label] = (feed, ms)
 
-    # K5: the two-pass FIR schedule on K3's inputs, held to K3's result in
-    # every case and to its own plain version once per schedule (the
-    # plain datapath without peaks), both timed in this call
+    # K5: the two-pass FIR schedule on K3's inputs, held to K3's result and
+    # to the plain result K3 was held to in every case, and to its own plain
+    # version once per schedule (the plain datapath without peaks), both
+    # timed in this call
     for lift in (1, 2):
-        for src, (feed, state, cfg, time2, want_k3, k3_ms) in k3.items():
+        for src, (feed, state, cfg, time2, want_k3, k3_ms,
+                  want_plain) in k3.items():
             label = f"{src} twopass {lift}"
 
             def run(feed=feed, state=state, cfg=cfg, time2=time2,
@@ -501,7 +539,8 @@ def kernel_vs_plain(dev):
                                          fir_twopass=lift)
             got = run()
             torch.cuda.synchronize()
-            err = check_equal(f"{label} vs K3", got, want_k3)
+            err = max(check_equal(f"{label} vs K3", got, want_k3),
+                      check_equal(f"{label} vs K3's plain", got, want_plain))
             plain_ms = None
             if src == "FIR plain":
                 t0 = time.perf_counter()
@@ -512,7 +551,7 @@ def kernel_vs_plain(dev):
                 err = max(err, check_equal(label, got, want))
             what = check_strong(label, got)
             ms = time_kernel(run, 20, flush)
-            print(f"  K5 {label}: bit-equal to K3"
+            print(f"  K5 {label}: bit-equal to K3 and its plain result"
                   + (" and to K5's plain version" if plain_ms else "")
                   + f" ({what}); kernel {ms:.4f} ms/batch, K3 {k3_ms:.4f} "
                   "ms/batch in this call"
@@ -565,7 +604,7 @@ def variant_kernels(dev, plain, case_ms, k3, k4, flush, record, reported):
     held to its own plain version once and timed beside the kernel it
     varies."""
     for src in ("FIR plain", "FIR plain peaks", "FIR time2"):
-        feed, state, cfg, time2, want_k3, k3_ms = k3[src]
+        feed, state, cfg, time2, want_k3, k3_ms, _ = k3[src]
         check_variant(
             "K3b", f"{src} fir_packed",
             lambda feed=feed, state=state, cfg=cfg, time2=time2:
@@ -717,6 +756,7 @@ def apa_slice(dev) -> dict:
         app.flush()
         wall = time.perf_counter() - t0
         launches = dict(tpg.process_window.kernel_launches)
+        tally()
         info = app.get_info()
         lat = app.latency_info(frames_per_batch=FRAMES)
         rtf = data_seconds / wall
@@ -849,6 +889,7 @@ def wib2_slice(time2: bool, batches, checked, plain: list, dev):
             n_tps += sum(len(x) for x in s.drain())
     wall = time.perf_counter() - t_steady
     launches = dict(tpg.process_window.kernel_launches)
+    tally()
     wall_all = time.perf_counter() - t_all
     n_b = len(batches)
     want = {k: 0 for k in KERNELS}
@@ -1046,6 +1087,7 @@ def protowib_run(label: str, time2: bool, twopass: int, batches, checked,
                                 for p in procs]
         wall = time.perf_counter() - t_steady
         launches = dict(tpg.process_window.kernel_launches)
+        tally()
         wall_all = time.perf_counter() - t_all
         n_launch = len(batches) * PW_LINKS * len(PW_PLANES)
         want = {k: 0 for k in KERNELS}
@@ -1227,6 +1269,7 @@ def kernel_entries(dev) -> dict:
             if b < N_CHECKED:
                 fetched.append(got)
         launches = dict(tpg.process_window.kernel_launches)
+        tally()
         want = {k: n * ENTRY_WINDOWS if k in per_window else 0
                 for k, n in {**launches, **per_window}.items()}
         if launches != want:
@@ -1275,10 +1318,13 @@ def carry_registers(kernels: dict) -> dict:
     fam = {"ThresholdChannelILi0": "SimpleThreshold",
            "ThresholdChannelILi1": "AbsRS",
            "ThresholdChannelILi2": "StandardRS", "10FirChannel": "FIR",
+           "fir_pipe_kernel": "FIR pipeline (K3)",
            "16FirPackedChannel": "FIR fir_packed"}
     out = {}
     for name, (regs, spill) in kernels.items():
-        if "fir2_kernel" in name:
+        # K5 and the staged arm have the direct store only
+        if "fir_pipe_kernel" in name and \
+                not re.search(r"fir_pipe_kernelILi\d+ELi1E", name):
             continue
         arm = "carry" if "tpg_carry_" in name else "direct"
         for pat, family in fam.items():
@@ -1296,6 +1342,33 @@ def carry_registers(kernels: dict) -> dict:
 # add) and per channel and tick of P3's chain (sub, clip as min and max, add,
 # two compares, three selects)
 MIX_OPS, FRUGAL_OPS = 5, 9
+
+
+def pipeline_rows(kernels: dict, summary: dict, mhz: float) -> dict:
+    """The FIR pipeline's warps (phase 8): each group loop's machine code,
+    its longest chain of register dependences per tick, and the time that
+    chain alone takes at the dependent-op latency P1 measured (the chain
+    floor).  Returns the extra keys of the K3 and K5 rows, with their
+    cycles per tick per thread (``roofline.summarize``)."""
+    pipe = fir_pipe.pipe_sass(_build.sass("tpg"))
+    floors = fir_pipe.chain_floor_ms(pipe, summary["tpg_cycles_per_dep_op"],
+                                     mhz)
+    for label, roles in pipe.items():
+        print(f"  FIR pipeline {label}: chain floor {floors[label]:.4f} ms; "
+              "group loop (16 ticks) per warp:",
+              json.dumps({role: {"insns": r["insns"],
+                                 "chain_per_tick": r["chain_per_tick"]}
+                          for role, r in roles.items()}))
+    out = {}
+    for k, label in (("K3", "K3"), ("K5", "K5 twopass 2")):
+        r = summary["kernels"][f"{k} ({kernels[k]['timed']})"]
+        out[k] = {"cycles_per_tick": r["cycles_per_tick_per_thread"],
+                  "chain_floor_ms": floors[label],
+                  "group_loop_insns": {role: x["insns"]
+                                       for role, x in pipe[label].items()},
+                  "chain_per_tick": {role: x["chain_per_tick"]
+                                     for role, x in pipe[label].items()}}
+    return out
 
 
 def probes_phase(dev, kernels: dict):
@@ -1345,6 +1418,7 @@ def probes_phase(dev, kernels: dict):
               f"thread for {r['ops_per_tick']} ops = "
               f"{r['dep_ops_per_tick_at_probe_latency']:.1f} dependent ops "
               "at the probe's latency")
+    pipe_rows = pipeline_rows(kernels, summary, mhz)
     print(f"  P1 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -1503,7 +1577,7 @@ def probes_phase(dev, kernels: dict):
             "fdreadoutlibs_tpu/ops/pallas_tpg.py:67", counts[f"carry {k}"],
             err, carry_ms, kernels[k]["plain_ms"], kernels[k]["work"], varies=k,
             varies_ms_same_inputs=direct_ms))
-    return rows, ceiling
+    return rows, ceiling, pipe_rows
 
 
 def main() -> int:
@@ -1532,8 +1606,9 @@ def main() -> int:
             _build.load(lib_name)
         if "tpg" in _build.build_log:
             regs = ptxas_kernels(_build.build_log["tpg"])
-            print("  ptxas K3 vs K3b (registers min, max, spill stores B):",
-                  json.dumps(fir_registers(regs)))
+            print("  ptxas FIR kernels: the pipeline (K3, K5, the staged "
+                  "arm), K3b, FirChannel (registers min, max, spill stores "
+                  "B):", json.dumps(fir_registers(regs)))
             print("  ptxas direct store vs SLOT_WORD_CARRY (registers min, "
                   "max):", json.dumps(carry_registers(regs)))
         # the host codecs timed below must be the native library's
@@ -1575,11 +1650,14 @@ def main() -> int:
         entries = kernel_entries(dev)
 
     with phase("8 probes"):
-        probe_rows, ceiling = probes_phase(dev, kernels)
+        probe_rows, ceiling, pipe_rows = probes_phase(dev, kernels)
 
     # launches on the main paths: the APA app's feeds, the WIB2 and the
-    # ProtoWIB processors' runs, the kernel entries
-    launches = {
+    # ProtoWIB processors' runs, the kernel entries.  A row counts its
+    # kernel function's launches (tally); the launches of every kernel on
+    # a launch's datapath (tpg.kernels_of: a FIR launch on plain samples is
+    # K2's datapath and K3's family) stand beside them
+    datapath = {
         "K1": app_launches["time2"],
         "K2": app_launches["packed"] + packed["K2"] + pw["K2"]
         + entries["K2"],
@@ -1587,19 +1665,22 @@ def main() -> int:
         "K4": app_launches["fused"] + app_launches["words14"],
         "K5": pw["K5"],
         **{k: entries[k] for k in ("K2b", "K3b", "K4b-slab", "K4b-gather")}}
+    print("  launches on the main paths, per kernel function:",
+          json.dumps(function_launches), "per datapath:", json.dumps(datapath))
     rows = []
     for k in KERNELS:
         bound_ms, bound_by = bound(kernels[k]["work"], sm_mhz, ceiling)
         row = {"name": f"tpg {k} ({kernels[k]['timed']})", "route": "cuda",
                "source": SOURCE, "replaces": REPLACES[k],
-               "launches": launches[k],
+               "launches": function_launches[k],
                "max_abs_err": kernels[k]["max_abs_err"],
                "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None}
+               "library_ms": None, "datapath_launches": datapath[k],
+               **pipe_rows.get(k, {})}
         if kernels[k].get("base"):
             row["varies"], row["varies_ms_same_inputs"] = kernels[k]["base"]
-        if launches[k] <= 0:
+        if function_launches[k] <= 0:
             raise AssertionError(f"{k} was not launched on a main path")
         rows.append(row)
     print(smi)

@@ -2,7 +2,7 @@
 // kernels are in tpg.cuh; each tpg_<encoding>.cu instantiates them for one
 // input encoding (tpg_int16.cu for the int16 state, tpg_fir2_*.cu for K5),
 // so the units build in parallel and link into one library
-// (ops/_build.py).
+// (ops/_build.py; tpg_fir_staged.cu the pipeline's staged arm).
 #include "tpg.cuh"
 
 namespace {
@@ -133,10 +133,9 @@ extern "C" int tpg_launch(const void* feed, int feed_stride, int encoding,
 // int32 state only, without fir_packed or the slab; `family`,
 // `charge_floor`, `rs_float` and `slot_word_carry` are taken for a common
 // argument list: the two-pass schedule has the direct store only, as
-// _fir2_kernel never reads SLOT_WORD_CARRY).
-// `lift` selects fir_twopass=2.  `scratch` holds the slabs,
-// (tc + 8) x n_channels int32 each: 4, + 1 with track_peaks, + 2 (+ 1 with
-// track_peaks) with lift.
+// _fir2_kernel never reads SLOT_WORD_CARRY).  `lift` selects
+// fir_twopass=2.  Its slabs are the pipeline's shared-memory ring: it takes
+// no scratch.
 extern "C" int tpg_fir2_launch(
     const void* feed, int feed_stride, int encoding, int groups_per_row,
     int group_outer, int group_inner, int word_stride, int n_chunks,
@@ -145,14 +144,14 @@ extern "C" int tpg_fir2_launch(
     int track_peaks, int avx, int threshold, int accumulator_limit,
     int rs_scale_factor_x10, const int* taps, int tap_exponent, int adc_max,
     int sigma_cap, int thr_mult, int int16, int fir_packed, int rs_float,
-    int slot_word_carry, int lift, void* scratch, int device, void* stream) {
+    int slot_word_carry, int lift, int device, void* stream) {
   (void)charge_floor;
   (void)rs_float;
   (void)slot_word_carry;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
-  if (family != kFIR || scratch == nullptr || int16 || fir_packed ||
+  if (family != kFIR || int16 || fir_packed ||
       !make_params(p, feed, feed_stride, encoding, groups_per_row,
                    group_outer, group_inner, word_stride, n_chunks,
                    ticks_per_chunk, state, n_channels, slots, nclose, k_slots,
@@ -162,19 +161,49 @@ extern "C" int tpg_fir2_launch(
   const Variant v{family, peak_gated != 0, false, track_peaks != 0,
                   avx != 0, false, false};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int32_t* const sc = static_cast<int32_t*>(scratch);
   switch (encoding) {
     case kPlain:
     case kTime2:
       return static_cast<int>(
-          launch_fir2_unpacked(p, v, encoding, lift != 0, sc, s));
+          launch_fir2_unpacked(p, v, encoding, lift != 0, s));
     case kPacked14:
     case kGather14:
       return static_cast<int>(
-          launch_fir2_packed(p, v, encoding, lift != 0, sc, s));
+          launch_fir2_packed(p, v, encoding, lift != 0, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// tpg_fir_staged_launch: the pipeline's staged arm (the FIR family on plain
+// or time2 rows, int32 state, direct store), with tpg_launch's arguments;
+// the probes time it against K3.  Same outputs as K3.
+extern "C" int tpg_fir_staged_launch(
+    const void* feed, int feed_stride, int encoding, int groups_per_row,
+    int group_outer, int group_inner, int word_stride, int n_chunks,
+    int ticks_per_chunk, void* state, int n_channels, void* slots,
+    void* nclose, int k_slots, int family, int peak_gated, int charge_floor,
+    int track_peaks, int avx, int threshold, int accumulator_limit,
+    int rs_scale_factor_x10, const int* taps, int tap_exponent, int adc_max,
+    int sigma_cap, int thr_mult, int int16, int fir_packed, int rs_float,
+    int slot_word_carry, int device, void* stream) {
+  (void)charge_floor;
+  (void)rs_float;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params p;
+  if (family != kFIR || int16 || fir_packed || slot_word_carry ||
+      (encoding != kPlain && encoding != kTime2) ||
+      !make_params(p, feed, feed_stride, encoding, groups_per_row,
+                   group_outer, group_inner, word_stride, n_chunks,
+                   ticks_per_chunk, state, n_channels, slots, nclose, k_slots,
+                   threshold, accumulator_limit, rs_scale_factor_x10, taps,
+                   tap_exponent, adc_max, sigma_cap, thr_mult))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Variant v{family, peak_gated != 0, false, track_peaks != 0,
+                  avx != 0, false, false};
+  return static_cast<int>(launch_fir_staged(
+      p, v, encoding, static_cast<cudaStream_t>(stream)));
 }
 
 // The dynamic shared memory one block of a fused launch takes, in bytes, as

@@ -1,14 +1,17 @@
 // The SWTPG tick for Hopper: the kernels of ROADMAP.md, shared by the
 // translation units csrc/tpg*.cu (one per input encoding, one for the
-// int16 state, two for K5, six tpg_carry_*.cu for the SLOT_WORD_CARRY
-// layout; tpg.cu holds the C entries).
+// int16 state, two for K5, one for the FIR pipeline's staged arm, six
+// tpg_carry_*.cu for the SLOT_WORD_CARRY layout; tpg.cu holds the C
+// entries).
 //
 // Replaces fdreadoutlibs_tpu/ops/pallas_tpg.py::_tpg_kernel:
 //   K1  the time2 datapath (time_packed=True, tick 2j in the low and 2j+1 in
 //       the high 16 bits of a word) for SimpleThreshold, AbsRS, StandardRS;
 //   K2  the plain-sample datapath (time_packed=False, one int32 sample per
 //       row; _decode_ticks :399-400), for the same families;
-//   K3  the FIR+IQR family (:464-490, :556-560), on any datapath;
+//   K3  the FIR+IQR family (:464-490, :556-560), on any datapath: on plain
+//       and time2 rows a two-warp pipeline (fir_pipe_kernel below), on
+//       packed words FirChannel's fused tick;
 //   K4  the in-kernel 14-bit unpack (_unpack14_rows :241-265, reached via
 //       _decode_ticks :396-398): packed WIBEth words, 16 channels in 7
 //       words, read as they arrive, for every family;
@@ -22,7 +25,8 @@
 //       words14_slab);
 // and pallas_tpg.py::_fir2_kernel:
 //   K5  the two-pass FIR schedule (fir_twopass 1 and 2, :585-765), on any
-//       datapath (its note is at fir2_kernel below).
+//       datapath: the pipeline with a warp each for the front, the filter
+//       and the hit chain (its note is at fir_pipe_kernel below).
 // The input encoding is the template parameter kEnc; the family, the state
 // type and the carry layout are the channel type.
 // The arithmetic is ops/step.py::dispatch_tick (tpg_tick, and
@@ -32,7 +36,8 @@
 // process_window_twopass_plain) run those very functions on torch tensors,
 // and the two are compared bit for bit.
 //
-// Design.  One thread owns one channel; consecutive threads take
+// Design (the fused tick; the FIR pipeline has its own note below).  One
+// thread owns one channel; consecutive threads take
 // consecutive channels, so every feed load and slot store of a warp is
 // coalesced.  The grid is ceil(C/128) blocks of 128 threads.  Inside a
 // thread a serial loop runs over chunks and, within a chunk, over groups of
@@ -227,11 +232,13 @@ cudaError_t launch_carry_int16(const Params& p, const Variant& v,
                                cudaStream_t s);
 // K5 on plain and time2 feeds, and on packed (K4 and K4b-gather) feeds
 cudaError_t launch_fir2_unpacked(const Params& p, const Variant& v,
-                                 int encoding, bool lift, int32_t* scratch,
-                                 cudaStream_t s);
+                                 int encoding, bool lift, cudaStream_t s);
 cudaError_t launch_fir2_packed(const Params& p, const Variant& v,
-                               int encoding, bool lift, int32_t* scratch,
-                               cudaStream_t s);
+                               int encoding, bool lift, cudaStream_t s);
+// the pipeline's staged arm (one warp, the whole FIR tick on a staged
+// feed) on plain and time2 feeds
+cudaError_t launch_fir_staged(const Params& p, const Variant& v,
+                              int encoding, cudaStream_t s);
 
 }  // namespace tpg
 
@@ -348,12 +355,14 @@ __host__ __device__ inline int carry_limit(const Params& p) {
   return p.k_slots < most ? p.k_slots : most;
 }
 
-// The int32 words of a block's staging for the slots above kCarrySlots.
+// The int32 words of a block's staging for the slots above kCarrySlots,
+// one column for each of its `lanes` channels.
 __host__ __device__ constexpr long long carry_stage_words(int limit,
-                                                          int n_words) {
+                                                          int n_words,
+                                                          int lanes = kBlock) {
   return static_cast<long long>(limit > kCarrySlots ? limit - kCarrySlots
                                                     : 0) *
-         n_words * kBlock;
+         n_words * lanes;
 }
 
 // Dynamic shared memory of one block in bytes: K4b-slab's time2 slab of one
@@ -370,8 +379,9 @@ inline long long block_shared_bytes(const Params& p, int n_words, bool slab,
 // each close a chain of predicated selects on nclose (_emit_records
 // :426-430), and above that ceiling the thread's column of the block's
 // staging in shared memory (word j of slot kCarrySlots + i at
-// stage[(i * kWords + j) * kBlock]); all stored once at the chunk's end.
-template <int kWords>
+// stage[(i * kWords + j) * kStride], kStride the block's channels); all
+// stored once at the chunk's end.
+template <int kWords, int kStride = kBlock>
 struct CarrySlots {
   int32_t* base;
   int32_t* stage;
@@ -406,9 +416,9 @@ struct CarrySlots {
         }
       } else {
         int32_t* at = stage + static_cast<size_t>(nclose - kCarrySlots) *
-                                  kWords * kBlock;
+                                  kWords * kStride;
 #pragma unroll
-        for (int j = 0; j < kWords; ++j) at[j * kBlock] = rec[j];
+        for (int j = 0; j < kWords; ++j) at[j * kStride] = rec[j];
       }
     }
     ++nclose;
@@ -426,16 +436,16 @@ struct CarrySlots {
     const int n = nclose < limit ? nclose : limit;
     for (int k = kCarrySlots; k < n; ++k) {
       const int32_t* at = stage + static_cast<size_t>(k - kCarrySlots) *
-                                      kWords * kBlock;
+                                      kWords * kStride;
 #pragma unroll
       for (int j = 0; j < kWords; ++j)
-        base[(static_cast<size_t>(k) * kWords + j) * C] = at[j * kBlock];
+        base[(static_cast<size_t>(k) * kWords + j) * C] = at[j * kStride];
     }
   }
 };
 
-template <int kWords>
-__device__ __forceinline__ void slot_emit(CarrySlots<kWords>* slots,
+template <int kWords, int kStride>
+__device__ __forceinline__ void slot_emit(CarrySlots<kWords, kStride>* slots,
                                           int& nclose, const Params&, int w0,
                                           int w1, int end_word) {
   slots->emit(nclose, w0, w1, end_word);
@@ -724,28 +734,30 @@ __device__ __forceinline__ void realign_ring(int (&ring)[kTaps], int n) {
   }
 }
 
-// fir.py::tpg_tick_fir (unpacked layout): the FIR+IQR family, one fused
-// tick (K3; K2b with kI16).
-template <bool kPeakGated, bool kTrackPeaks, bool kAvx, bool kI16>
-struct FirChannel {
-  using State = StateT<kI16>;
+// Everything of fir.py::tpg_tick_fir after the front: the filter over the
+// previous 8 samples (the current one then takes the oldest slot), the
+// threshold, to_add, the close test and the hit chain, and the emission of
+// a close while `live` (the pipeline's lanes past the last channel take
+// part in its barriers but store nothing).  K3's second warp runs it on the
+// front's s and sigma; FirChannel runs it after its own front.
+template <bool kPeakGated, bool kTrackPeaks, bool kAvx>
+struct FirBack {
   static constexpr int kWords = kTrackPeaks ? 3 : 2;
-  FirFront<kI16> front;
   FirHit<kPeakGated, kTrackPeaks> hit;
   int prev_over;
   int ring[kTaps];   // previous samples; oldest at ring[u % 8] for tick u
   int nclose;
 
-  __device__ __forceinline__ void load(const State* st, size_t C) {
-    front.load(st, C);
+  template <class S>
+  __device__ __forceinline__ void load(const S* st, size_t C) {
     hit.load(st, C);
     prev_over = st[kPrevWasOver * C];
 #pragma unroll
     for (int j = 0; j < kTaps; ++j) ring[j] = st[(kFirRow0 + j) * C];
   }
 
-  __device__ __forceinline__ void store(State* st, size_t C) const {
-    front.store(st, C);
+  template <class S>
+  __device__ __forceinline__ void store(S* st, size_t C) const {
     hit.store(st, C);
     put(st, kPrevWasOver, C, prev_over);
 #pragma unroll
@@ -755,12 +767,9 @@ struct FirChannel {
   __device__ __forceinline__ void realign(int n) { realign_ring(ring, n); }
 
   template <int kU, class Slots>
-  __device__ __forceinline__ void tick(int s_raw, int end_word, Slots slots,
-                                       const Params& p) {
-    int sigma;
-    const int s = front.step(s_raw, p, sigma);
-    // the filter over the previous 8 samples, then the current sample
-    // takes the oldest slot
+  __device__ __forceinline__ void tick(int s, int sigma, int end_word,
+                                       Slots slots, const Params& p,
+                                       bool live) {
     const int filt = fir_filter<kU>(ring, p);
     ring[kU % kTaps] = s;
     const bool over = fir_over<kAvx>(filt, sigma, p);
@@ -768,7 +777,35 @@ struct FirChannel {
     prev_over = over ? 1 : 0;
     int w0, w1;
     hit.step(over, fir_to_add(over, filt, p), filt, closed, w0, w1);
-    if (closed) slot_emit<kWords>(slots, nclose, p, w0, w1, end_word);
+    if (closed && live) slot_emit<kWords>(slots, nclose, p, w0, w1, end_word);
+  }
+};
+
+// fir.py::tpg_tick_fir (unpacked layout): the FIR+IQR family, one fused
+// tick: the FIR family on packed words (K4, K4b), on the int16 state (K2b,
+// kI16) and in the pipeline's staged arm below.
+template <bool kPeakGated, bool kTrackPeaks, bool kAvx, bool kI16>
+struct FirChannel : FirBack<kPeakGated, kTrackPeaks, kAvx> {
+  using Back = FirBack<kPeakGated, kTrackPeaks, kAvx>;
+  using State = StateT<kI16>;
+  FirFront<kI16> front;
+
+  __device__ __forceinline__ void load(const State* st, size_t C) {
+    front.load(st, C);
+    Back::load(st, C);
+  }
+
+  __device__ __forceinline__ void store(State* st, size_t C) const {
+    front.store(st, C);
+    Back::store(st, C);
+  }
+
+  template <int kU, class Slots>
+  __device__ __forceinline__ void tick(int s_raw, int end_word, Slots slots,
+                                       const Params& p, bool live = true) {
+    int sigma;
+    const int s = front.step(s_raw, p, sigma);
+    Back::template tick<kU>(s, sigma, end_word, slots, p, live);
   }
 };
 
@@ -1212,215 +1249,656 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---- K5: the two-pass FIR schedule ----------------------------------------
+// ---- K3 and K5: the FIR tick as a warp-specialised pipeline ---------------
 //
-// Replaces fdreadoutlibs_tpu/ops/pallas_tpg.py::_fir2_kernel (:585-765,
-// fir_twopass 1 and 2).  Same outputs as K3, bit for bit: the passes call
-// the same pieces (FirFront, fir_over, fir_to_add, FirHit) in a split
-// order.  Per tc-tick chunk, in one block of kFir2Threads threads that owns
-// kFir2Channels consecutive channels:
-//   pass A  one thread per channel (warp 0): the IQR and pedestal chains
-//           over the chunk's ticks, decoding the feed as K1-K4 (and
-//           K4b-gather) do; writes the clamped samples into the s slab
-//           after its 8 ring rows (oldest first, the carried FIR history)
-//           and sigma into its slab;
-//   pass B  every thread of the block over (tick, channel): the 8-tap
-//           filter on the s slab, the threshold, to_add (and filt for the
-//           peak registers) into their slabs; with lift (fir_twopass=2)
-//           then the closed slab, closed = over(t-1) && !over(t) with the
-//           carried prev_was_over at t = 0;
-//   pass C  one thread per channel: the hit chain over the chunk's ticks.
-//           Without lift it tests the close itself and emits into the K
-//           slots as K3 does; with lift it reads the closed slab and writes
-//           each tick's record words into their slabs;
-//   pass D  (lift) one thread per channel: a serial count of the closes
-//           along the chunk, the k-th close's words into slot k < K.
-// The slabs live in global scratch from the wrapper, (tc + 8) x C int32
-// each; a block touches only its own channels' columns (coalesced rows of
-// 32 channels), so a chunk's working set, ~2.7 MB per slab at 2560
-// channels and tc = 256, stays in L2.  A later step can keep them in
-// shared memory.
+// Replaces, for the FIR family, pallas_tpg.py::_tpg_kernel's fused tick on
+// the plain and time2 datapaths (K3, :464-490, :556-560) and
+// pallas_tpg.py::_fir2_kernel on every datapath (K5, fir_twopass 1 and 2,
+// :585-765).  Same outputs as FirChannel in tpg_kernel, bit for bit.
 //
-// What bounds it: the two serial chains (pass A, then pass C) per chunk,
-// with one slab pass between them.  Against K3 each chain is shorter per
-// tick (the filter, threshold and to_add leave the serial path) but there
-// are two of them in turn, plus the slab traffic, and only a quarter of a
-// block's threads run the chains.
-constexpr int kFir2Channels = 32;   // channels per block: warp 0's lanes
-constexpr int kFir2Threads = 128;   // threads per block in pass B
+// The FIR tick is three pieces: (a) the pedestal and IQR frugal chains
+// (FirFront), which need only the raw sample and their own state; (b) the
+// 8-tap filter, the threshold and to_add, no recurrence; (c) the hit chain
+// (FirHit).  One thread running a + b + c in turn pays the sum of their
+// latencies every tick (P1: a dependent op costs ~4.7 SM cycles with one
+// warp per scheduler, and 2560 channels leave 448 of the 528 schedulers
+// idle).  Here a block owns 32 consecutive channels and gives the pieces
+// warps of their own, so a tick costs the longest chain, not the sum:
+//   warp 0  the loader and front: copies the feed of each stage of
+//           kPipeTicks ticks into a ring of kPipeStages shared-memory slabs
+//           with cp.async, kPipeStages - 1 stages ahead of its chain, each
+//           stage completing on its `full` mbarrier; then runs (a) over the
+//           stage and writes s (clamped) and sigma into the stage's slabs;
+//   K3, warp 1  (b) and (c) on each stage's s and sigma (FirBack, the FIR
+//           ring in its registers) and the emission into the K slots
+//           (direct, or SLOT_WORD_CARRY in columns of 32);
+//   K5, warp 1  (b): is_over, to_add and filt into the stage's slabs, and
+//           with lift (fir_twopass=2) the closed flag, over(t-1) && !over(t)
+//           on its carried prev_was_over;
+//       warp 2  (c) and the emission: the close tested in place (fir_twopass
+//           1) or read from the slab (2).
+// A stage's slabs go round the ring through mbarriers: `full` (the feed has
+// landed), `ready` (s, sigma written), `s_empty` (s, sigma read),
+// `filtered` and `f_empty` (K5's filter slabs written, read).  A producer
+// waits for the previous round's release of the slot before it writes, a
+// consumer for the round's completion before it reads (parity waits).  A
+// stage never straddles a chunk (a chunk is ceil(tc / kPipeTicks) stages,
+// the last one ragged), so each role runs a stage as K3's groups of kGroup
+// ticks with the tail guarded and the ring realigned after it, a chunk's
+// nclose and slots begin with its first stage and are stored with its last,
+// and tick u of a stage ends at window tick t0 + u + 1.  Lanes past the
+// last channel run the loops with the others (every warp arrives at every
+// barrier) and store nothing.  K5 takes no global scratch: its slabs are
+// the ring.  The staged arm (kPipeStaged, tpg_fir_staged_launch, measured
+// by the probes against K3) is one warp that copies the feed the same way
+// and runs FirChannel's whole tick.
+//
+// What bounds it: the longest per-tick chain, (a)'s IQR update gated on the
+// pedestal, if the consumers keep up; the ring's barriers cost a few waits
+// per stage of 32 ticks.
+constexpr int kPipeLanes = 32;    // channels per block
+constexpr int kPipeTicks = 32;    // ticks per stage, a multiple of kGroup
+constexpr int kPipeStages = 4;    // stages in the ring
+constexpr int kStageWords = kPipeTicks * kPipeLanes;   // one slab
+constexpr int kPipeBars = 5 * kPipeStages;   // full, ready, s_empty,
+                                             // filtered, f_empty
+constexpr int kMbarrierBytes = 8;
 
-// Pass A as a channel type of run_group: tick u of the chunk writes its
-// clamped sample to s-slab row 8 + u and its sigma to sigma-slab row u.
-struct Fir2Front {
-  FirFront<false> front;
-  int32_t* s;       // the channel's column of the s slab
-  int32_t* sigma;   // ... of the sigma slab
-  size_t C;
-  int t0;           // window tick of the chunk's first sample
-
-  __device__ __forceinline__ void realign(int) {}
-
-  template <int kU, class Slots>
-  __device__ __forceinline__ void tick(int s_raw, int end_word, Slots,
-                                       const Params& p) {
-    const size_t u = static_cast<size_t>(end_word - 1 - t0);
-    int sg;
-    s[(kTaps + u) * C] = front.step(s_raw, p, sg);
-    sigma[u * C] = sg;
-  }
+enum PipeMode : int {
+  kPipeStaged = 0,   // one warp: the staged feed and the whole tick
+  kPipeK3 = 1,       // loader + front; filter + hit
+  kPipeK5 = 2,       // loader + front; filter; hit (fir_twopass 1)
+  kPipeK5Lift = 3    // the same, closed from the filter warp (2)
 };
 
-template <int kEnc, bool kPeakGated, bool kTrackPeaks, bool kAvx, bool kLift>
-__global__ void __launch_bounds__(kFir2Threads)
-    fir2_kernel(Params p, int32_t* scratch) {
-  constexpr int kWords = kTrackPeaks ? 3 : 2;
-  const size_t C = static_cast<size_t>(p.n_channels);
-  const int tc = p.ticks_per_chunk;
-  const size_t slab = (static_cast<size_t>(tc) + kTaps) * C;
-  // slab order (ops/tpg.py::_fir2_slabs): s, sigma, over, to_add, then
-  // filt (peaks), then closed, w0 and w1 (peaks) with lift
-  int32_t* const s_slab = scratch;
-  int32_t* const sig_slab = scratch + slab;
-  int32_t* const over_slab = scratch + 2 * slab;
-  int32_t* const add_slab = scratch + 3 * slab;
-  int32_t* const filt_slab = scratch + 4 * slab;
-  int32_t* const closed_slab = scratch + (4 + kTrackPeaks) * slab;
-  int32_t* const w0_slab = closed_slab + slab;
-  int32_t* const w1_slab = closed_slab + 2 * slab;
-  __shared__ int prev_in[kFir2Channels];   // lift: prev_was_over at t = 0
+template <int kMode>
+constexpr int kPipeWarps =
+    kMode == kPipeStaged ? 1 : (kMode == kPipeK3 ? 2 : 3);
 
-  const int lane = threadIdx.x % kFir2Channels;
-  const int c0 = blockIdx.x * kFir2Channels;
-  const int c = c0 + lane;
-  // warp 0 runs the chains; no thread returns early (every thread meets
-  // every barrier)
-  const bool chain = threadIdx.x < kFir2Channels && c < p.n_channels;
-  int32_t* st = static_cast<int32_t*>(p.state) + c;
-  Fir2Front a{};
-  FirHit<kPeakGated, kTrackPeaks> hit{};
-  int prev_over = 0;
-  Cursor<kEnc> cur{};
-  if (chain) {
-    a.front.load(st, C);
-    a.s = s_slab + c;
-    a.sigma = sig_slab + c;
-    a.C = C;
-    hit.load(st, C);
-    prev_over = st[kPrevWasOver * C];
-#pragma unroll
-    for (int j = 0; j < kTaps; ++j)
-      s_slab[j * C + c] = st[(kFirRow0 + j) * C];
-    cur = make_cursor<kEnc>(p, c);
-  }
-  for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
-    const int t0 = chunk * tc;
-    // ---- pass A
-    if (chain) {
-      if (chunk > 0) {
-        // the ring carries on as the last 8 samples of the previous chunk,
-        // s rows tc..tc+7 (row tc + j is read before row j + tc is written)
-        for (int j = 0; j < kTaps; ++j)
-          s_slab[j * C + c] = s_slab[(tc + j) * C + c];
-      }
-      a.t0 = t0;
-      seek<kEnc>(cur, p, t0);
-      int g = 0;
-      for (; g + kGroup <= tc; g += kGroup)
-        run_group<kEnc, false>(a, cur, kGroup, t0 + g, nullptr, p);
-      if (g < tc) run_group<kEnc, true>(a, cur, tc - g, t0 + g, nullptr, p);
-      if (kLift) prev_in[lane] = prev_over;
-    }
-    __syncthreads();
-    // ---- pass B
-    for (int i = threadIdx.x; i < tc * kFir2Channels; i += kFir2Threads) {
-      const size_t cc = static_cast<size_t>(c0 + i % kFir2Channels);
-      if (cc >= C) continue;
-      const size_t at = static_cast<size_t>(i / kFir2Channels) * C + cc;
-      uint32_t f = 0;
-#pragma unroll
-      for (int j = 0; j < kTaps; ++j)
-        f += static_cast<uint32_t>(p.taps[j]) *
-             static_cast<uint32_t>(s_slab[at + j * C]);
-      const int filt = wrap_i16(static_cast<int>(f));
-      const bool over = fir_over<kAvx>(filt, sig_slab[at], p);
-      over_slab[at] = over ? 1 : 0;
-      add_slab[at] = fir_to_add(over, filt, p);
-      if (kTrackPeaks) filt_slab[at] = filt;
-    }
-    if (kLift) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < tc * kFir2Channels; i += kFir2Threads) {
-        const int t = i / kFir2Channels;
-        const size_t cc = static_cast<size_t>(c0 + i % kFir2Channels);
-        if (cc >= C) continue;
-        const size_t at = static_cast<size_t>(t) * C + cc;
-        const int prev = t == 0 ? prev_in[i % kFir2Channels]
-                                : over_slab[at - C];
-        closed_slab[at] = (prev != 0 && over_slab[at] == 0) ? 1 : 0;
-      }
-    }
-    __syncthreads();
-    // ---- pass C (and D with lift); the next chunk's pass B writes these
-    // slabs only after the barrier that follows its pass A, which warp 0
-    // reaches after this
-    if (chain) {
-      int32_t* slot_base =
-          p.slots + static_cast<size_t>(chunk) * p.k_slots * kWords * C + c;
-      int nclose = 0;
-      for (int t = 0; t < tc; ++t) {
-        const size_t at = static_cast<size_t>(t) * C + c;
-        const bool over = over_slab[at] != 0;
-        const int filt = kTrackPeaks ? filt_slab[at] : 0;
-        int w0, w1;
-        if (kLift) {
-          hit.step(over, add_slab[at], filt, closed_slab[at] != 0, w0, w1);
-          w0_slab[at] = w0;
-          if (kTrackPeaks) w1_slab[at] = w1;
-        } else {
-          const bool closed = prev_over != 0 && !over;
-          prev_over = over ? 1 : 0;
-          hit.step(over, add_slab[at], filt, closed, w0, w1);
-          if (closed) emit<kWords>(nclose, slot_base, p, w0, w1, t0 + t + 1);
-        }
-      }
-      if (kLift) {
-        prev_over = over_slab[static_cast<size_t>(tc - 1) * C + c];
-        for (int t = 0; t < tc; ++t) {
-          const size_t at = static_cast<size_t>(t) * C + c;
-          if (closed_slab[at] != 0)
-            emit<kWords>(nclose, slot_base, p, w0_slab[at],
-                         kTrackPeaks ? w1_slab[at] : 0, t0 + t + 1);
-        }
-      }
-      p.nclose[static_cast<size_t>(chunk) * C + c] = nclose;
-    }
-  }
-  if (chain) {
-    a.front.store(st, C);
-    hit.store(st, C);
-    st[kPrevWasOver * C] = prev_over;
-#pragma unroll
-    for (int j = 0; j < kTaps; ++j)
-      st[(kFirRow0 + j) * C] = s_slab[(p.ticks_per_chunk + j) * C + c];
+// The slabs of one stage: the feed; s and sigma; K5's flags (is_over |
+// closed << 1), to_add, and filt with peaks.
+__host__ __device__ constexpr int pipe_slabs(int mode, bool peaks) {
+  return mode == kPipeStaged ? 1
+                             : (mode == kPipeK3 ? 3 : 5 + (peaks ? 1 : 0));
+}
+
+// Dynamic shared memory of one block in bytes: the ring, then K3's carry
+// staging in columns of kPipeLanes.  The launch refuses more than a block
+// may use, with the mbarriers.
+inline long long pipe_shared_bytes(const Params& p, int mode, bool peaks,
+                                   bool carry) {
+  return 4LL * (static_cast<long long>(pipe_slabs(mode, peaks)) *
+                    kPipeStages * kStageWords +
+                (carry ? carry_stage_words(carry_limit(p), peaks ? 3 : 2,
+                                           kPipeLanes)
+                       : 0));
+}
+
+// The ring's primitives: an mbarrier, a 4-byte cp.async into shared memory
+// and its arrival on an mbarrier.  The host build for the CPU tests takes
+// the stand-ins of tests/cuda_host/cuda_runtime.h (a plain copy; host
+// barriers with the same arrive and parity wait).
+#ifndef TPG_HOST_EMULATION
+struct StageBar {
+  unsigned long long word;
+};
+
+__device__ __forceinline__ unsigned shared_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void stage_bar_init(StageBar* bar,
+                                               unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   shared_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival, releasing the thread's earlier shared-memory writes to the
+// threads that wait for the phase.
+__device__ __forceinline__ void stage_bar_arrive(StageBar* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   shared_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool stage_bar_try(StageBar* bar,
+                                              unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(shared_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` has completed.  No wait of the
+// ring lasts longer than a stage of its producer, so one that outlasts
+// 2^32 SM cycles (~2 s) is a fault: the kernel traps (the launch fails)
+// rather than hang the card.
+__device__ __forceinline__ void stage_bar_wait(StageBar* bar,
+                                               unsigned parity) {
+  if (stage_bar_try(bar, parity)) return;
+  const long long start = clock64();
+  while (!stage_bar_try(bar, parity))
+    if (clock64() - start > (1LL << 32)) __trap();
+}
+
+// Copy one int32 from global into shared memory, asynchronously.
+__device__ __forceinline__ void stage_copy(int32_t* dst, const int32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   shared_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// One arrival on `bar` once every earlier stage_copy of the thread has
+// landed (the barrier's count holds it).
+__device__ __forceinline__ void stage_copy_arrive(StageBar* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   shared_addr(bar))
+               : "memory");
+}
+#endif
+
+// Stage q of the window: its chunk, first window tick and tick count.
+struct PipeStage {
+  int chunk, t0, n;
+  bool first, last;   // the chunk's first and last stage
+};
+
+__device__ __forceinline__ PipeStage pipe_stage(const Params& p, int q) {
+  const int tc = p.ticks_per_chunk;
+  const int per = (tc + kPipeTicks - 1) / kPipeTicks;
+  const int off = (q % per) * kPipeTicks;
+  PipeStage st;
+  st.chunk = q / per;
+  st.t0 = st.chunk * tc + off;
+  st.n = tc - off < kPipeTicks ? tc - off : kPipeTicks;
+  st.first = off == 0;
+  st.last = off + kPipeTicks >= tc;
+  return st;
+}
+
+template <bool kGuard, class F, int... kU>
+__device__ __forceinline__ void each_tick(int n, F& f,
+                                          std::integer_sequence<int, kU...>) {
+  ((!kGuard || kU < n ? f(std::integral_constant<int, kU>{}) : void()), ...);
+}
+
+// f(u) for the ticks of a group, u a compile-time constant; kGuard: only
+// the first n.
+template <bool kGuard, class F>
+__device__ __forceinline__ void each_tick(int n, F&& f) {
+  each_tick<kGuard>(n, f, std::make_integer_sequence<int, kGroup>{});
+}
+
+// A role's ticks over a stage of n ticks: groups of kGroup, the tail
+// guarded and followed by the role's realignment.  The group loop stays a
+// loop (one group's body in the machine code, whose dependent chain the
+// probes count).
+template <class Role>
+__device__ __forceinline__ void run_stage(Role& role, int n) {
+  int g = 0;
+#pragma unroll 1
+  for (; g + kGroup <= n; g += kGroup) role.template group<false>(g, kGroup);
+  if (g < n) {
+    role.template group<true>(g, n - g);
+    role.realign(n - g);
   }
 }
 
-template <int kEnc, bool kPeakGated, bool kTrackPeaks, bool kAvx, bool kLift>
-cudaError_t launch_fir2(const Params& p, int32_t* scratch,
-                        cudaStream_t stream) {
-  const int blocks = (p.n_channels + kFir2Channels - 1) / kFir2Channels;
+// One lane's part of a stage's feed: its copies and its decode.  Plain and
+// time2 rows: the lane copies its channel's words into its column of the
+// feed slab.  Packed 14-bit words (K5): a warp's 32 channels are two 7-word
+// groups; lane k < 14 copies word k % 7 of group k / 7 of every tick into
+// column k of the tick's row, and every lane takes its low and high word
+// from the row (K4b-gather's exchange, through shared memory) and
+// funnel-shifts as K4 does.
+template <int kEnc>
+struct PipeFeed {
+  static constexpr bool kPacked = kEnc == kPacked14 || kEnc == kGather14;
+  const int32_t* src;   // the lane's word of tick 0, or null: no copies
+  size_t stride;
+  int lane;
+  int src_lo, src_hi;   // packed: the lane's two words in a row
+  unsigned sh;
+
+  __device__ __forceinline__ void init(const Params& p, int c0, int lane_) {
+    lane = lane_;
+    stride = static_cast<size_t>(p.feed_stride);
+    const int c = c0 + lane;
+    const int32_t* feed = static_cast<const int32_t*>(p.feed);
+    src = nullptr;
+    src_lo = src_hi = 0;
+    sh = 0;
+    if constexpr (kPacked) {
+      const int g0 = c0 / 16, g = c / 16, r = c % 16;
+      const int j = 14 * r / 32;
+      // class 15 ends on its group's last bit: read word 6 twice
+      src_lo = (g - g0) * 7 + j;
+      src_hi = (g - g0) * 7 + (j < 6 ? j + 1 : 6);
+      sh = static_cast<unsigned>(14 * r % 32);
+      if (lane < 14 && (g0 + lane / 7) * 16 < p.n_channels)
+        src = feed + group_base(p, g0 + lane / 7) +
+              static_cast<size_t>(lane % 7) * p.word_stride;
+    } else {
+      if (c < p.n_channels) src = feed + c;
+    }
+  }
+
+  // Copy stage st's feed into `slab`; arrive on `full` when it has landed.
+  __device__ __forceinline__ void issue(const PipeStage& st, int32_t* slab,
+                                        StageBar* full) const {
+    if (src != nullptr) {
+      const int rows = st.n / kRowTicks<kEnc>;
+      const int32_t* from =
+          src + static_cast<size_t>(st.t0 / kRowTicks<kEnc>) * stride;
+      for (int r = 0; r < rows; ++r)
+        stage_copy(slab + r * kPipeLanes + lane,
+                   from + static_cast<size_t>(r) * stride);
+    }
+    stage_copy_arrive(full);
+  }
+
+  // The sample of tick g + kU of the stage (g a multiple of kGroup).
+  template <int kU>
+  __device__ __forceinline__ int sample(const int32_t* slab, int g) const {
+    if constexpr (kEnc == kTime2) {
+      const int w = slab[(g / 2 + kU / 2) * kPipeLanes + lane];
+      return kU % 2 == 0 ? wrap_i16(w) : (w >> 16);
+    } else if constexpr (kPacked) {
+      const int32_t* row = slab + (g + kU) * kPipeLanes;
+      return static_cast<int>(
+          __funnelshift_r(static_cast<unsigned>(row[src_lo]),
+                          static_cast<unsigned>(row[src_hi]), sh) &
+          0x3FFFu);
+    } else {
+      return slab[(g + kU) * kPipeLanes + lane];
+    }
+  }
+};
+
+// Warp 0's chain: (a) over a stage, s and sigma into the lane's columns.
+template <int kEnc>
+struct PipeFront {
+  FirFront<false> front;
+  PipeFeed<kEnc> feed;
+  const int32_t* in;   // the stage's feed slab
+  int32_t* s;
+  int32_t* sigma;
+  const Params* p;
+
+  template <bool kGuard>
+  __device__ __forceinline__ void group(int g, int n) {
+    int x[kGroup];
+    each_tick<false>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      x[kU] = !kGuard || kU < n ? feed.template sample<kU>(in, g) : 0;
+    });
+    each_tick<kGuard>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      int sg;
+      s[(g + kU) * kPipeLanes] = front.step(x[kU], *p, sg);
+      sigma[(g + kU) * kPipeLanes] = sg;
+    });
+  }
+
+  __device__ __forceinline__ void realign(int) {}
+};
+
+// K3's warp 1: (b) and (c) on a stage's s and sigma, the closes into the
+// chunk's slots: its direct-store base, or its CarrySlots (kCarry).
+template <bool kGated, bool kPeaks, bool kAvx, bool kCarry>
+struct PipeBack {
+  FirBack<kGated, kPeaks, kAvx> back;
+  CarrySlots<(kPeaks ? 3 : 2), kPipeLanes> carry;
+  int32_t* base;
+  const int32_t* s;
+  const int32_t* sigma;
+  int t0;
+  bool live;
+  const Params* p;
+
+  template <bool kGuard>
+  __device__ __forceinline__ void group(int g, int n) {
+    int sv[kGroup], gv[kGroup];
+    each_tick<false>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      const bool in = !kGuard || kU < n;
+      sv[kU] = in ? s[(g + kU) * kPipeLanes] : 0;
+      gv[kU] = in ? sigma[(g + kU) * kPipeLanes] : 0;
+    });
+    each_tick<kGuard>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      if constexpr (kCarry)
+        back.template tick<kU>(sv[kU], gv[kU], t0 + g + kU + 1, &carry, *p,
+                               live);
+      else
+        back.template tick<kU>(sv[kU], gv[kU], t0 + g + kU + 1, base, *p,
+                               live);
+    });
+  }
+
+  __device__ __forceinline__ void realign(int n) { back.realign(n); }
+};
+
+// K5's warp 1: (b) over a stage; with lift also the closed flag.
+template <bool kPeaks, bool kAvx, bool kLift>
+struct PipeFilter {
+  int ring[kTaps];   // previous samples; oldest at ring[u % 8] for tick u
+  int prev_over;     // lift: is_over of the tick before
+  const int32_t* s;
+  const int32_t* sigma;
+  int32_t* flags;
+  int32_t* add;
+  int32_t* filt;
+  const Params* p;
+
+  template <bool kGuard>
+  __device__ __forceinline__ void group(int g, int n) {
+    int sv[kGroup], gv[kGroup];
+    each_tick<false>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      const bool in = !kGuard || kU < n;
+      sv[kU] = in ? s[(g + kU) * kPipeLanes] : 0;
+      gv[kU] = in ? sigma[(g + kU) * kPipeLanes] : 0;
+    });
+    each_tick<kGuard>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      const int at = (g + kU) * kPipeLanes;
+      const int f = fir_filter<kU>(ring, *p);
+      ring[kU % kTaps] = sv[kU];
+      const bool over = fir_over<kAvx>(f, gv[kU], *p);
+      int fl = over ? 1 : 0;
+      if constexpr (kLift) {
+        fl |= prev_over != 0 && !over ? 2 : 0;
+        prev_over = over ? 1 : 0;
+      }
+      flags[at] = fl;
+      add[at] = fir_to_add(over, f, *p);
+      if constexpr (kPeaks) filt[at] = f;
+    });
+  }
+
+  __device__ __forceinline__ void realign(int n) { realign_ring(ring, n); }
+};
+
+// K5's warp 2: (c) over a stage and the direct-store emission.
+template <bool kGated, bool kPeaks, bool kLift>
+struct PipeHit {
+  static constexpr int kWords = kPeaks ? 3 : 2;
+  FirHit<kGated, kPeaks> hit;
+  int prev_over;     // fir_twopass 1: is_over of the tick before
+  int nclose;
+  int32_t* base;     // the chunk's slot base
+  const int32_t* flags;
+  const int32_t* add;
+  const int32_t* filt;
+  int t0;
+  bool live;
+  const Params* p;
+
+  template <bool kGuard>
+  __device__ __forceinline__ void group(int g, int n) {
+    int fl[kGroup], ad[kGroup], ft[kGroup];
+    each_tick<false>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      const bool in = !kGuard || kU < n;
+      fl[kU] = in ? flags[(g + kU) * kPipeLanes] : 0;
+      ad[kU] = in ? add[(g + kU) * kPipeLanes] : 0;
+      ft[kU] = kPeaks && in ? filt[(g + kU) * kPipeLanes] : 0;
+    });
+    each_tick<kGuard>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      const bool over = (fl[kU] & 1) != 0;
+      bool closed;
+      if constexpr (kLift) {
+        closed = (fl[kU] & 2) != 0;
+      } else {
+        closed = prev_over != 0 && !over;
+        prev_over = over ? 1 : 0;
+      }
+      int w0, w1;
+      hit.step(over, ad[kU], ft[kU], closed, w0, w1);
+      if (closed && live)
+        emit<kWords>(nclose, base, *p, w0, w1, t0 + g + kU + 1);
+    });
+  }
+
+  __device__ __forceinline__ void realign(int) {}
+};
+
+// The staged arm's warp: FirChannel's whole tick on the staged feed.
+template <int kEnc, class Ch>
+struct PipeWhole {
+  Ch ch;
+  PipeFeed<kEnc> feed;
+  const int32_t* in;
+  int32_t* base;
+  int t0;
+  bool live;
+  const Params* p;
+
+  template <bool kGuard>
+  __device__ __forceinline__ void group(int g, int n) {
+    int x[kGroup];
+    each_tick<false>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      x[kU] = !kGuard || kU < n ? feed.template sample<kU>(in, g) : 0;
+    });
+    each_tick<kGuard>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      ch.template tick<kU>(x[kU], t0 + g + kU + 1, base, *p, live);
+    });
+  }
+
+  __device__ __forceinline__ void realign(int n) { ch.realign(n); }
+};
+
+template <int kEnc, int kMode, bool kGated, bool kPeaks, bool kAvx,
+          bool kCarry>
+__global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
+    fir_pipe_kernel(Params p) {
+  constexpr int kWords = kPeaks ? 3 : 2;
+  constexpr bool kLift = kMode == kPipeK5Lift;
+  TPG_DYNAMIC_SHARED(int32_t, smem);
+  __shared__ StageBar bars[kPipeBars];
+  StageBar* const full = bars;
+  StageBar* const ready = bars + kPipeStages;
+  StageBar* const s_empty = bars + 2 * kPipeStages;
+  StageBar* const filtered = bars + 3 * kPipeStages;
+  StageBar* const f_empty = bars + 4 * kPipeStages;
+  const int warp = threadIdx.x / kPipeLanes;
+  const int lane = threadIdx.x % kPipeLanes;
+  const int c0 = blockIdx.x * kPipeLanes;
+  const int c = c0 + lane;
+  const bool live = c < p.n_channels;
+  const size_t C = static_cast<size_t>(p.n_channels);
+  int32_t* const st = static_cast<int32_t*>(p.state) + c;
+  // the chunk's slot words of the channel, and slab i of ring slot j
+  auto slot_base = [&](int chunk) {
+    return p.slots + static_cast<size_t>(chunk) * p.k_slots * kWords * C + c;
+  };
+  auto slab = [&](int i, int j) {
+    return smem + (i * kPipeStages + j) * kStageWords;
+  };
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kPipeBars; ++i) stage_bar_init(&bars[i], kPipeLanes);
+  __syncthreads();
+  const int n_stages =
+      p.n_chunks * ((p.ticks_per_chunk + kPipeTicks - 1) / kPipeTicks);
+
+  if (warp == 0) {
+    PipeFeed<kEnc> feed;
+    feed.init(p, c0, lane);
+    for (int q = 0; q < n_stages && q < kPipeStages; ++q)
+      feed.issue(pipe_stage(p, q), slab(0, q), &full[q]);
+    if constexpr (kMode == kPipeStaged) {
+      PipeWhole<kEnc, FirChannel<kGated, kPeaks, kAvx, false>> w{};
+      w.feed = feed;
+      w.live = live;
+      w.p = &p;
+      if (live) w.ch.load(st, C);
+      for (int q = 0; q < n_stages; ++q) {
+        const PipeStage sg = pipe_stage(p, q);
+        const int j = q % kPipeStages;
+        stage_bar_wait(&full[j], (q / kPipeStages) & 1);
+        if (sg.first) {
+          w.ch.nclose = 0;
+          w.base = slot_base(sg.chunk);
+        }
+        w.in = slab(0, j);
+        w.t0 = sg.t0;
+        run_stage(w, sg.n);
+        if (sg.last && live) p.nclose[sg.chunk * C + c] = w.ch.nclose;
+        if (q + kPipeStages < n_stages)
+          feed.issue(pipe_stage(p, q + kPipeStages), slab(0, j), &full[j]);
+      }
+      if (live) w.ch.store(st, C);
+    } else {
+      PipeFront<kEnc> a{};
+      a.feed = feed;
+      a.p = &p;
+      if (live) a.front.load(st, C);
+      for (int q = 0; q < n_stages; ++q) {
+        const PipeStage sg = pipe_stage(p, q);
+        const int j = q % kPipeStages;
+        const unsigned round = (q / kPipeStages) & 1;
+        stage_bar_wait(&full[j], round);
+        stage_bar_wait(&s_empty[j], round ^ 1);
+        a.in = slab(0, j);
+        a.s = slab(1, j) + lane;
+        a.sigma = slab(2, j) + lane;
+        run_stage(a, sg.n);
+        stage_bar_arrive(&ready[j]);
+        // packed rows are read across lanes: all reads before the refill
+        if constexpr (PipeFeed<kEnc>::kPacked) __syncwarp();
+        if (q + kPipeStages < n_stages)
+          feed.issue(pipe_stage(p, q + kPipeStages), slab(0, j), &full[j]);
+      }
+      if (live) a.front.store(st, C);
+    }
+  } else if constexpr (kMode == kPipeK3) {
+    PipeBack<kGated, kPeaks, kAvx, kCarry> b{};
+    b.live = live;
+    b.p = &p;
+    if (live) b.back.load(st, C);
+    // the carry layout's staging after the ring, the lane's column
+    int32_t* const stage = smem +
+                           pipe_slabs(kMode, kPeaks) * kPipeStages *
+                               kStageWords +
+                           lane;
+    for (int q = 0; q < n_stages; ++q) {
+      const PipeStage sg = pipe_stage(p, q);
+      const int j = q % kPipeStages;
+      stage_bar_wait(&ready[j], (q / kPipeStages) & 1);
+      if (sg.first) {
+        b.back.nclose = 0;
+        b.base = slot_base(sg.chunk);
+        if constexpr (kCarry) b.carry.begin(b.base, stage, p);
+      }
+      b.s = slab(1, j) + lane;
+      b.sigma = slab(2, j) + lane;
+      b.t0 = sg.t0;
+      run_stage(b, sg.n);
+      stage_bar_arrive(&s_empty[j]);
+      if (sg.last && live) {
+        if constexpr (kCarry) b.carry.flush(b.back.nclose, p);
+        p.nclose[sg.chunk * C + c] = b.back.nclose;
+      }
+    }
+    if (live) b.back.store(st, C);
+  } else if constexpr (kMode == kPipeK5 || kMode == kPipeK5Lift) {
+    if (warp == 1) {
+      PipeFilter<kPeaks, kAvx, kLift> f{};
+      f.p = &p;
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < kTaps; ++i) f.ring[i] = st[(kFirRow0 + i) * C];
+        if (kLift) f.prev_over = st[kPrevWasOver * C];
+      }
+      for (int q = 0; q < n_stages; ++q) {
+        const PipeStage sg = pipe_stage(p, q);
+        const int j = q % kPipeStages;
+        const unsigned round = (q / kPipeStages) & 1;
+        stage_bar_wait(&ready[j], round);
+        stage_bar_wait(&f_empty[j], round ^ 1);
+        f.s = slab(1, j) + lane;
+        f.sigma = slab(2, j) + lane;
+        f.flags = slab(3, j) + lane;
+        f.add = slab(4, j) + lane;
+        if (kPeaks) f.filt = slab(5, j) + lane;
+        run_stage(f, sg.n);
+        stage_bar_arrive(&s_empty[j]);
+        stage_bar_arrive(&filtered[j]);
+      }
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < kTaps; ++i) st[(kFirRow0 + i) * C] = f.ring[i];
+        if (kLift) st[kPrevWasOver * C] = f.prev_over;
+      }
+    } else {
+      PipeHit<kGated, kPeaks, kLift> h{};
+      h.live = live;
+      h.p = &p;
+      if (live) {
+        h.hit.load(st, C);
+        if (!kLift) h.prev_over = st[kPrevWasOver * C];
+      }
+      for (int q = 0; q < n_stages; ++q) {
+        const PipeStage sg = pipe_stage(p, q);
+        const int j = q % kPipeStages;
+        stage_bar_wait(&filtered[j], (q / kPipeStages) & 1);
+        if (sg.first) {
+          h.nclose = 0;
+          h.base = slot_base(sg.chunk);
+        }
+        h.flags = slab(3, j) + lane;
+        h.add = slab(4, j) + lane;
+        if (kPeaks) h.filt = slab(5, j) + lane;
+        h.t0 = sg.t0;
+        run_stage(h, sg.n);
+        stage_bar_arrive(&f_empty[j]);
+        if (sg.last && live) p.nclose[sg.chunk * C + c] = h.nclose;
+      }
+      if (live) {
+        h.hit.store(st, C);
+        if (!kLift) st[kPrevWasOver * C] = h.prev_over;
+      }
+    }
+  }
+}
+
+template <int kEnc, int kMode, bool kGated, bool kPeaks, bool kAvx,
+          bool kCarry = false>
+cudaError_t launch_fir_pipe(const Params& p, cudaStream_t stream) {
+  constexpr int kThreads = kPipeWarps<kMode> * kPipeLanes;
+  const int blocks = (p.n_channels + kPipeLanes - 1) / kPipeLanes;
+  const long long smem_ll = pipe_shared_bytes(p, kMode, kPeaks, kCarry);
+  if (smem_ll + kPipeBars * kMbarrierBytes > kMaxSlabBytes)
+    return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(smem_ll);
 #ifdef TPG_HOST_EMULATION
-  // host build for the CPU tests: each block's threads run as host
-  // threads and __syncthreads() is a barrier among them; blocks in turn
+  // host build for the CPU tests: a block's warps run as host threads, the
+  // ring's copies and barriers the stand-ins'; blocks in turn
   (void)stream;
   for (blockIdx.x = 0; blockIdx.x < static_cast<unsigned>(blocks);
        ++blockIdx.x)
-    host_run_block(kFir2Threads, [&] {
-      fir2_kernel<kEnc, kPeakGated, kTrackPeaks, kAvx, kLift>(p, scratch);
-    });
+    host_run_block(kThreads, [&] {
+      fir_pipe_kernel<kEnc, kMode, kGated, kPeaks, kAvx, kCarry>(p);
+    }, smem);
 #else
-  fir2_kernel<kEnc, kPeakGated, kTrackPeaks, kAvx, kLift>
-      <<<blocks, kFir2Threads, 0, stream>>>(p, scratch);
+  cudaError_t err = cudaFuncSetAttribute(
+      fir_pipe_kernel<kEnc, kMode, kGated, kPeaks, kAvx, kCarry>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fir_pipe_kernel<kEnc, kMode, kGated, kPeaks, kAvx, kCarry>
+      <<<blocks, kThreads, smem, stream>>>(p);
 #endif
   return cudaGetLastError();
 }
@@ -1452,8 +1930,13 @@ cudaError_t dispatch_fused(const Params& p, const Variant& v,
               return launch<FirPackedChannel<kPeaks && kGated, kPeaks, kAvx>,
                             kEnc, kCarry>(p, s);
           }
-          return launch<FirChannel<kPeaks && kGated, kPeaks, kAvx, kI16>,
-                        kEnc, kCarry>(p, s);
+          // K3 on plain and time2 rows is the two-warp pipeline
+          if constexpr (kEnc == kPlain || kEnc == kTime2)
+            return launch_fir_pipe<kEnc, kPipeK3, kPeaks && kGated, kPeaks,
+                                   kAvx, kCarry>(p, s);
+          else
+            return launch<FirChannel<kPeaks && kGated, kPeaks, kAvx, kI16>,
+                          kEnc, kCarry>(p, s);
         });
       });
     }
@@ -1482,22 +1965,29 @@ cudaError_t dispatch_fused(const Params& p, const Variant& v,
   });
 }
 
-// K5 on encoding kEnc (the FIR family; the peak gate only with peaks).
-template <int kEnc>
-cudaError_t dispatch_fir2(const Params& p, const Variant& v, bool lift,
-                          int32_t* scratch, cudaStream_t s) {
+// The pipeline's K5 (kMode kPipeK5 or kPipeK5Lift) or its staged arm on
+// encoding kEnc: the FIR family, the peak gate only with peaks.
+template <int kEnc, int kMode>
+cudaError_t dispatch_pipe(const Params& p, const Variant& v,
+                          cudaStream_t s) {
   return pick(v.track_peaks, [&](auto tp) {
     constexpr bool kPeaks = decltype(tp)::value;
     return pick(kPeaks && v.peak_gated, [&](auto gated) {
       constexpr bool kGated = kPeaks && decltype(gated)::value;
       return pick(v.avx, [&](auto av) {
-        return pick(lift, [&](auto lf) {
-          return launch_fir2<kEnc, kGated, kPeaks, decltype(av)::value,
-                             decltype(lf)::value>(p, scratch, s);
-        });
+        return launch_fir_pipe<kEnc, kMode, kGated, kPeaks,
+                               decltype(av)::value>(p, s);
       });
     });
   });
+}
+
+// K5 on encoding kEnc; lift selects fir_twopass=2.
+template <int kEnc>
+cudaError_t dispatch_fir2(const Params& p, const Variant& v, bool lift,
+                          cudaStream_t s) {
+  return lift ? dispatch_pipe<kEnc, kPipeK5Lift>(p, v, s)
+              : dispatch_pipe<kEnc, kPipeK5>(p, v, s);
 }
 
 }  // namespace

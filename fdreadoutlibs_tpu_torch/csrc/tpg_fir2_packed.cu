@@ -3,13 +3,13 @@
 #include "tpg.cuh"
 
 cudaError_t tpg::launch_fir2_packed(const Params& p, const Variant& v,
-                                     int encoding, bool lift, int32_t* scratch,
+                                     int encoding, bool lift,
                                      cudaStream_t s) {
   switch (encoding) {
     case kPacked14:
-      return dispatch_fir2<kPacked14>(p, v, lift, scratch, s);
+      return dispatch_fir2<kPacked14>(p, v, lift, s);
     case kGather14:
-      return dispatch_fir2<kGather14>(p, v, lift, scratch, s);
+      return dispatch_fir2<kGather14>(p, v, lift, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -3,13 +3,13 @@
 #include "tpg.cuh"
 
 cudaError_t tpg::launch_fir2_unpacked(const Params& p, const Variant& v,
-                                       int encoding, bool lift, int32_t* scratch,
+                                       int encoding, bool lift,
                                        cudaStream_t s) {
   switch (encoding) {
     case kPlain:
-      return dispatch_fir2<kPlain>(p, v, lift, scratch, s);
+      return dispatch_fir2<kPlain>(p, v, lift, s);
     case kTime2:
-      return dispatch_fir2<kTime2>(p, v, lift, scratch, s);
+      return dispatch_fir2<kTime2>(p, v, lift, s);
     default:
       return cudaErrorInvalidValue;
   }

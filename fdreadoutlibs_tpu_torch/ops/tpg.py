@@ -18,10 +18,13 @@ low and 2j+1 in the high 16 bits), one sample per row
 (T, WR, 7, 128) words14 relayout; :data:`PACKED14`).  On CUDA tensors it
 launches the hand-written Hopper kernels (``csrc/tpg*.cu``, ROADMAP.md's
 names): K1 = time2 datapath, K2 = plain datapath, K3 = the FIR family on
-any, K4 = the in-kernel 14-bit unpack; K5 = the two-pass FIR schedule,
-selected by ``fir_twopass`` 1 or 2 as ``pallas_tpg.process_window_pallas``
-selects ``_fir2_kernel``; and the variants of ``_tpg_kernel`` that its
-arguments select: K2b = an int16 state (``pack_state(dtype=torch.int16)``,
+any (on plain and time2 rows a two-warp pipeline: a loader-and-front warp
+and a filter-and-hit warp per 32 channels), K4 = the in-kernel 14-bit
+unpack; K5 = the two-pass FIR schedule, selected by ``fir_twopass`` 1 or 2
+as ``pallas_tpg.process_window_pallas`` selects ``_fir2_kernel`` (the same
+pipeline with a warp each for front, filter and hit; its slabs live in
+shared memory, so it takes no scratch); and the variants of
+``_tpg_kernel`` that its arguments select: K2b = an int16 state (``pack_state(dtype=torch.int16)``,
 the native int16 arithmetic of ``fixedpoint.I16Fx`` on an int16 feed), K3b
 = ``fir_packed`` (the FIR family with the SWAR carry), K4b-gather =
 ``words14_gather`` and K4b-slab = ``words14_slab`` (the words14 unpack as a
@@ -475,15 +478,9 @@ def _check_twopass(cfg: TPGConfig, fir_twopass: int) -> None:
         raise ValueError("fir_twopass requires the FIR family")
 
 
-# the pass-A state rows, and the slabs of K5 (``csrc/tpg.cu::fir2_kernel``)
+# the pass-A state rows
 _FIR_FRONT = ("pedestals", "accum", "quantile25", "accum25", "quantile75",
               "accum75")
-
-
-def _fir2_slabs(cfg: TPGConfig, lift: bool) -> int:
-    """K5's (tc + 8, C) scratch slabs: s, sigma, is_over, to_add, filt
-    with peaks, and with lift closed plus the record words but the tick."""
-    return 4 + cfg.track_peaks + (record_words(cfg) if lift else 0)
 
 
 def process_window_twopass_plain(feed: torch.Tensor, state: torch.Tensor,
@@ -638,12 +635,38 @@ def kernels_of(cfg: TPGConfig, time_packed: bool,
     return datapath + family
 
 
+def kernel_of(cfg: TPGConfig, time_packed: bool,
+              packed14: str | None = None, fir_twopass: int = 0, *,
+              int16: bool = False, fir_packed: bool = False,
+              words14_gather: bool = False,
+              words14_slab: bool = False) -> str:
+    """The one kernel of ROADMAP.md whose code a launch runs (the effective
+    options of :func:`_options`), where :func:`kernels_of` names every
+    kernel on its datapath: K5, K2b, K4b-slab or K4b-gather, K4 for any
+    family on packed words, K3b, K3 for the FIR fused tick on plain and
+    time2 rows (the pipeline of ``csrc/tpg.cuh``), else K1 (time2) or K2
+    (plain samples) for the threshold families."""
+    if fir_twopass:
+        return "K5"
+    if int16:
+        return "K2b"
+    if packed14 is not None:
+        return "K4b-slab" if words14_slab else \
+            "K4b-gather" if words14_gather else "K4"
+    if cfg.algorithm == Algorithm.FIR:
+        return "K3b" if fir_packed else "K3"
+    return "K1" if time_packed else "K2"
+
+
 def reset_launches() -> None:
-    """Zero the launch counts: total, per kernel with the direct store,
-    and per kernel with the carry layout (:data:`SLOT_WORD_CARRY`)."""
+    """Zero the launch counts: total, per kernel on its datapath with the
+    direct store (:func:`kernels_of`), per kernel with the carry layout
+    (:data:`SLOT_WORD_CARRY`), and per kernel function whatever the layout
+    (:func:`kernel_of`)."""
     process_window.launches = 0
     process_window.kernel_launches = {k: 0 for k in KERNELS}
     process_window.carry_launches = {k: 0 for k in KERNELS}
+    process_window.function_launches = {k: 0 for k in KERNELS}
 
 
 def carry_shared_bytes(cfg: TPGConfig, tc: int, k_slots: int,
@@ -657,14 +680,13 @@ def carry_shared_bytes(cfg: TPGConfig, tc: int, k_slots: int,
     return slab + staged * record_words(cfg) * _BLOCK * 4
 
 
-# csrc/tpg.cu::tpg_launch's C signature, and tpg_fir2_launch's: the same
-# with (lift, scratch) before (device, stream)
+# csrc/tpg.cu::tpg_launch's C signature (tpg_fir_staged_launch's too), and
+# tpg_fir2_launch's: the same with lift before (device, stream)
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 8
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p] + [ctypes.c_int] * 9
              + [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-_FIR2_ARGTYPES = _ARGTYPES[:-2] + [ctypes.c_int, ctypes.c_void_p] + \
-    _ARGTYPES[-2:]
+_FIR2_ARGTYPES = _ARGTYPES[:-2] + [ctypes.c_int] + _ARGTYPES[-2:]
 
 
 def _kernel_fn(fir_twopass: int = 0):
@@ -717,8 +739,7 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
             tc: int, k_slots: int, time_packed: bool, packed14: str | None,
             device: int, stream, fir_twopass: int = 0, fir_packed=None,
             words14_gather: bool = False, words14_slab: bool = False):
-    """Allocate the outputs (and K5's scratch slabs) beside ``state`` and
-    call the C entry ``fn`` (``tpg_launch``, or ``tpg_fir2_launch`` when
+    """Allocate the outputs beside ``state`` and call the C entry ``fn`` (``tpg_launch``, or ``tpg_fir2_launch`` when
     ``fir_twopass``) on contiguous, checked tensors, with the effective
     options of :func:`_options` and the emission layout
     :data:`SLOT_WORD_CARRY` names now.  Returns (slots, nclose,
@@ -742,12 +763,7 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                          device=state.device)
     new_state = state.clone()
     floor = cfg.algorithm != Algorithm.SIMPLE_THRESHOLD or cfg.threshold < 0
-    twopass = ()
-    if fir_twopass:
-        lift = fir_twopass == 2
-        scratch = torch.empty((_fir2_slabs(cfg, lift), tc + N_FIR_TAPS, C),
-                              dtype=torch.int32, device=state.device)
-        twopass = (int(lift), scratch.data_ptr())
+    twopass = (int(fir_twopass == 2),) if fir_twopass else ()
     err = fn(
         feed.data_ptr(), *_feed_layout(feed, time_packed, packed14,
                                        words14_gather, words14_slab),
@@ -791,16 +807,24 @@ def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                   else torch.cuda.current_device(),
                   torch.cuda.current_stream(dev).cuda_stream, fir_twopass,
                   fir_packed, words14_gather, words14_slab)
+    count_launch(cfg, time_packed, packed14, fir_twopass,
+                 int16=state.dtype == torch.int16, fir_packed=fir_packed,
+                 words14_gather=words14_gather, words14_slab=words14_slab)
+    return out
+
+
+def count_launch(cfg: TPGConfig, time_packed: bool, packed14: str | None,
+                 fir_twopass: int, **opts) -> None:
+    """Count one kernel launch (its effective options; ``opts`` as
+    :func:`kernels_of` takes them) in :func:`reset_launches`'s counts."""
     process_window.launches += 1
     counts = process_window.carry_launches \
         if SLOT_WORD_CARRY and not fir_twopass \
         else process_window.kernel_launches
-    for k in kernels_of(cfg, time_packed, packed14, fir_twopass,
-                        int16=state.dtype == torch.int16,
-                        fir_packed=fir_packed, words14_gather=words14_gather,
-                        words14_slab=words14_slab):
+    for k in kernels_of(cfg, time_packed, packed14, fir_twopass, **opts):
         counts[k] += 1
-    return out
+    process_window.function_launches[
+        kernel_of(cfg, time_packed, packed14, fir_twopass, **opts)] += 1
 
 
 def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
@@ -851,6 +875,6 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                          words14_slab)
 
 
-# CUDA kernel launches (never the plain path): in all, per kernel, and per
-# kernel with the carry layout
+# CUDA kernel launches (never the plain path): in all, per kernel, per
+# kernel with the carry layout, and per kernel function
 reset_launches()

@@ -2,10 +2,12 @@
 // to compile fdreadoutlibs_tpu_torch/csrc/tpg*.cu and csrc/probes*.cu with a
 // C++ compiler and -DTPG_HOST_EMULATION (tests/test_torch_kernel_host.py).  A grid without
 // barriers runs serially, one thread after another; a block whose threads
-// meet at __syncthreads() or exchange values with __shfl_sync runs as that
-// many host threads (host_run_block), the barrier a real one among them,
-// a shuffle a meeting of the warp's lanes in its mask, and its __shared__
-// arrays (static and dynamic) are shared by them.  The kernel's arithmetic
+// meet at __syncthreads() or __syncwarp(), exchange values with
+// __shfl_sync or pass the FIR pipeline's stages runs as that many host
+// threads (host_run_block), the barrier a real one among them, a shuffle a
+// meeting of the warp's lanes in its mask, a stage barrier a host barrier
+// with the mbarrier's arrive and parity wait, its asynchronous copy a plain
+// one, and its __shared__ arrays (static and dynamic) are shared by them.  The kernel's arithmetic
 // and addressing are the card's; its scheduling, caching and timing are
 // not.
 #pragma once
@@ -22,7 +24,7 @@
 #define __host__
 #define __global__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 // blocks run one at a time, so one static array serves as a block's
 #define __shared__ static
 
@@ -139,6 +141,43 @@ T __shfl_sync(unsigned mask, T value, int src) {
   warp.meet.wait(n);   // nobody writes again before every lane has read
   return out;
 }
+
+// A warp's lanes meet (all 32 of them).
+inline void __syncwarp() { host_block_warps[threadIdx.x / 32].meet.wait(32); }
+
+// The FIR pipeline's stage barrier (an mbarrier on the card): `count`
+// arrivals complete a phase; a wait for parity p returns once the phase of
+// that parity has completed, as mbarrier.try_wait.parity does.
+struct StageBar {
+  std::mutex mu;
+  std::condition_variable cv;
+  unsigned count = 0, pending = 0, phase = 0;   // phase: phases completed
+};
+
+inline void stage_bar_init(StageBar* bar, unsigned count) {
+  std::lock_guard<std::mutex> lock(bar->mu);
+  bar->count = bar->pending = count;
+  bar->phase = 0;
+}
+
+inline void stage_bar_arrive(StageBar* bar) {
+  std::lock_guard<std::mutex> lock(bar->mu);
+  if (--bar->pending == 0) {
+    bar->pending = bar->count;
+    ++bar->phase;
+    bar->cv.notify_all();
+  }
+}
+
+inline void stage_bar_wait(StageBar* bar, unsigned parity) {
+  std::unique_lock<std::mutex> lock(bar->mu);
+  bar->cv.wait(lock, [&] { return (bar->phase & 1u) != parity; });
+}
+
+// The pipeline's asynchronous copy as a plain one, landed at once, and
+// its arrival on the stage's barrier.
+inline void stage_copy(int32_t* dst, const int32_t* src) { *dst = *src; }
+inline void stage_copy_arrive(StageBar* bar) { stage_bar_arrive(bar); }
 
 // The block's dynamic shared memory (the launch's byte count).
 template <class T>

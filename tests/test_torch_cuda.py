@@ -69,10 +69,14 @@ def card():
                          ids=["time2", "plain"])
 @pytest.mark.parametrize("cfg", CONFIGS + FIR_CONFIGS, ids=IDS)
 @pytest.mark.parametrize("C,stride,T,tc", [(2560, 2560, 1024, 256),
-                                           (200, 256, 1000, 200)])
+                                           (200, 256, 1000, 200),
+                                           (96, 96, 336, 112),
+                                           (160, 160, 300, 150)])
 def test_kernel_matches_plain(card, cfg, C, stride, T, tc, time_packed):
     """tc=200 leaves an 8-tick tail group in every chunk (the FIR ring's
-    realignment); stride > C reads a padded feed."""
+    realignment); stride > C reads a padded feed; 96 and 160 channels are a
+    ProtoWIB plane's, with chunks that are no whole 32-tick stage of the
+    FIR pipeline (tc = 112, 150)."""
     k = 4
     if cfg.algorithm == Algorithm.FIR:
         adcs, rmf = fir_stream(T, C, tc, k, seed=C), 0
@@ -237,12 +241,15 @@ def test_wib2_processors_on_card_match_cpu(card):
 
 @pytest.mark.parametrize("fir_twopass", [1, 2])
 @pytest.mark.parametrize("cfg", FIR_CONFIGS, ids=IDS[len(CONFIGS):])
-@pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (208, 1000, 200)])
+@pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (208, 1000, 200),
+                                   (96, 336, 112), (160, 300, 150)])
 def test_k5_matches_k3_and_plain(card, cfg, C, T, tc, fir_twopass):
     """K5, the two-pass FIR schedule, on every encoding (plain, time2,
     frame words, words14 rows): bit-equal to its plain version and to K3
     on the same inputs.  C = 208 leaves the last 32-channel block partly
-    empty; tc = 200 is no whole number of 16-tick groups."""
+    empty; tc = 200 is no whole number of 16-tick groups; 96 and 160
+    channels (a ProtoWIB plane) with tc = 112 and 150, no whole number of
+    32-tick stages."""
     k = 4
     adcs = fir_stream(T, C, tc, k, seed=C + 2)
     state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], 0), C,
@@ -266,6 +273,32 @@ def test_k5_matches_k3_and_plain(card, cfg, C, T, tc, fir_twopass):
             assert torch.equal(g, w), (time2, packed14)
             assert torch.equal(g, f), (time2, packed14)
     assert int(want[1].max()) > k                 # drops exercised
+
+
+@pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (160, 300, 150)])
+def test_fir_pipeline_is_deterministic(card, C, T, tc):
+    """The FIR pipeline's warps meet only at its stage barriers: K3 on
+    plain and time2 rows and K5 under fir_twopass 1 and 2, each launched 50
+    times on the same inputs, give bit-identical slots, nclose and state
+    every time, equal to the plain version."""
+    cfg = FIR_CONFIGS[1]
+    k = 4
+    adcs = fir_stream(T, C, tc, k, seed=C + 5)
+    state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], 0), C,
+                           device=card)
+    plain = torch.from_numpy(adcs).to(card)
+    want = tpg.process_window_plain(plain, state, cfg, tc, k, False)
+    assert int(want[1].max()) > k                 # drops exercised
+    for feed, time2, twopass in ((plain, False, 0),
+                                 (torch.from_numpy(time2_words(adcs)).to(
+                                     card), True, 0),
+                                 (plain, False, 1), (plain, False, 2)):
+        runs = [tpg.process_window(feed, state, cfg, tc, k, time2,
+                                   fir_twopass=twopass) for _ in range(50)]
+        torch.cuda.synchronize()
+        for got in runs:
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (time2, twopass)
 
 
 def _tuned(tmp_path, monkeypatch, twopass):

@@ -3,15 +3,19 @@
 ``csrc/probes*.cu`` compiled with the host C++ compiler against a stand-in
 CUDA runtime
 (``tests/cuda_host/cuda_runtime.h``, ``-DTPG_HOST_EMULATION``: a grid
-without barriers runs serially; the blocks of K5, K4b-slab and K4b-gather
-run as host threads that meet at a real barrier or shuffle), called
+without barriers runs serially; the blocks of the FIR pipeline (K3, K5),
+K4b-slab and K4b-gather run as host threads that meet at a real barrier
+or shuffle), called
 through the wrapper's own argument marshalling (``ops/tpg._launch``) and
 held bit-equal to the plain version for every encoding (K1 time2, K2
 plain, K4 frame words and words14 rows, K4b-gather and K4b-slab on words14
 rows) and family (K3 FIR, K3b with the SWAR carry, the float running sum),
 the int16 state (K2b), and K5 (fir_twopass 1 and 2, also through the
 gather) for the FIR variants, at a shape with whole 16-tick groups and one
-with a ragged chunk tail or a partly empty block and warp.  The carry
+with a ragged chunk tail or a partly empty block and warp; the FIR
+pipeline (K3 on plain and time2 rows, K5, the staged arm; its warps as
+host threads, its stage barriers and copies the stand-in's) also at
+ProtoWIB plane widths and chunks that are no whole stage.  The carry
 layout runs every encoding and variant with the flag flipped, below, at and
 above its register ceiling; the probes' kernels (P1-P3) run through their
 modules' own marshalling against their plain versions.  What only the
@@ -142,27 +146,64 @@ def test_kernel_source_matches_plain(host_kernel, name):
         assert int((want[0][:, :, -1] != 0).sum()) > 0
 
 
-@pytest.mark.parametrize("fir_twopass", [1, 2])
+# K3's and K5's shapes on the pipeline (csrc/tpg.cuh::fir_pipe_kernel,
+# 32-channel blocks, 32-tick stages): whole stages; a last block partly
+# empty (C = 208) with a ragged tail that is no whole 16-tick group
+# (tc = 50); 96 and 160 channels, a ProtoWIB plane's, with tc = 112 (whole
+# groups, not whole stages) and tc = 150 (neither); several chunks each.
+PIPE_SHAPES = [(256, 320, 64), (208, 200, 50), (96, 336, 112),
+               (160, 300, 150)]
+
+
+@pytest.mark.parametrize("fir_twopass", [1, 2, 0])
 @pytest.mark.parametrize("name", [n for n in CONFIGS if n.startswith("FIR")])
-def test_fir2_kernel_source_matches_plain(host_fir2, name, fir_twopass):
-    """K5 (``tpg_fir2_launch``) on every encoding, against K5's plain
-    version, which equals K3's (tests/test_torch_fir2.py): a shape whose
-    last block is partly empty (C = 200 is not a multiple of 32 channels),
-    a ragged chunk tail (tc = 50), window carry across chunks, drops."""
+def test_fir2_kernel_source_matches_plain(host_kernel, host_fir2, name,
+                                          fir_twopass):
+    """The FIR pipeline on every encoding at PIPE_SHAPES: K5
+    (``tpg_fir2_launch``, fir_twopass 1 and 2) against K5's plain version,
+    which equals K3's (tests/test_torch_fir2.py), and K3 (``tpg_launch``,
+    fir_twopass 0; K4's FIR on packed words) against its own; state carried
+    across chunks, drops."""
     cfg = CONFIGS[name]
     k = 2
-    for C, T, tc in [(256, 320, 64), (208, 200, 50)]:
+    for C, T, tc in PIPE_SHAPES:
         feeds, state = _inputs(cfg, C, T, tc, k)
-        want = tpg.process_window_twopass_plain(feeds[0][0], state, cfg, tc,
-                                                k, fir_twopass, False)
+        want = tpg.process_window_twopass_plain(
+            feeds[0][0], state, cfg, tc, k, fir_twopass, False) \
+            if fir_twopass else tpg.process_window_plain(
+                feeds[0][0], state, cfg, tc, k, False)
         for feed, time2, packed14 in feeds:
             if time2 and tc % 2:
                 continue
-            got = tpg._launch(host_fir2, feed, state, cfg, tc, k, time2,
-                              packed14, 0, None, fir_twopass)
+            got = tpg._launch(host_fir2 if fir_twopass else host_kernel,
+                              feed, state, cfg, tc, k, time2, packed14, 0,
+                              None, fir_twopass)
             for g, w in zip(got, want):
-                assert torch.equal(g, w), (C, time2, packed14)
+                assert torch.equal(g, w), (C, tc, time2, packed14)
         assert int(want[1].max()) > k
+
+
+@pytest.mark.parametrize("name", [n for n in CONFIGS if n.startswith("FIR")])
+def test_fir_staged_arm_source_matches_plain(host_lib, name):
+    """The pipeline's staged arm (``tpg_fir_staged_launch``: one warp, the
+    whole tick on the staged feed) on plain and time2 rows at PIPE_SHAPES,
+    against K3's plain version."""
+    fn = host_lib.tpg_fir_staged_launch
+    fn.argtypes = tpg._ARGTYPES
+    fn.restype = ctypes.c_int
+    cfg = CONFIGS[name]
+    k = 2
+    for C, T, tc in PIPE_SHAPES:
+        feeds, state = _inputs(cfg, C, T, tc, k)
+        want = tpg.process_window_plain(feeds[0][0], state, cfg, tc, k,
+                                        False)
+        for feed, time2, _ in feeds[:2]:
+            if time2 and tc % 2:
+                continue
+            got = tpg._launch(fn, feed, state, cfg, tc, k, time2, None, 0,
+                              None)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (C, tc, time2)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))

@@ -103,8 +103,8 @@ def test_flag_is_read_at_launch(fir_twopass):
     state = torch.zeros((tpg.KSTATE, 64), dtype=torch.int32)
     feed = torch.zeros((64, 64), dtype=torch.int32)
     fn = _Recorder()
-    # the flag stands before (lift, scratch,) device, stream
-    at = -5 if fir_twopass else -3
+    # the flag stands before (lift,) device, stream
+    at = -4 if fir_twopass else -3
     tpg._launch(fn, feed, state, cfg, 32, 2, False, None, 0, None,
                 fir_twopass)
     with slot_word_carry():
