@@ -10,12 +10,15 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 2. build   — compiles the kernel library's translation units
    (``fdreadoutlibs_tpu_torch/csrc/tpg*.cu``, one ``nvcc`` each, all at
    once) and summarizes ``ptxas -v`` (registers, stack, spills; the FIR
-   kernels side by side: the pipeline's K3, K5 and staged arm, K3b and
-   FirChannel on packed words);
+   kernels side by side: the pipeline's K3 on plain, time2 and packed
+   rows, K5 and staged arm, and K3b; every instantiation of the threshold
+   families' pipeline, K2 and K4 with both emission layouts and their
+   staged arms);
 3. kernel  — the hand-written kernel against its plain PyTorch version on
    the card at T=8192 ticks x 2560 channels (tc=256, K=4): K1 (time2
    datapath) and K2 (plain-sample datapath) for SimpleThreshold, AbsRS and
-   StandardRS (K2 also for AbsRS with the float running sum, ``rs_float``),
+   StandardRS (K2 also for AbsRS with the float running sum, ``rs_float``;
+   K2's time beside K1's on the same samples for each family),
    K3 (FIR, threshold 5) on both datapaths with and without
    peak tracking.  Slots, nclose and state must be bit-equal and some
    chunk must close more than K hits (drops exercised); both are timed.
@@ -88,9 +91,10 @@ if they do not load, so no host stage is timed on the numpy fallback.
 Phase 3 also holds K5 (fir_twopass 1 and 2, peaks off and on, plain and
 time2 datapaths) bit-equal to K3 and to the plain result K3 was held to on
 the same inputs, and to K5's own plain version once per schedule, and
-times both in the same call (K3 on plain and time2 rows and K5 are the FIR
-pipeline of ``csrc/tpg.cuh``; phase 8 reads each of its warps' group loops
-in the machine code and gives the chain floor beside the time).  It then holds
+times both in the same call (K3 and K5, and the threshold families' K2 and
+K4, are the pipeline of ``csrc/tpg.cuh``; phase 8 reads each of its warps'
+group loops in the machine code and gives the chain floor beside the
+time).  It then holds
 the variants of the fused tick on the same inputs, each timed beside the
 kernel it varies and held once to its own plain version: K3b
 (``fir_packed``) on K3's plain (peaks off and on), time2 and words14 feeds,
@@ -275,40 +279,81 @@ def ptxas_kernels(log: str) -> dict:
     return out
 
 
-# csrc/tpg.cuh::fir_pipe_kernel's modes (its second template argument)
+# csrc/tpg.cuh::pipe_kernel's modes (its second template argument) and
+# the encodings (its first)
 PIPE_MODES = {"0": "staged arm", "1": "K3", "2": "K5 twopass 1",
-              "3": "K5 twopass 2"}
+              "3": "K5 twopass 2", "4": "threshold"}
+ENCODINGS = {"0": "plain", "1": "time2", "2": "packed14", "3": "gather14"}
+# a kernel's name: its template, its channel type and arguments, and the
+# emission layout (the last template argument)
+_PIPE = re.compile(r"pipe_kernelILi(\d)ELi(\d)EN\w*?\d+(FirChannel|"
+                   r"ThresholdChannel)I(\w+?)EELb(\d)EEEv")
+_FUSED = re.compile(r"tpg_(?:slab_)?kernelINS_(?:10FirChannel|"
+                    r"16FirPackedChannel)ILb(\d)ELb(\d)ELb(\d)E"
+                    r"(?:Lb(\d)E)?")
+_CARRY = re.compile(r"Lb(\d)EEEvN3tpg6ParamsE$")
+_THRESHOLDS = {"0": "SimpleThreshold", "1": "AbsRS", "2": "StandardRS"}
+
+
+def pipe_name(name: str) -> str | None:
+    """A short name of a pipeline kernel ("K2 AbsRS plain gated floor
+    rs_float carry", "K3 packed14 peaks", ...), or None for another
+    kernel."""
+    m = _PIPE.search(name)
+    if m is None:
+        return None
+    enc, mode, channel, args, carry = m.groups()
+    flags = re.findall(r"L([ib])(\d)E", args)
+    words = [PIPE_MODES[mode]]
+    if channel == "ThresholdChannel":
+        fam, gated, floor, _, rs_float = (v for _, v in flags)
+        if mode == "4":
+            words[0] = "K2" if enc == "0" else "K4"
+        words.append(_THRESHOLDS[fam])
+        words += [w for w, v in (("gated", gated), ("floor", floor),
+                                 ("rs_float", rs_float)) if v == "1"]
+    else:
+        gated, peaks, avx, _ = (v for _, v in flags)
+        words += [w for w, v in (("gated", gated), ("peaks", peaks),
+                                 ("naive", "0" if avx == "1" else "1"))
+                  if v == "1"]
+    words.insert(1, ENCODINGS[enc])
+    if carry == "1":
+        words.append("carry")
+    return " ".join(words)
 
 
 def fir_registers(kernels: dict) -> dict:
-    """The FIR kernels on an int32 state, direct store: the pipeline's
-    (K3 on plain and time2 rows, K5 on every encoding, the staged arm), K3b
-    and FirChannel's fused tick on packed words (K4's FIR): {kernel:
-    {"peaks" or "no peaks": (min regs, max regs, max spill B)}}."""
-    fused = re.compile(r"tpg_(?:slab_)?kernelINS_(?:10FirChannel|"
-                       r"16FirPackedChannel)ILb(\d)ELb(\d)ELb(\d)E"
-                       r"(?:Lb(\d)E)?")
-    pipe = re.compile(r"fir_pipe_kernelILi\d+ELi(\d)ELb\dELb(\d)ELb\dE"
-                      r"Lb(\d)E")
+    """The FIR kernels on an int32 state: the pipeline's (K3 on plain,
+    time2 and packed rows, K5 on every encoding, the staged arm; direct
+    store and carry), and K3b's fused tick: {kernel: {"peaks" or "no
+    peaks": (min regs, max regs, max spill B)}}."""
     out = {}
     for name, (regs, spill) in kernels.items():
-        m, mp = fused.search(name), pipe.search(name)
-        if mp is not None:
-            kern = PIPE_MODES[mp.group(1)] + (" carry" if mp.group(3) == "1"
-                                              else "")
-            peaks = mp.group(2)
-        elif m is not None and m.group(4) != "1" and \
-                "tpg_carry_" not in name:
-            # int16 is K2b's; the carry layout's units are reported apart
-            kern = "K3b" if "FirPackedChannel" in name else \
-                "FirChannel (FIR on packed words)"
-            peaks = m.group(2)
+        m, mp = _FUSED.search(name), _PIPE.search(name)
+        if mp is not None and mp.group(3) == "FirChannel":
+            enc, mode, _, args, carry = mp.groups()
+            kern = PIPE_MODES[mode] + \
+                (f" {ENCODINGS[enc]}" if enc in ("2", "3") else "") + \
+                (" carry" if carry == "1" else "")
+            peaks = re.findall(r"Lb(\d)E", args)[1]
+        elif m is not None and "FirPackedChannel" in name and \
+                m.group(4) != "1" and _CARRY.search(name).group(1) == "0":
+            kern, peaks = "K3b", m.group(2)
         else:
             continue
         key = "peaks" if peaks == "1" else "no peaks"
         lo, hi, sp = out.setdefault(kern, {}).get(key, (999, 0, 0))
         out[kern][key] = (min(lo, regs), max(hi, regs), max(sp, spill))
     return out
+
+
+def threshold_registers(kernels: dict) -> dict:
+    """Every instantiation of the threshold families' pipeline (K2, K4,
+    direct store and carry, and their staged arms): {short name:
+    [registers, spill store B]}."""
+    return {pipe_name(name): list(v) for name, v in sorted(kernels.items())
+            if "ThresholdChannel" in name and pipe_name(name) is not None}
 
 
 def plain_app_hits(adcs_batches, rmf, cfg, k_slots: int, dev):
@@ -430,7 +475,7 @@ def kernel_vs_plain(dev):
     k3 = {}         # K3 label -> (feed, state, cfg, time2, result, ms)
     k4 = {}         # K4 label -> (feed, ms)
 
-    case_ms = {}    # plain-datapath label -> the kernel's ms
+    case_ms = {}    # label -> the kernel's ms
 
     def record(kern, label, err, ms, plain_ms, work, base=None, case=None):
         """``base``: (the kernel it varies, its ms on the same inputs);
@@ -469,9 +514,9 @@ def kernel_vs_plain(dev):
         err = check_equal(label, got, want)
         what = check_strong(label, got)
         ms = time_kernel(run, 20, flush)
+        case_ms[label] = ms
         if not time2:
             plain[label] = (a, cfg, state, want)
-            case_ms[label] = ms
         if kern == "K3":
             k3[label] = (feed, state, cfg, time2, got, ms, want)
         print(f"  {kern} {label}: T={T_APA} x {C_APA} ch bit-equal ({what}); "
@@ -481,6 +526,15 @@ def kernel_vs_plain(dev):
         record(kern, label, err, ms, plain_ms,
                kernel_work(feed, cfg, "time2" if time2 else "plain", T_APA,
                            C_APA), case=(run, want))
+
+    # K2, the threshold pipeline, beside K1, tpg_kernel's tick, on the same
+    # samples (K1's time2 words split back into K2's rows), timed in this
+    # call
+    for fam in thr:
+        k2_ms, k1_ms = case_ms[f"{fam} plain"], case_ms[f"{fam} time2"]
+        print(f"  K2 (pipeline) vs K1 (one thread per channel) on the same "
+              f"{fam} samples: {k2_ms:.4f} / {k1_ms:.4f} ms/batch = "
+              f"{k2_ms / k1_ms:.4f}", flush=True)
 
     # K4: the same ADCs as packed words.  Its plain version is the torch
     # unpack and then K2's (K3's) plain loop: the unpack is checked equal to
@@ -1313,25 +1367,29 @@ def kernel_entries(dev) -> dict:
 
 def carry_registers(kernels: dict) -> dict:
     """``ptxas -v`` of the fused ticks, the carry layout against the direct
-    store: {family: {"direct": [min, max registers], "carry": [min, max],
-    "carry_spill_B": max}} over the encodings and variants."""
+    store: {family (" pipeline" for pipe_kernel's K2, K3 and K4): {"direct":
+    [min, max registers], "carry": [min, max], "carry_spill_B": max}} over
+    the encodings and variants; K5 and the staged arms have the direct
+    store only."""
     fam = {"ThresholdChannelILi0": "SimpleThreshold",
            "ThresholdChannelILi1": "AbsRS",
            "ThresholdChannelILi2": "StandardRS", "10FirChannel": "FIR",
-           "fir_pipe_kernel": "FIR pipeline (K3)",
            "16FirPackedChannel": "FIR fir_packed"}
     out = {}
     for name, (regs, spill) in kernels.items():
-        # K5 and the staged arm have the direct store only
-        if "fir_pipe_kernel" in name and \
-                not re.search(r"fir_pipe_kernelILi\d+ELi1E", name):
+        mp = _PIPE.search(name)
+        if mp is not None and mp.group(2) not in ("1", "4"):
             continue
-        arm = "carry" if "tpg_carry_" in name else "direct"
+        m = _CARRY.search(name)
+        if m is None:
+            continue
+        arm = "carry" if m.group(1) == "1" else "direct"
         for pat, family in fam.items():
             if pat in name:
-                o = out.setdefault(family, {"direct": [999, 0],
-                                            "carry": [999, 0],
-                                            "carry_spill_B": 0})
+                key = family + (" pipeline" if mp is not None else "")
+                o = out.setdefault(key, {"direct": [999, 0],
+                                         "carry": [999, 0],
+                                         "carry_spill_B": 0})
                 o[arm] = [min(o[arm][0], regs), max(o[arm][1], regs)]
                 if arm == "carry":
                     o["carry_spill_B"] = max(o["carry_spill_B"], spill)
@@ -1345,22 +1403,24 @@ MIX_OPS, FRUGAL_OPS = 5, 9
 
 
 def pipeline_rows(kernels: dict, summary: dict, mhz: float) -> dict:
-    """The FIR pipeline's warps (phase 8): each group loop's machine code,
-    its longest chain of register dependences per tick, and the time that
-    chain alone takes at the dependent-op latency P1 measured (the chain
-    floor).  Returns the extra keys of the K3 and K5 rows, with their
-    cycles per tick per thread (``roofline.summarize``)."""
+    """The pipeline's warps (phase 8): each group loop's machine code, its
+    longest chain of register dependences per tick, and the time that chain
+    alone takes at the dependent-op latency P1 measured (the chain floor),
+    for every instantiation the probe reports (``fir_pipe.REPORTED``).
+    Returns the extra keys of the K2, K3, K4 and K5 rows, with their cycles
+    per tick per thread (``roofline.summarize``)."""
     pipe = fir_pipe.pipe_sass(_build.sass("tpg"))
     floors = fir_pipe.chain_floor_ms(pipe, summary["tpg_cycles_per_dep_op"],
                                      mhz)
     for label, roles in pipe.items():
-        print(f"  FIR pipeline {label}: chain floor {floors[label]:.4f} ms; "
+        print(f"  pipeline {label}: chain floor {floors[label]:.4f} ms; "
               "group loop (16 ticks) per warp:",
               json.dumps({role: {"insns": r["insns"],
                                  "chain_per_tick": r["chain_per_tick"]}
                           for role, r in roles.items()}))
     out = {}
-    for k, label in (("K3", "K3"), ("K5", "K5 twopass 2")):
+    for k, label in (("K2", "K2 AbsRS"), ("K3", "K3"), ("K4", "K4 AbsRS"),
+                     ("K5", "K5 twopass 2")):
         r = summary["kernels"][f"{k} ({kernels[k]['timed']})"]
         out[k] = {"cycles_per_tick": r["cycles_per_tick_per_thread"],
                   "chain_floor_ms": floors[label],
@@ -1606,9 +1666,13 @@ def main() -> int:
             _build.load(lib_name)
         if "tpg" in _build.build_log:
             regs = ptxas_kernels(_build.build_log["tpg"])
-            print("  ptxas FIR kernels: the pipeline (K3, K5, the staged "
-                  "arm), K3b, FirChannel (registers min, max, spill stores "
-                  "B):", json.dumps(fir_registers(regs)))
+            print("  ptxas FIR kernels: the pipeline (K3 on plain, time2 "
+                  "and packed rows, K5, the staged arm), K3b (registers "
+                  "min, max, spill stores B):",
+                  json.dumps(fir_registers(regs)))
+            print("  ptxas threshold pipeline, every instantiation (K2, K4, "
+                  "their carry layout and staged arms; registers, spill "
+                  "stores B):", json.dumps(threshold_registers(regs)))
             print("  ptxas direct store vs SLOT_WORD_CARRY (registers min, "
                   "max):", json.dumps(carry_registers(regs)))
         # the host codecs timed below must be the native library's

@@ -2,7 +2,8 @@
 // kernels are in tpg.cuh; each tpg_<encoding>.cu instantiates them for one
 // input encoding (tpg_int16.cu for the int16 state, tpg_fir2_*.cu for K5),
 // so the units build in parallel and link into one library
-// (ops/_build.py; tpg_fir_staged.cu the pipeline's staged arm).
+// (ops/_build.py; tpg_fir_staged.cu and tpg_threshold_staged.cu the
+// pipeline's staged arms).
 #include "tpg.cuh"
 
 namespace {
@@ -175,9 +176,11 @@ extern "C" int tpg_fir2_launch(
   }
 }
 
-// tpg_fir_staged_launch: the pipeline's staged arm (the FIR family on plain
-// or time2 rows, int32 state, direct store), with tpg_launch's arguments;
-// the probes time it against K3.  Same outputs as K3.
+// The pipeline's staged arms (one warp, the whole fused tick on a staged
+// feed, int32 state, direct store), with tpg_launch's arguments; the probes
+// time them against the pipeline.  Same outputs as the fused tick.
+//
+// tpg_fir_staged_launch: the FIR family on plain or time2 rows, against K3.
 extern "C" int tpg_fir_staged_launch(
     const void* feed, int feed_stride, int encoding, int groups_per_row,
     int group_outer, int group_inner, int word_stride, int n_chunks,
@@ -187,8 +190,6 @@ extern "C" int tpg_fir_staged_launch(
     int rs_scale_factor_x10, const int* taps, int tap_exponent, int adc_max,
     int sigma_cap, int thr_mult, int int16, int fir_packed, int rs_float,
     int slot_word_carry, int device, void* stream) {
-  (void)charge_floor;
-  (void)rs_float;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
@@ -200,9 +201,38 @@ extern "C" int tpg_fir_staged_launch(
                    threshold, accumulator_limit, rs_scale_factor_x10, taps,
                    tap_exponent, adc_max, sigma_cap, thr_mult))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Variant v{family, peak_gated != 0, false, track_peaks != 0,
-                  avx != 0, false, false};
+  const Variant v{family, peak_gated != 0, charge_floor != 0,
+                  track_peaks != 0, avx != 0, false, rs_float != 0};
   return static_cast<int>(launch_fir_staged(
+      p, v, encoding, static_cast<cudaStream_t>(stream)));
+}
+
+// tpg_threshold_staged_launch: SimpleThreshold, AbsRS and StandardRS
+// (rs_float included) on plain samples or packed 14-bit words (kPacked14),
+// against K2 and K4.
+extern "C" int tpg_threshold_staged_launch(
+    const void* feed, int feed_stride, int encoding, int groups_per_row,
+    int group_outer, int group_inner, int word_stride, int n_chunks,
+    int ticks_per_chunk, void* state, int n_channels, void* slots,
+    void* nclose, int k_slots, int family, int peak_gated, int charge_floor,
+    int track_peaks, int avx, int threshold, int accumulator_limit,
+    int rs_scale_factor_x10, const int* taps, int tap_exponent, int adc_max,
+    int sigma_cap, int thr_mult, int int16, int fir_packed, int rs_float,
+    int slot_word_carry, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params p;
+  if (family < kSimpleThreshold || family >= kFIR || int16 || fir_packed ||
+      slot_word_carry || (encoding != kPlain && encoding != kPacked14) ||
+      !make_params(p, feed, feed_stride, encoding, groups_per_row,
+                   group_outer, group_inner, word_stride, n_chunks,
+                   ticks_per_chunk, state, n_channels, slots, nclose, k_slots,
+                   threshold, accumulator_limit, rs_scale_factor_x10, taps,
+                   tap_exponent, adc_max, sigma_cap, thr_mult))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Variant v{family, peak_gated != 0, charge_floor != 0,
+                  track_peaks != 0, avx != 0, false, rs_float != 0};
+  return static_cast<int>(launch_threshold_staged(
       p, v, encoding, static_cast<cudaStream_t>(stream)));
 }
 

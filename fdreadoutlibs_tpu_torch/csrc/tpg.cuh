@@ -1,6 +1,6 @@
 // The SWTPG tick for Hopper: the kernels of ROADMAP.md, shared by the
 // translation units csrc/tpg*.cu (one per input encoding, one for the
-// int16 state, two for K5, one for the FIR pipeline's staged arm, six
+// int16 state, two for K5, two for the pipeline's staged arms, six
 // tpg_carry_*.cu for the SLOT_WORD_CARRY layout; tpg.cu holds the C
 // entries).
 //
@@ -8,13 +8,14 @@
 //   K1  the time2 datapath (time_packed=True, tick 2j in the low and 2j+1 in
 //       the high 16 bits of a word) for SimpleThreshold, AbsRS, StandardRS;
 //   K2  the plain-sample datapath (time_packed=False, one int32 sample per
-//       row; _decode_ticks :399-400), for the same families;
-//   K3  the FIR+IQR family (:464-490, :556-560), on any datapath: on plain
-//       and time2 rows a two-warp pipeline (fir_pipe_kernel below), on
-//       packed words FirChannel's fused tick;
+//       row; _decode_ticks :399-400), for the same families: the
+//       warp-specialised pipeline (pipe_kernel below, kPipeThreshold);
+//   K3  the FIR+IQR family (:464-490, :556-560), on any datapath: on plain,
+//       time2 and packed rows a two-warp pipeline (pipe_kernel, kPipeK3);
 //   K4  the in-kernel 14-bit unpack (_unpack14_rows :241-265, reached via
 //       _decode_ticks :396-398): packed WIBEth words, 16 channels in 7
-//       words, read as they arrive, for every family;
+//       words, for every family, staged into the pipeline's ring and
+//       decoded there (kPipeThreshold; kPipeK3 for FIR);
 //   K2b the native int16 state (i16_mode :475-476, fixedpoint.I16Fx): every
 //       family on int16 state and feed, plain datapath only;
 //   K3b the FIR family with the SWAR carry (fir_packed, :466-501, :522-525,
@@ -26,7 +27,7 @@
 // and pallas_tpg.py::_fir2_kernel:
 //   K5  the two-pass FIR schedule (fir_twopass 1 and 2, :585-765), on any
 //       datapath: the pipeline with a warp each for the front, the filter
-//       and the hit chain (its note is at fir_pipe_kernel below).
+//       and the hit chain (its note is at pipe_kernel below).
 // The input encoding is the template parameter kEnc; the family, the state
 // type and the carry layout are the channel type.
 // The arithmetic is ops/step.py::dispatch_tick (tpg_tick, and
@@ -36,28 +37,27 @@
 // process_window_twopass_plain) run those very functions on torch tensors,
 // and the two are compared bit for bit.
 //
-// Design (the fused tick; the FIR pipeline has its own note below).  One
-// thread owns one channel; consecutive threads take
-// consecutive channels, so every feed load and slot store of a warp is
-// coalesced.  The grid is ceil(C/128) blocks of 128 threads.  Inside a
-// thread a serial loop runs over chunks and, within a chunk, over groups of
-// kGroup = 16 ticks with the whole live ChanState in registers: the group's
-// feed values (8 time2 words, 16 samples, or 16 pairs of packed words) are
-// loaded before its ticks so their latency overlaps the chain.  The ticks
-// of a group are expanded at compile time (std::integer_sequence), so the
-// FIR ring of the previous 8 samples is 8 registers addressed by constant
-// indices: tick u of a group
-// reads ring[(u + j) % 8] oldest-first and overwrites ring[u % 8] with its
-// sample — nothing moves per tick, as the Pallas kernel's tuple rotation.
-// kGroup is a multiple of 8, so the ring is back in canonical order after
-// every full group; a chunk's ragged tail group (tc % 16 ticks) is guarded
-// per tick and followed by one explicit rotation.  A close writes its
-// record (2 or 3 words: [charge<<16|tover, (peak<<16|ptime,) end+1]) with
-// direct stores to slots[chunk][nclose][w][c] while nclose < K; nclose
-// counts every close (drops included), is stored at each chunk end and
-// restarts at 0.  The slot buffer must arrive zeroed (an empty slot is a
-// zero end word).  State is read once and written back once, in place;
-// rows outside the family's live set pass through.
+// Design (the fused tick of tpg_kernel: K1, K2b, K3b, K4b-gather; the pipeline
+// has its own note below).  One thread owns one channel; consecutive threads
+// take consecutive channels, so every feed load and slot store of a warp is
+// coalesced.  The grid is ceil(C/128) blocks of 128 threads.  Inside a thread a
+// serial loop runs over chunks and, within a chunk, over groups of kGroup = 16
+// ticks with the whole live ChanState in registers: the group's feed values (8
+// time2 words, 16 samples, or 16 pairs of packed words) are loaded before its
+// ticks so their latency overlaps the chain.  The ticks of a group are expanded
+// at compile time (std::integer_sequence), so the FIR ring of the previous 8
+// samples is 8 registers addressed by constant indices: tick u of a group reads
+// ring[(u + j) % 8] oldest-first and overwrites ring[u % 8] with its sample —
+// nothing moves per tick, as the Pallas kernel's tuple rotation. kGroup is a
+// multiple of 8, so the ring is back in canonical order after every full group;
+// a chunk's ragged tail group (tc % 16 ticks) is guarded per tick and followed
+// by one explicit rotation.  A close writes its record (2 or 3 words:
+// [charge<<16|tover, (peak<<16|ptime,) end+1]) with direct stores to
+// slots[chunk][nclose][w][c] while nclose < K; nclose counts every close (drops
+// included), is stored at each chunk end and restarts at 0.  The slot buffer
+// must arrive zeroed (an empty slot is a zero end word).  State is read once
+// and written back once, in place; rows outside the family's live set pass
+// through.
 //
 // What bounds it on this card: the per-tick dependency chain (RS: two
 // frugal updates, the division and the hit chain; FIR: the IQR and pedestal
@@ -235,10 +235,13 @@ cudaError_t launch_fir2_unpacked(const Params& p, const Variant& v,
                                  int encoding, bool lift, cudaStream_t s);
 cudaError_t launch_fir2_packed(const Params& p, const Variant& v,
                                int encoding, bool lift, cudaStream_t s);
-// the pipeline's staged arm (one warp, the whole FIR tick on a staged
-// feed) on plain and time2 feeds
+// the pipeline's staged arms (one warp, the whole fused tick on a staged
+// feed): FIR on plain and time2 feeds, the threshold families on plain
+// samples and packed 14-bit words
 cudaError_t launch_fir_staged(const Params& p, const Variant& v,
                               int encoding, cudaStream_t s);
+cudaError_t launch_threshold_staged(const Params& p, const Variant& v,
+                                    int encoding, cudaStream_t s);
 
 }  // namespace tpg
 
@@ -451,51 +454,75 @@ __device__ __forceinline__ void slot_emit(CarrySlots<kWords, kStride>* slots,
   slots->emit(nclose, w0, w1, end_word);
 }
 
-// step.py::tpg_tick: SimpleThreshold, AbsRS, StandardRS.
-template <int kFamily, bool kPeakGated, bool kChargeFloor, bool kI16,
-          bool kRsFloat>
-struct ThresholdChannel {
-  using State = StateT<kI16>;
-  static constexpr int kWords = 3;
-  int ped, acc, charge, tover, peak_adc, peak_time;
-  int prev_over, rs, ped_rs, acc_rs, mf;
-  int nclose;
+// step.py::tpg_tick's hit chain after the close test: the saturating
+// charge (floored with kChargeFloor) and tover, the peak registers (gated
+// on over with kPeakGated).  Writes the record words w0 = charge<<16|tover,
+// w1 = peak<<16|ptime and zeroes the hit on a close.
+template <bool kPeakGated, bool kChargeFloor>
+struct ThresholdHit {
+  int charge, tover, peak_adc, peak_time;
 
-  __device__ __forceinline__ void load(const State* st, size_t C) {
-    ped = st[kPedestals * C];
-    acc = st[kAccum * C];
+  template <class S>
+  __device__ __forceinline__ void load(const S* st, size_t C) {
     charge = st[kHitCharge * C];
     tover = st[kHitTover * C];
     peak_adc = st[kHitPeakAdc * C];
     peak_time = st[kHitPeakTime * C];
-    prev_over = rs = ped_rs = acc_rs = mf = 0;
-    if (kFamily == kSimpleThreshold) {
-      prev_over = st[kPrevWasOver * C];
-    } else {
-      rs = st[kRs * C];
-      ped_rs = st[kPedestalsRs * C];
-      acc_rs = st[kAccumRs * C];
-      mf = st[kMemoryFactor * C];
-    }
   }
 
-  __device__ __forceinline__ void store(State* st, size_t C) const {
-    put(st, kPedestals, C, ped);
-    put(st, kAccum, C, acc);
+  template <class S>
+  __device__ __forceinline__ void store(S* st, size_t C) const {
     put(st, kHitCharge, C, charge);
     put(st, kHitTover, C, tover);
     put(st, kHitPeakAdc, C, peak_adc);
     put(st, kHitPeakTime, C, peak_time);
-    if (kFamily == kSimpleThreshold) {
-      put(st, kPrevWasOver, C, prev_over);
-    } else {
-      put(st, kRs, C, rs);
-      put(st, kPedestalsRs, C, ped_rs);
-      put(st, kAccumRs, C, acc_rs);
-    }
   }
 
-  __device__ __forceinline__ void realign(int) {}
+  __device__ __forceinline__ void step(int s, bool over, bool closed,
+                                       int& w0, int& w1) {
+    int ch = charge + (over ? s : 0);
+    ch = ch < kInt16Max ? ch : kInt16Max;
+    if (kChargeFloor) ch = ch > kInt16Min ? ch : kInt16Min;
+    bool peak_upd = s > peak_adc;
+    if (kPeakGated) peak_upd = peak_upd && over;
+    const int pk = peak_upd ? s : peak_adc;
+    const int pt = peak_upd ? tover : peak_time;
+    int tv = tover + (over ? 1 : 0);
+    tv = tv < kInt16Max ? tv : kInt16Max;
+    w0 = pack16(ch, tv);
+    w1 = pack16(pk, pt);
+    if (closed) {
+      charge = tover = peak_adc = peak_time = 0;
+    } else {
+      charge = ch;
+      tover = tv;
+      peak_adc = pk;
+      peak_time = pt;
+    }
+  }
+};
+
+// The RS families' chain after the raw pedestal: the running sum on the
+// carried rs and the channel's memory factor (read only), and the frugal
+// pedestal of the running sum.
+template <int kFamily, bool kI16, bool kRsFloat>
+struct RsChain {
+  int rs, ped_rs, acc_rs, mf;
+
+  template <class S>
+  __device__ __forceinline__ void load(const S* st, size_t C) {
+    rs = st[kRs * C];
+    ped_rs = st[kPedestalsRs * C];
+    acc_rs = st[kAccumRs * C];
+    mf = st[kMemoryFactor * C];
+  }
+
+  template <class S>
+  __device__ __forceinline__ void store(S* st, size_t C) const {
+    put(st, kRs, C, rs);
+    put(st, kPedestalsRs, C, ped_rs);
+    put(st, kAccumRs, C, acc_rs);
+  }
 
   // The RS waveform of one tick from the pedestal-subtracted sample.
   __device__ __forceinline__ int running_sum(int s, const Params& p) const {
@@ -519,50 +546,76 @@ struct ThresholdChannel {
     return (wrap_i16(rs * mf + second) * 3276 + 16384) >> 15;
   }
 
-  // One sample; `end_word` is the window tick + 1.
+  // The RS value x of one tick (rs keeps the previous one: the caller
+  // tests the close on it, then stores x).
+  __device__ __forceinline__ int step(int s, const Params& p) {
+    const int r = running_sum(s, p);
+    frugal<kI16>(ped_rs, acc_rs, r, p.accumulator_limit);
+    // float-mode rs can leave int16: its subtraction wraps (sub16)
+    return kRsFloat ? wrap_i16(r - ped_rs) : w16<kI16>(r - ped_rs);
+  }
+};
+
+// step.py::tpg_tick: SimpleThreshold, AbsRS, StandardRS, one fused tick:
+// the raw pedestal, the running sum (RsChain) and the hit chain
+// (ThresholdHit) in series.
+template <int kFamily, bool kPeakGated, bool kChargeFloor, bool kI16,
+          bool kRsFloat>
+struct ThresholdChannel {
+  using State = StateT<kI16>;
+  static constexpr int kWords = 3;
+  int ped, acc;
+  int prev_over;   // SimpleThreshold; RS reads the carried rs instead
+  RsChain<kFamily, kI16, kRsFloat> rsc;
+  ThresholdHit<kPeakGated, kChargeFloor> hit;
+  int nclose;
+
+  __device__ __forceinline__ void load(const State* st, size_t C) {
+    ped = st[kPedestals * C];
+    acc = st[kAccum * C];
+    hit.load(st, C);
+    prev_over = 0;
+    rsc.rs = rsc.ped_rs = rsc.acc_rs = rsc.mf = 0;
+    if (kFamily == kSimpleThreshold)
+      prev_over = st[kPrevWasOver * C];
+    else
+      rsc.load(st, C);
+  }
+
+  __device__ __forceinline__ void store(State* st, size_t C) const {
+    put(st, kPedestals, C, ped);
+    put(st, kAccum, C, acc);
+    hit.store(st, C);
+    if (kFamily == kSimpleThreshold)
+      put(st, kPrevWasOver, C, prev_over);
+    else
+      rsc.store(st, C);
+  }
+
+  __device__ __forceinline__ void realign(int) {}
+
+  // One sample; `end_word` is the window tick + 1; a close is stored while
+  // `live` (the pipeline's staged arm has lanes past the last channel).
   template <int kU, class Slots>
   __device__ __forceinline__ void tick(int s_raw, int end_word, Slots slots,
-                                       const Params& p) {
+                                       const Params& p, bool live = true) {
     frugal<kI16>(ped, acc, s_raw, p.accumulator_limit);
     const int s = w16<kI16>(s_raw - ped);
-    int x;
+    bool over, closed;
     if (kFamily == kSimpleThreshold) {
-      x = s;
-    } else {
-      const int r = running_sum(s, p);
-      frugal<kI16>(ped_rs, acc_rs, r, p.accumulator_limit);
-      // float-mode rs can leave int16: its subtraction wraps (sub16)
-      x = kRsFloat ? wrap_i16(r - ped_rs) : w16<kI16>(r - ped_rs);
-    }
-    const bool over = x > p.threshold;
-    // RS derives the previous over flag from the carried (previous) rs
-    bool closed;
-    if (kFamily == kSimpleThreshold) {
+      over = s > p.threshold;
       closed = prev_over != 0 && !over;
       prev_over = over ? 1 : 0;
     } else {
-      closed = rs > p.threshold && !over;
-      rs = x;
+      const int x = rsc.step(s, p);
+      over = x > p.threshold;
+      // RS derives the previous over flag from the carried (previous) rs
+      closed = rsc.rs > p.threshold && !over;
+      rsc.rs = x;
     }
-    int ch = charge + (over ? s : 0);
-    ch = ch < kInt16Max ? ch : kInt16Max;
-    if (kChargeFloor) ch = ch > kInt16Min ? ch : kInt16Min;
-    bool peak_upd = s > peak_adc;
-    if (kPeakGated) peak_upd = peak_upd && over;
-    const int pk = peak_upd ? s : peak_adc;
-    const int pt = peak_upd ? tover : peak_time;
-    int tv = tover + (over ? 1 : 0);
-    tv = tv < kInt16Max ? tv : kInt16Max;
-    if (closed) {
-      slot_emit<kWords>(slots, nclose, p, pack16(ch, tv), pack16(pk, pt),
-                        end_word);
-      charge = tover = peak_adc = peak_time = 0;
-    } else {
-      charge = ch;
-      tover = tv;
-      peak_adc = pk;
-      peak_time = pt;
-    }
+    int w0, w1;
+    hit.step(s, over, closed, w0, w1);
+    if (closed && live) slot_emit<kWords>(slots, nclose, p, w0, w1, end_word);
   }
 };
 
@@ -1249,26 +1302,36 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---- K3 and K5: the FIR tick as a warp-specialised pipeline ---------------
+// ---- The warp-specialised pipeline: K3, K5, K2 and K4 ---------------------
 //
 // Replaces, for the FIR family, pallas_tpg.py::_tpg_kernel's fused tick on
-// the plain and time2 datapaths (K3, :464-490, :556-560) and
-// pallas_tpg.py::_fir2_kernel on every datapath (K5, fir_twopass 1 and 2,
-// :585-765).  Same outputs as FirChannel in tpg_kernel, bit for bit.
+// the plain, time2 and packed 14-bit datapaths (K3, :464-490, :556-560;
+// K4's FIR) and pallas_tpg.py::_fir2_kernel on every datapath (K5,
+// fir_twopass 1 and 2, :585-765); for SimpleThreshold, AbsRS and
+// StandardRS, _tpg_kernel's tick on plain samples (K2, :399-400) and on
+// packed 14-bit words (K4, _unpack14_rows :241-265).  Same outputs as
+// FirChannel and ThresholdChannel in tpg_kernel, bit for bit.
 //
-// The FIR tick is three pieces: (a) the pedestal and IQR frugal chains
-// (FirFront), which need only the raw sample and their own state; (b) the
-// 8-tap filter, the threshold and to_add, no recurrence; (c) the hit chain
-// (FirHit).  One thread running a + b + c in turn pays the sum of their
-// latencies every tick (P1: a dependent op costs ~4.7 SM cycles with one
-// warp per scheduler, and 2560 channels leave 448 of the 528 schedulers
-// idle).  Here a block owns 32 consecutive channels and gives the pieces
-// warps of their own, so a tick costs the longest chain, not the sum:
+// A tick is a few chains that need little of each other.  FIR: (a) the
+// pedestal and IQR frugal chains (FirFront), which need only the raw sample
+// and their own state; (b) the 8-tap filter, the threshold and to_add, no
+// recurrence; (c) the hit chain (FirHit).  The threshold families: (a) the
+// raw pedestal's frugal chain, which gives s; (r) for AbsRS and StandardRS
+// the running sum on the carried rs and its own frugal pedestal (RsChain),
+// which give x and over = x > threshold; (c) the hit chain (ThresholdHit),
+// which needs s and over only: closed = rs(t-1) > threshold && !over(t) is
+// over(t-1) && !over(t), the window's first over(t-1) from the carried rs.
+// One thread running the pieces in turn pays the sum of their latencies
+// every tick (P1: a dependent op costs ~4.7 SM cycles with one warp per
+// scheduler, and 2560 channels leave 448 of the 528 schedulers idle).  Here
+// a block owns 32 consecutive channels and gives the pieces warps of their
+// own, so a tick costs the longest chain, not the sum:
 //   warp 0  the loader and front: copies the feed of each stage of
 //           kPipeTicks ticks into a ring of kPipeStages shared-memory slabs
 //           with cp.async, kPipeStages - 1 stages ahead of its chain, each
 //           stage completing on its `full` mbarrier; then runs (a) over the
-//           stage and writes s (clamped) and sigma into the stage's slabs;
+//           stage and writes s into the stage's slab (FIR: clamped, and
+//           sigma);
 //   K3, warp 1  (b) and (c) on each stage's s and sigma (FirBack, the FIR
 //           ring in its registers) and the emission into the K slots
 //           (direct, or SLOT_WORD_CARRY in columns of 32);
@@ -1276,26 +1339,38 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 //           with lift (fir_twopass=2) the closed flag, over(t-1) && !over(t)
 //           on its carried prev_was_over;
 //       warp 2  (c) and the emission: the close tested in place (fir_twopass
-//           1) or read from the slab (2).
+//           1) or read from the slab (2);
+//   K2 and K4 (kPipeThreshold), RS families, warp 1  (r): over into the
+//           stage's flag slab;
+//       the hit warp (warp 2; warp 1 for SimpleThreshold, which tests
+//           s > threshold itself, a two-warp mode)  (c) on s and over, and
+//           the emission (direct, or SLOT_WORD_CARRY).
+// Each warp loads and writes back only its own state rows: the front the
+// pedestal rows (FIR: and the IQR rows), the RS warp rs, pedestals_rs and
+// accum_rs (the memory factor read only), the filter the FIR ring, the hit
+// warp the hit rows (and prev_was_over where it carries it).  The RS
+// families' hit warp reads the carried rs before the block's first barrier,
+// so the RS warp's write-back of rs cannot come before it.
 // A stage's slabs go round the ring through mbarriers: `full` (the feed has
-// landed), `ready` (s, sigma written), `s_empty` (s, sigma read),
-// `filtered` and `f_empty` (K5's filter slabs written, read).  A producer
-// waits for the previous round's release of the slot before it writes, a
-// consumer for the round's completion before it reads (parity waits).  A
-// stage never straddles a chunk (a chunk is ceil(tc / kPipeTicks) stages,
-// the last one ragged), so each role runs a stage as K3's groups of kGroup
-// ticks with the tail guarded and the ring realigned after it, a chunk's
-// nclose and slots begin with its first stage and are stored with its last,
-// and tick u of a stage ends at window tick t0 + u + 1.  Lanes past the
-// last channel run the loops with the others (every warp arrives at every
-// barrier) and store nothing.  K5 takes no global scratch: its slabs are
-// the ring.  The staged arm (kPipeStaged, tpg_fir_staged_launch, measured
-// by the probes against K3) is one warp that copies the feed the same way
-// and runs FirChannel's whole tick.
+// landed), `ready` (s written), `s_empty` (s read, by each warp that reads
+// it), `filtered` and `f_empty` (K5's filter slabs, the RS warp's flags:
+// written, read).  A producer waits for the previous round's release of the
+// slot before it writes, a consumer for the round's completion before it
+// reads (parity waits).  A stage never straddles a chunk (a chunk is
+// ceil(tc / kPipeTicks) stages, the last one ragged), so each role runs a
+// stage as groups of kGroup ticks with the tail guarded and the FIR ring
+// realigned after it, a chunk's nclose and slots begin with its first
+// stage and are stored with its last, and tick u of a stage ends at window
+// tick t0 + u + 1.  Lanes past the last channel run the loops with the
+// others (every warp arrives at every barrier) and store nothing.  K5 takes
+// no global scratch: its slabs are the ring.  The staged arm (kPipeStaged,
+// tpg_fir_staged_launch and tpg_threshold_staged_launch, measured by the
+// probes against K3, K2 and K4) is one warp that copies the feed the same
+// way and runs the channel's whole fused tick.
 //
-// What bounds it: the longest per-tick chain, (a)'s IQR update gated on the
-// pedestal, if the consumers keep up; the ring's barriers cost a few waits
-// per stage of 32 ticks.
+// What bounds it: the slowest warp's instructions per tick, if the others
+// keep up (~3 SM cycles each on an H100, above the loop-carried chain;
+// PERF.md); the ring's barriers cost a few waits per stage of 32 ticks.
 constexpr int kPipeLanes = 32;    // channels per block
 constexpr int kPipeTicks = 32;    // ticks per stage, a multiple of kGroup
 constexpr int kPipeStages = 4;    // stages in the ring
@@ -1303,33 +1378,68 @@ constexpr int kStageWords = kPipeTicks * kPipeLanes;   // one slab
 constexpr int kPipeBars = 5 * kPipeStages;   // full, ready, s_empty,
                                              // filtered, f_empty
 constexpr int kMbarrierBytes = 8;
+static_assert(kPipeTicks % kGroup == 0, "a stage is whole groups");
 
 enum PipeMode : int {
-  kPipeStaged = 0,   // one warp: the staged feed and the whole tick
-  kPipeK3 = 1,       // loader + front; filter + hit
-  kPipeK5 = 2,       // loader + front; filter; hit (fir_twopass 1)
-  kPipeK5Lift = 3    // the same, closed from the filter warp (2)
+  kPipeStaged = 0,     // one warp: the staged feed and the whole tick
+  kPipeK3 = 1,         // loader + front; filter + hit
+  kPipeK5 = 2,         // loader + front; filter; hit (fir_twopass 1)
+  kPipeK5Lift = 3,     // the same, closed from the filter warp (2)
+  kPipeThreshold = 4   // loader + front; running sum (RS families); hit
 };
 
-template <int kMode>
+// What the pipeline reads of a channel type: its family and options.
+template <class Ch>
+struct PipeOf;
+
+template <bool kG, bool kP, bool kA, bool kI>
+struct PipeOf<FirChannel<kG, kP, kA, kI>> {
+  static constexpr int kFamily = kFIR;
+  static constexpr bool kGated = kG, kPeaks = kP, kAvx = kA;
+  static constexpr bool kFloor = true, kRsFloat = false;
+};
+
+template <int kF, bool kG, bool kFl, bool kI, bool kR>
+struct PipeOf<ThresholdChannel<kF, kG, kFl, kI, kR>> {
+  static constexpr int kFamily = kF;
+  static constexpr bool kGated = kG, kPeaks = true, kAvx = false;
+  static constexpr bool kFloor = kFl, kRsFloat = kR;
+};
+
+// The threshold pipeline's RS warp (AbsRS, StandardRS).
+template <int kMode, class Ch>
+constexpr bool kPipeRsWarp =
+    kMode == kPipeThreshold && PipeOf<Ch>::kFamily != kSimpleThreshold;
+
+template <int kMode, class Ch>
 constexpr int kPipeWarps =
-    kMode == kPipeStaged ? 1 : (kMode == kPipeK3 ? 2 : 3);
+    kMode == kPipeStaged
+        ? 1
+        : (kMode == kPipeK3 ||
+                   (kMode == kPipeThreshold && !kPipeRsWarp<kMode, Ch>)
+               ? 2
+               : 3);
 
-// The slabs of one stage: the feed; s and sigma; K5's flags (is_over |
-// closed << 1), to_add, and filt with peaks.
-__host__ __device__ constexpr int pipe_slabs(int mode, bool peaks) {
-  return mode == kPipeStaged ? 1
-                             : (mode == kPipeK3 ? 3 : 5 + (peaks ? 1 : 0));
-}
+// The slabs of one stage: the feed; s and sigma (K3, K5); K5's flags
+// (is_over | closed << 1), to_add, and filt with peaks; s and the RS
+// warp's over flags (K2, K4).
+template <int kMode, class Ch>
+constexpr int kPipeSlabs =
+    kMode == kPipeStaged
+        ? 1
+        : (kMode == kPipeK3
+               ? 3
+               : (kMode == kPipeThreshold
+                      ? (kPipeRsWarp<kMode, Ch> ? 3 : 2)
+                      : 5 + (PipeOf<Ch>::kPeaks ? 1 : 0)));
 
-// Dynamic shared memory of one block in bytes: the ring, then K3's carry
-// staging in columns of kPipeLanes.  The launch refuses more than a block
-// may use, with the mbarriers.
-inline long long pipe_shared_bytes(const Params& p, int mode, bool peaks,
+// Dynamic shared memory of one block in bytes: the ring of `slabs` slabs
+// per stage, then the carry layout's staging in columns of kPipeLanes.
+// The launch refuses more than a block may use, with the mbarriers.
+inline long long pipe_shared_bytes(const Params& p, int slabs, int n_words,
                                    bool carry) {
-  return 4LL * (static_cast<long long>(pipe_slabs(mode, peaks)) *
-                    kPipeStages * kStageWords +
-                (carry ? carry_stage_words(carry_limit(p), peaks ? 3 : 2,
+  return 4LL * (static_cast<long long>(slabs) * kPipeStages * kStageWords +
+                (carry ? carry_stage_words(carry_limit(p), n_words,
                                            kPipeLanes)
                        : 0));
 }
@@ -1454,11 +1564,11 @@ __device__ __forceinline__ void run_stage(Role& role, int n) {
 
 // One lane's part of a stage's feed: its copies and its decode.  Plain and
 // time2 rows: the lane copies its channel's words into its column of the
-// feed slab.  Packed 14-bit words (K5): a warp's 32 channels are two 7-word
-// groups; lane k < 14 copies word k % 7 of group k / 7 of every tick into
-// column k of the tick's row, and every lane takes its low and high word
-// from the row (K4b-gather's exchange, through shared memory) and
-// funnel-shifts as K4 does.
+// feed slab.  Packed 14-bit words (K4, K5): a warp's 32 channels are two
+// 7-word groups; lane k < 14 copies word k % 7 of group k / 7 of every tick
+// into column k of the tick's row, and every lane takes its low and high
+// word from the row (K4b-gather's exchange, through shared memory) and
+// funnel-shifts as K4's fused tick does: the decode leaves the chain.
 template <int kEnc>
 struct PipeFeed {
   static constexpr bool kPacked = kEnc == kPacked14 || kEnc == kGather14;
@@ -1523,7 +1633,8 @@ struct PipeFeed {
   }
 };
 
-// Warp 0's chain: (a) over a stage, s and sigma into the lane's columns.
+// Warp 0's chain, FIR: (a) over a stage, s and sigma into the lane's
+// columns.
 template <int kEnc>
 struct PipeFront {
   FirFront<false> front;
@@ -1532,6 +1643,14 @@ struct PipeFront {
   int32_t* s;
   int32_t* sigma;
   const Params* p;
+
+  __device__ __forceinline__ void load(const int32_t* st, size_t C) {
+    front.load(st, C);
+  }
+
+  __device__ __forceinline__ void store(int32_t* st, size_t C) const {
+    front.store(st, C);
+  }
 
   template <bool kGuard>
   __device__ __forceinline__ void group(int g, int n) {
@@ -1545,6 +1664,43 @@ struct PipeFront {
       int sg;
       s[(g + kU) * kPipeLanes] = front.step(x[kU], *p, sg);
       sigma[(g + kU) * kPipeLanes] = sg;
+    });
+  }
+
+  __device__ __forceinline__ void realign(int) {}
+};
+
+// Warp 0's chain, threshold families: the raw pedestal's frugal update
+// over a stage, s = sample - pedestal into the lane's column.
+template <int kEnc>
+struct PipeThresholdFront {
+  int ped, acc;
+  PipeFeed<kEnc> feed;
+  const int32_t* in;   // the stage's feed slab
+  int32_t* s;
+  const Params* p;
+
+  __device__ __forceinline__ void load(const int32_t* st, size_t C) {
+    ped = st[kPedestals * C];
+    acc = st[kAccum * C];
+  }
+
+  __device__ __forceinline__ void store(int32_t* st, size_t C) const {
+    put(st, kPedestals, C, ped);
+    put(st, kAccum, C, acc);
+  }
+
+  template <bool kGuard>
+  __device__ __forceinline__ void group(int g, int n) {
+    int x[kGroup];
+    each_tick<false>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      x[kU] = !kGuard || kU < n ? feed.template sample<kU>(in, g) : 0;
+    });
+    each_tick<kGuard>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      frugal<false>(ped, acc, x[kU], p->accumulator_limit);
+      s[(g + kU) * kPipeLanes] = x[kU] - ped;
     });
   }
 
@@ -1673,7 +1829,80 @@ struct PipeHit {
   __device__ __forceinline__ void realign(int) {}
 };
 
-// The staged arm's warp: FirChannel's whole tick on the staged feed.
+// The threshold pipeline's RS warp: (r) over a stage, the running sum and
+// its pedestal on each tick's s, over into the lane's flag column; rs
+// carries x from tick to tick.
+template <int kFamily, bool kRsFloat>
+struct PipeRs {
+  RsChain<kFamily, false, kRsFloat> rsc;
+  const int32_t* s;
+  int32_t* flags;
+  const Params* p;
+
+  template <bool kGuard>
+  __device__ __forceinline__ void group(int g, int n) {
+    int sv[kGroup];
+    each_tick<false>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      sv[kU] = !kGuard || kU < n ? s[(g + kU) * kPipeLanes] : 0;
+    });
+    each_tick<kGuard>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      rsc.rs = rsc.step(sv[kU], *p);
+      flags[(g + kU) * kPipeLanes] = rsc.rs > p->threshold ? 1 : 0;
+    });
+  }
+
+  __device__ __forceinline__ void realign(int) {}
+};
+
+// The threshold pipeline's hit warp: (c) over a stage on s and over (read
+// from the RS warp's flags, or s > threshold for SimpleThreshold), the
+// closes into the chunk's slots: its direct-store base, or its CarrySlots
+// (kCarry).  prev_over is over of the tick before.
+template <bool kGated, bool kFloor, bool kSimple, bool kCarry>
+struct PipeThresholdHit {
+  static constexpr int kWords = 3;
+  ThresholdHit<kGated, kFloor> hit;
+  CarrySlots<kWords, kPipeLanes> carry;
+  int prev_over;
+  int nclose;
+  int32_t* base;     // the chunk's slot base
+  const int32_t* s;
+  const int32_t* flags;
+  int t0;
+  bool live;
+  const Params* p;
+
+  template <bool kGuard>
+  __device__ __forceinline__ void group(int g, int n) {
+    int sv[kGroup], ov[kGroup];
+    each_tick<false>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      const bool in = !kGuard || kU < n;
+      sv[kU] = in ? s[(g + kU) * kPipeLanes] : 0;
+      ov[kU] = !kSimple && in ? flags[(g + kU) * kPipeLanes] : 0;
+    });
+    each_tick<kGuard>(n, [&](auto u) {
+      constexpr int kU = decltype(u)::value;
+      const bool over = kSimple ? sv[kU] > p->threshold : ov[kU] != 0;
+      const bool closed = prev_over != 0 && !over;
+      prev_over = over ? 1 : 0;
+      int w0, w1;
+      hit.step(sv[kU], over, closed, w0, w1);
+      if (closed && live) {
+        if constexpr (kCarry)
+          carry.emit(nclose, w0, w1, t0 + g + kU + 1);
+        else
+          emit<kWords>(nclose, base, *p, w0, w1, t0 + g + kU + 1);
+      }
+    });
+  }
+
+  __device__ __forceinline__ void realign(int) {}
+};
+
+// The staged arm's warp: the channel's whole fused tick on the staged feed.
 template <int kEnc, class Ch>
 struct PipeWhole {
   Ch ch;
@@ -1700,12 +1929,17 @@ struct PipeWhole {
   __device__ __forceinline__ void realign(int n) { ch.realign(n); }
 };
 
-template <int kEnc, int kMode, bool kGated, bool kPeaks, bool kAvx,
-          bool kCarry>
-__global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
-    fir_pipe_kernel(Params p) {
-  constexpr int kWords = kPeaks ? 3 : 2;
+// The pipeline of mode kMode for channel type Ch (FirChannel for the FIR
+// modes, either for the staged arm, ThresholdChannel for kPipeThreshold)
+// on an int32 state, with the direct store or the carry layout (kCarry:
+// K3 and kPipeThreshold).
+template <int kEnc, int kMode, class Ch, bool kCarry>
+__global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
+    pipe_kernel(Params p) {
+  using Of = PipeOf<Ch>;
+  constexpr int kWords = Ch::kWords;
   constexpr bool kLift = kMode == kPipeK5Lift;
+  constexpr bool kRsWarp = kPipeRsWarp<kMode, Ch>;
   TPG_DYNAMIC_SHARED(int32_t, smem);
   __shared__ StageBar bars[kPipeBars];
   StageBar* const full = bars;
@@ -1727,8 +1961,17 @@ __global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
   auto slab = [&](int i, int j) {
     return smem + (i * kPipeStages + j) * kStageWords;
   };
+  // the carry layout's staging after the ring, the lane's column
+  int32_t* const stage =
+      smem + kPipeSlabs<kMode, Ch> * kPipeStages * kStageWords + lane;
+  // the RS families' hit warp: the carried rs, read before the barrier
+  // below (the RS warp writes rs back at its end)
+  const int rs0 = kRsWarp && warp == 2 && live ? st[kRs * C] : 0;
   if (threadIdx.x == 0)
-    for (int i = 0; i < kPipeBars; ++i) stage_bar_init(&bars[i], kPipeLanes);
+    for (int i = 0; i < kPipeBars; ++i)
+      // s_empty: the RS warp and the hit warp both read s
+      stage_bar_init(&bars[i], (kRsWarp && i / kPipeStages == 2 ? 2 : 1) *
+                                   kPipeLanes);
   __syncthreads();
   const int n_stages =
       p.n_chunks * ((p.ticks_per_chunk + kPipeTicks - 1) / kPipeTicks);
@@ -1739,7 +1982,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
     for (int q = 0; q < n_stages && q < kPipeStages; ++q)
       feed.issue(pipe_stage(p, q), slab(0, q), &full[q]);
     if constexpr (kMode == kPipeStaged) {
-      PipeWhole<kEnc, FirChannel<kGated, kPeaks, kAvx, false>> w{};
+      PipeWhole<kEnc, Ch> w{};
       w.feed = feed;
       w.live = live;
       w.p = &p;
@@ -1756,15 +1999,19 @@ __global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
         w.t0 = sg.t0;
         run_stage(w, sg.n);
         if (sg.last && live) p.nclose[sg.chunk * C + c] = w.ch.nclose;
+        // packed rows are read across lanes: all reads before the refill
+        if constexpr (PipeFeed<kEnc>::kPacked) __syncwarp();
         if (q + kPipeStages < n_stages)
           feed.issue(pipe_stage(p, q + kPipeStages), slab(0, j), &full[j]);
       }
       if (live) w.ch.store(st, C);
     } else {
-      PipeFront<kEnc> a{};
+      std::conditional_t<Of::kFamily == kFIR, PipeFront<kEnc>,
+                         PipeThresholdFront<kEnc>>
+          a{};
       a.feed = feed;
       a.p = &p;
-      if (live) a.front.load(st, C);
+      if (live) a.load(st, C);
       for (int q = 0; q < n_stages; ++q) {
         const PipeStage sg = pipe_stage(p, q);
         const int j = q % kPipeStages;
@@ -1773,7 +2020,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
         stage_bar_wait(&s_empty[j], round ^ 1);
         a.in = slab(0, j);
         a.s = slab(1, j) + lane;
-        a.sigma = slab(2, j) + lane;
+        if constexpr (Of::kFamily == kFIR) a.sigma = slab(2, j) + lane;
         run_stage(a, sg.n);
         stage_bar_arrive(&ready[j]);
         // packed rows are read across lanes: all reads before the refill
@@ -1781,18 +2028,13 @@ __global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
         if (q + kPipeStages < n_stages)
           feed.issue(pipe_stage(p, q + kPipeStages), slab(0, j), &full[j]);
       }
-      if (live) a.front.store(st, C);
+      if (live) a.store(st, C);
     }
   } else if constexpr (kMode == kPipeK3) {
-    PipeBack<kGated, kPeaks, kAvx, kCarry> b{};
+    PipeBack<Of::kGated, Of::kPeaks, Of::kAvx, kCarry> b{};
     b.live = live;
     b.p = &p;
     if (live) b.back.load(st, C);
-    // the carry layout's staging after the ring, the lane's column
-    int32_t* const stage = smem +
-                           pipe_slabs(kMode, kPeaks) * kPipeStages *
-                               kStageWords +
-                           lane;
     for (int q = 0; q < n_stages; ++q) {
       const PipeStage sg = pipe_stage(p, q);
       const int j = q % kPipeStages;
@@ -1815,7 +2057,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
     if (live) b.back.store(st, C);
   } else if constexpr (kMode == kPipeK5 || kMode == kPipeK5Lift) {
     if (warp == 1) {
-      PipeFilter<kPeaks, kAvx, kLift> f{};
+      PipeFilter<Of::kPeaks, Of::kAvx, kLift> f{};
       f.p = &p;
       if (live) {
 #pragma unroll
@@ -1832,7 +2074,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
         f.sigma = slab(2, j) + lane;
         f.flags = slab(3, j) + lane;
         f.add = slab(4, j) + lane;
-        if (kPeaks) f.filt = slab(5, j) + lane;
+        if (Of::kPeaks) f.filt = slab(5, j) + lane;
         run_stage(f, sg.n);
         stage_bar_arrive(&s_empty[j]);
         stage_bar_arrive(&filtered[j]);
@@ -1843,7 +2085,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
         if (kLift) st[kPrevWasOver * C] = f.prev_over;
       }
     } else {
-      PipeHit<kGated, kPeaks, kLift> h{};
+      PipeHit<Of::kGated, Of::kPeaks, kLift> h{};
       h.live = live;
       h.p = &p;
       if (live) {
@@ -1860,7 +2102,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
         }
         h.flags = slab(3, j) + lane;
         h.add = slab(4, j) + lane;
-        if (kPeaks) h.filt = slab(5, j) + lane;
+        if (Of::kPeaks) h.filt = slab(5, j) + lane;
         h.t0 = sg.t0;
         run_stage(h, sg.n);
         stage_bar_arrive(&f_empty[j]);
@@ -1871,15 +2113,72 @@ __global__ void __launch_bounds__(kPipeWarps<kMode> * kPipeLanes, 1)
         if (!kLift) st[kPrevWasOver * C] = h.prev_over;
       }
     }
+  } else if constexpr (kMode == kPipeThreshold) {
+    // the RS warp; the hit warp below is warp 2 (warp 1 for
+    // SimpleThreshold)
+    if constexpr (kRsWarp) {
+      if (warp == 1) {
+        PipeRs<Of::kFamily, Of::kRsFloat> r{};
+        r.p = &p;
+        if (live) r.rsc.load(st, C);
+        for (int q = 0; q < n_stages; ++q) {
+          const int j = q % kPipeStages;
+          const unsigned round = (q / kPipeStages) & 1;
+          stage_bar_wait(&ready[j], round);
+          stage_bar_wait(&f_empty[j], round ^ 1);
+          r.s = slab(1, j) + lane;
+          r.flags = slab(2, j) + lane;
+          run_stage(r, pipe_stage(p, q).n);
+          stage_bar_arrive(&s_empty[j]);
+          stage_bar_arrive(&filtered[j]);
+        }
+        if (live) r.rsc.store(st, C);
+        return;
+      }
+    }
+    PipeThresholdHit<Of::kGated, Of::kFloor, !kRsWarp, kCarry> h{};
+    h.live = live;
+    h.p = &p;
+    if (live) {
+      h.hit.load(st, C);
+      h.prev_over = kRsWarp ? (rs0 > p.threshold ? 1 : 0)
+                            : st[kPrevWasOver * C];
+    }
+    for (int q = 0; q < n_stages; ++q) {
+      const PipeStage sg = pipe_stage(p, q);
+      const int j = q % kPipeStages;
+      const unsigned round = (q / kPipeStages) & 1;
+      stage_bar_wait(&ready[j], round);
+      if (kRsWarp) stage_bar_wait(&filtered[j], round);
+      if (sg.first) {
+        h.nclose = 0;
+        h.base = slot_base(sg.chunk);
+        if constexpr (kCarry) h.carry.begin(h.base, stage, p);
+      }
+      h.s = slab(1, j) + lane;
+      if (kRsWarp) h.flags = slab(2, j) + lane;
+      h.t0 = sg.t0;
+      run_stage(h, sg.n);
+      stage_bar_arrive(&s_empty[j]);
+      if (kRsWarp) stage_bar_arrive(&f_empty[j]);
+      if (sg.last && live) {
+        if constexpr (kCarry) h.carry.flush(h.nclose, p);
+        p.nclose[sg.chunk * C + c] = h.nclose;
+      }
+    }
+    if (live) {
+      h.hit.store(st, C);
+      if (!kRsWarp) st[kPrevWasOver * C] = h.prev_over;
+    }
   }
 }
 
-template <int kEnc, int kMode, bool kGated, bool kPeaks, bool kAvx,
-          bool kCarry = false>
-cudaError_t launch_fir_pipe(const Params& p, cudaStream_t stream) {
-  constexpr int kThreads = kPipeWarps<kMode> * kPipeLanes;
+template <int kEnc, int kMode, class Ch, bool kCarry = false>
+cudaError_t launch_pipe(const Params& p, cudaStream_t stream) {
+  constexpr int kThreads = kPipeWarps<kMode, Ch> * kPipeLanes;
   const int blocks = (p.n_channels + kPipeLanes - 1) / kPipeLanes;
-  const long long smem_ll = pipe_shared_bytes(p, kMode, kPeaks, kCarry);
+  const long long smem_ll =
+      pipe_shared_bytes(p, kPipeSlabs<kMode, Ch>, Ch::kWords, kCarry);
   if (smem_ll + kPipeBars * kMbarrierBytes > kMaxSlabBytes)
     return cudaErrorInvalidValue;
   const int smem = static_cast<int>(smem_ll);
@@ -1890,15 +2189,14 @@ cudaError_t launch_fir_pipe(const Params& p, cudaStream_t stream) {
   for (blockIdx.x = 0; blockIdx.x < static_cast<unsigned>(blocks);
        ++blockIdx.x)
     host_run_block(kThreads, [&] {
-      fir_pipe_kernel<kEnc, kMode, kGated, kPeaks, kAvx, kCarry>(p);
+      pipe_kernel<kEnc, kMode, Ch, kCarry>(p);
     }, smem);
 #else
   cudaError_t err = cudaFuncSetAttribute(
-      fir_pipe_kernel<kEnc, kMode, kGated, kPeaks, kAvx, kCarry>,
+      pipe_kernel<kEnc, kMode, Ch, kCarry>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fir_pipe_kernel<kEnc, kMode, kGated, kPeaks, kAvx, kCarry>
-      <<<blocks, kThreads, smem, stream>>>(p);
+  pipe_kernel<kEnc, kMode, Ch, kCarry><<<blocks, kThreads, smem, stream>>>(p);
 #endif
   return cudaGetLastError();
 }
@@ -1909,55 +2207,34 @@ cudaError_t pick(bool flag, F&& f) {
   return flag ? f(std::true_type{}) : f(std::false_type{});
 }
 
-// The fused tick (K1-K4 and their variants) of every family on encoding
-// kEnc, with the direct store or the carry layout (kCarry): only the combinations the JAX package admits are instantiated
-// (the peak gate only with peak registers, the charge floor of the RS
-// families always on, rs_float for the RS families, the SWAR carry for
-// FIR on an int32 state).
-template <int kEnc, bool kCarry = false>
-cudaError_t dispatch_fused(const Params& p, const Variant& v,
-                           cudaStream_t s) {
-  constexpr bool kI16 = kEnc == kPlain16;
+// A channel type passed as a value.
+template <class T>
+struct Tag {
+  using type = T;
+};
+
+// f(Tag<ThresholdChannel<...>>) for the threshold family the variant names
+// (its charge floor for SimpleThreshold, rs_float for the RS families, the
+// RS families always floored).
+template <bool kI16, class F>
+cudaError_t pick_threshold(const Variant& v, F&& f) {
   return pick(v.peak_gated, [&](auto gated) -> cudaError_t {
     constexpr bool kGated = decltype(gated)::value;
-    if (v.family == kFIR) {
-      return pick(v.track_peaks, [&](auto tp) {
-        constexpr bool kPeaks = decltype(tp)::value;
-        return pick(v.avx, [&](auto av) -> cudaError_t {
-          constexpr bool kAvx = decltype(av)::value;
-          if constexpr (!kI16) {
-            if (v.fir_packed)
-              return launch<FirPackedChannel<kPeaks && kGated, kPeaks, kAvx>,
-                            kEnc, kCarry>(p, s);
-          }
-          // K3 on plain and time2 rows is the two-warp pipeline
-          if constexpr (kEnc == kPlain || kEnc == kTime2)
-            return launch_fir_pipe<kEnc, kPipeK3, kPeaks && kGated, kPeaks,
-                                   kAvx, kCarry>(p, s);
-          else
-            return launch<FirChannel<kPeaks && kGated, kPeaks, kAvx, kI16>,
-                          kEnc, kCarry>(p, s);
-        });
-      });
-    }
     switch (v.family) {
       case kSimpleThreshold:
         return pick(v.charge_floor, [&](auto fl) {
-          return launch<ThresholdChannel<kSimpleThreshold, kGated,
-                                         decltype(fl)::value, kI16, false>,
-                        kEnc, kCarry>(p, s);
+          return f(Tag<ThresholdChannel<kSimpleThreshold, kGated,
+                                        decltype(fl)::value, kI16, false>>{});
         });
       case kAbsRS:
         return pick(v.rs_float, [&](auto rf) {
-          return launch<ThresholdChannel<kAbsRS, kGated, true, kI16,
-                                         decltype(rf)::value>,
-                        kEnc, kCarry>(p, s);
+          return f(Tag<ThresholdChannel<kAbsRS, kGated, true, kI16,
+                                        decltype(rf)::value>>{});
         });
       case kStandardRS:
         return pick(v.rs_float, [&](auto rf) {
-          return launch<ThresholdChannel<kStandardRS, kGated, true, kI16,
-                                         decltype(rf)::value>,
-                        kEnc, kCarry>(p, s);
+          return f(Tag<ThresholdChannel<kStandardRS, kGated, true, kI16,
+                                        decltype(rf)::value>>{});
         });
       default:
         return cudaErrorInvalidValue;
@@ -1965,7 +2242,52 @@ cudaError_t dispatch_fused(const Params& p, const Variant& v,
   });
 }
 
-// The pipeline's K5 (kMode kPipeK5 or kPipeK5Lift) or its staged arm on
+// The fused tick (K1-K4 and their variants) of every family on encoding
+// kEnc, with the direct store or the carry layout (kCarry): only the
+// combinations the JAX package admits are instantiated (the peak gate only
+// with peak registers, the charge floor of the RS families always on,
+// rs_float for the RS families, the SWAR carry for FIR on an int32 state).
+// The pipeline runs K3 on plain, time2 and packed rows, and the threshold
+// families on plain samples (K2) and packed words (K4); tpg_kernel runs K1,
+// K2b, K3b and K4b-gather, tpg_slab_kernel K4b-slab.
+template <int kEnc, bool kCarry = false>
+cudaError_t dispatch_fused(const Params& p, const Variant& v,
+                           cudaStream_t s) {
+  constexpr bool kI16 = kEnc == kPlain16;
+  constexpr bool kPipeFir =
+      kEnc == kPlain || kEnc == kTime2 || kEnc == kPacked14;
+  constexpr bool kPipeThr = kEnc == kPlain || kEnc == kPacked14;
+  if (v.family != kFIR) {
+    return pick_threshold<kI16>(v, [&](auto tag) -> cudaError_t {
+      using Ch = typename decltype(tag)::type;
+      if constexpr (kPipeThr)
+        return launch_pipe<kEnc, kPipeThreshold, Ch, kCarry>(p, s);
+      else
+        return launch<Ch, kEnc, kCarry>(p, s);
+    });
+  }
+  return pick(v.peak_gated, [&](auto gated) -> cudaError_t {
+    constexpr bool kGated = decltype(gated)::value;
+    return pick(v.track_peaks, [&](auto tp) {
+      constexpr bool kPeaks = decltype(tp)::value;
+      return pick(v.avx, [&](auto av) -> cudaError_t {
+        constexpr bool kAvx = decltype(av)::value;
+        if constexpr (!kI16) {
+          if (v.fir_packed)
+            return launch<FirPackedChannel<kPeaks && kGated, kPeaks, kAvx>,
+                          kEnc, kCarry>(p, s);
+        }
+        using Ch = FirChannel<kPeaks && kGated, kPeaks, kAvx, kI16>;
+        if constexpr (kPipeFir)
+          return launch_pipe<kEnc, kPipeK3, Ch, kCarry>(p, s);
+        else
+          return launch<Ch, kEnc, kCarry>(p, s);
+      });
+    });
+  });
+}
+
+// The pipeline's K5 (kMode kPipeK5 or kPipeK5Lift) or its FIR staged arm on
 // encoding kEnc: the FIR family, the peak gate only with peaks.
 template <int kEnc, int kMode>
 cudaError_t dispatch_pipe(const Params& p, const Variant& v,
@@ -1975,10 +2297,21 @@ cudaError_t dispatch_pipe(const Params& p, const Variant& v,
     return pick(kPeaks && v.peak_gated, [&](auto gated) {
       constexpr bool kGated = kPeaks && decltype(gated)::value;
       return pick(v.avx, [&](auto av) {
-        return launch_fir_pipe<kEnc, kMode, kGated, kPeaks,
-                               decltype(av)::value>(p, s);
+        return launch_pipe<kEnc, kMode,
+                           FirChannel<kGated, kPeaks, decltype(av)::value,
+                                      false>>(p, s);
       });
     });
+  });
+}
+
+// The pipeline's staged arm for the threshold families on encoding kEnc.
+template <int kEnc>
+cudaError_t dispatch_threshold_staged(const Params& p, const Variant& v,
+                                      cudaStream_t s) {
+  return pick_threshold<false>(v, [&](auto tag) {
+    return launch_pipe<kEnc, kPipeStaged, typename decltype(tag)::type>(p,
+                                                                        s);
   });
 }
 

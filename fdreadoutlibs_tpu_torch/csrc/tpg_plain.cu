@@ -1,5 +1,5 @@
-// K2 (and K3 for FIR, K3b with fir_packed): the plain-sample datapath
-// on an int32 state.
+// K2 (the threshold families' pipeline), K3 (the FIR pipeline) and K3b
+// (FIR with fir_packed): the plain-sample datapath on an int32 state.
 // One translation unit of the kernel library: the fused tick's
 // instantiations for this encoding (the kernels are in tpg.cuh).
 #include "tpg.cuh"

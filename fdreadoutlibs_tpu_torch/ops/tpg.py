@@ -18,12 +18,15 @@ low and 2j+1 in the high 16 bits), one sample per row
 (T, WR, 7, 128) words14 relayout; :data:`PACKED14`).  On CUDA tensors it
 launches the hand-written Hopper kernels (``csrc/tpg*.cu``, ROADMAP.md's
 names): K1 = time2 datapath, K2 = plain datapath, K3 = the FIR family on
-any (on plain and time2 rows a two-warp pipeline: a loader-and-front warp
-and a filter-and-hit warp per 32 channels), K4 = the in-kernel 14-bit
-unpack; K5 = the two-pass FIR schedule, selected by ``fir_twopass`` 1 or 2
-as ``pallas_tpg.process_window_pallas`` selects ``_fir2_kernel`` (the same
-pipeline with a warp each for front, filter and hit; its slabs live in
-shared memory, so it takes no scratch); and the variants of
+any, K4 = the in-kernel 14-bit unpack (K2, K3 and K4 a warp-specialised
+pipeline per 32 channels: a loader-and-front warp, then for FIR a
+filter-and-hit warp, for AbsRS and StandardRS a running-sum warp and a hit
+warp, for SimpleThreshold a hit warp; K3b's fused tick for FIR with
+``fir_packed``); K5 = the two-pass FIR schedule, selected by
+``fir_twopass`` 1 or 2 as ``pallas_tpg.process_window_pallas`` selects
+``_fir2_kernel`` (the same pipeline with a warp each for front, filter
+and hit; its slabs live in shared memory, so it takes no scratch); and the
+variants of
 ``_tpg_kernel`` that its arguments select: K2b = an int16 state (``pack_state(dtype=torch.int16)``,
 the native int16 arithmetic of ``fixedpoint.I16Fx`` on an int16 feed), K3b
 = ``fir_packed`` (the FIR family with the SWAR carry), K4b-gather =
@@ -644,8 +647,8 @@ def kernel_of(cfg: TPGConfig, time_packed: bool,
     options of :func:`_options`), where :func:`kernels_of` names every
     kernel on its datapath: K5, K2b, K4b-slab or K4b-gather, K4 for any
     family on packed words, K3b, K3 for the FIR fused tick on plain and
-    time2 rows (the pipeline of ``csrc/tpg.cuh``), else K1 (time2) or K2
-    (plain samples) for the threshold families."""
+    time2 rows, else K1 (time2) or K2 (plain samples) for the threshold
+    families (K2, K3 and K4 the pipeline of ``csrc/tpg.cuh``)."""
     if fir_twopass:
         return "K5"
     if int16:
@@ -680,7 +683,7 @@ def carry_shared_bytes(cfg: TPGConfig, tc: int, k_slots: int,
     return slab + staged * record_words(cfg) * _BLOCK * 4
 
 
-# csrc/tpg.cu::tpg_launch's C signature (tpg_fir_staged_launch's too), and
+# csrc/tpg.cu::tpg_launch's C signature (the staged arms' too), and
 # tpg_fir2_launch's: the same with lift before (device, stream)
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 8
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,

@@ -1,20 +1,22 @@
-"""The FIR pipeline's two levers on the card (``csrc/tpg.cuh``,
-``fir_pipe_kernel``): K3 (the loader-and-front warp and the filter-and-hit
-warp) and K5 (a warp each for front, filter and hit) against the staged arm
-(the asynchronous feed staging alone: one warp copies the feed into the
-shared-memory ring ahead of its chain and runs the whole tick), on the
-same inputs, bit-equal, timed in rotated turns; and the machine code of
-every warp's group loop (16 ticks): its instructions and its longest chain
-of register dependences per tick.
+"""The pipeline's two levers on the card (``csrc/tpg.cuh``,
+``pipe_kernel``): K3 (the loader-and-front warp and the filter-and-hit
+warp), K5 (a warp each for front, filter and hit), K2 and K4 (the threshold
+families: a loader-and-front warp, for AbsRS a running-sum warp, and a hit
+warp; K4 also runs FIR on packed words as K3's pipeline) against the staged
+arms (the asynchronous feed staging alone: one warp copies the feed into
+the shared-memory ring ahead of its chain and runs the whole fused tick),
+on the same inputs, bit-equal, timed in rotated turns; and the machine code
+of every warp's group loop (16 ticks): its instructions and its longest
+chain of register dependences per tick.
 
     python fdreadoutlibs_tpu_torch/probes/fir_pipe.py [--root DIR]
 
 prints one JSON line.  ``--root`` times the package of another checkout
-instead (an earlier commit's K3 and K5 through ``tpg.launch_kernel``, whose
-arguments are the same), so that two commits can be compared on one card
-in one call; the staged arm and the machine code are this package's only.
-Each case's ``digest`` (of its slots, nclose and state) tells whether two
-runs gave the same outputs.
+instead (an earlier commit's K2, K3, K4 and K5 through
+``tpg.launch_kernel``, whose arguments are the same), so that two commits
+can be compared on one card in one call; the staged arms and the machine
+code are this package's only.  Each case's ``digest`` (of its slots,
+nclose and state) tells whether two runs gave the same outputs.
 """
 
 from __future__ import annotations
@@ -28,45 +30,68 @@ import statistics
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 T, C, TC, K = 8192, 2560, 256, 4
 SEED = 20260
-# (label, time2 rows, fir_twopass, peaks); the staged arm's cases follow
-CASES = (("K3 FIR plain", False, 0, False), ("K3 FIR time2", True, 0, False),
-         ("K3 FIR plain peaks", False, 0, True),
-         ("K5 FIR plain twopass 1", False, 1, False),
-         ("K5 FIR plain twopass 2", False, 2, False))
-STAGED = (("staged FIR plain", False, False), ("staged FIR time2", True, False))
+# (label, family, feed, fir_twopass, peaks): the feed is "plain" or
+# "time2" rows, or packed 14-bit "frames" or "words14" rows of the same
+# samples; the staged arms' cases follow
+CASES = (("K3 FIR plain", "FIR", "plain", 0, False),
+         ("K3 FIR time2", "FIR", "time2", 0, False),
+         ("K3 FIR plain peaks", "FIR", "plain", 0, True),
+         ("K5 FIR plain twopass 1", "FIR", "plain", 1, False),
+         ("K5 FIR plain twopass 2", "FIR", "plain", 2, False),
+         ("K2 AbsRS plain", "AbsRS", "plain", 0, False),
+         ("K2 SimpleThreshold plain", "SimpleThreshold", "plain", 0, False),
+         ("K4 AbsRS frames", "AbsRS", "frames", 0, False),
+         ("K4 AbsRS words14", "AbsRS", "words14", 0, False),
+         ("K4 FIR frames", "FIR", "frames", 0, False))
+STAGED = (("staged FIR plain", "FIR", "plain"),
+          ("staged FIR time2", "FIR", "time2"),
+          ("staged AbsRS plain", "AbsRS", "plain"),
+          ("staged AbsRS frames", "AbsRS", "frames"))
+# the case each family's results must equal (held to the plain version)
+REFERENCE = {"FIR": "K3 FIR plain", "AbsRS": "K2 AbsRS plain",
+             "SimpleThreshold": "K2 SimpleThreshold plain"}
 GROUP = 16                 # ticks in a group loop's body (tpg.cuh kGroup)
-# launches of the staged arm's kernel (never the plain version)
+# launches of the staged arms' kernels (never the plain version)
 launches = 0
 
 
 def staged_launch(feed: torch.Tensor, state: torch.Tensor, cfg, tc: int,
-                  k_slots: int, time_packed: bool = True):
-    """The staged arm (``csrc/tpg.cu::tpg_fir_staged_launch``) on CUDA
-    tensors: the FIR family on plain or time2 rows, an int32 state, the
-    direct store; raises on anything else.  On CPU tensors K3's plain
-    version (the same function).  Returns (slots, nclose, new_state)."""
+                  k_slots: int, time_packed: bool = True,
+                  packed14: str | None = None):
+    """The staged arms on CUDA tensors: ``csrc/tpg.cu::
+    tpg_fir_staged_launch`` (the FIR family on plain or time2 rows) or
+    ``tpg_threshold_staged_launch`` (the threshold families on plain
+    samples or packed 14-bit words, ``packed14`` as ``tpg.process_window``
+    takes it), an int32 state, the direct store; raises on anything else.
+    On CPU tensors the fused tick's plain version (the same function).
+    Returns (slots, nclose, new_state)."""
     global launches
     from fdreadoutlibs_tpu_torch.ops import Algorithm, _build, tpg
     if feed.device.type == "cpu" and state.device.type == "cpu":
         return tpg.process_window_plain(feed, state, cfg, tc, k_slots,
-                                        time_packed)
-    if cfg.algorithm != Algorithm.FIR or state.dtype != torch.int32:
-        raise ValueError("the staged arm runs the FIR family on an int32 "
-                         "state")
+                                        time_packed, packed14)
+    fir = cfg.algorithm == Algorithm.FIR
+    if state.dtype != torch.int32 or (fir and packed14 is not None) or \
+            (not fir and time_packed):
+        raise ValueError("the staged arms run FIR on plain or time2 rows "
+                         "and the threshold families on plain samples or "
+                         "packed words, on an int32 state")
     if not (feed.is_cuda and state.is_cuda and feed.device == state.device
             and feed.is_contiguous() and state.is_contiguous()):
         raise ValueError("the staged arm needs contiguous feed and state on "
                          "one CUDA device")
-    fn = _build.load("tpg").tpg_fir_staged_launch
+    lib = _build.load("tpg")
+    fn = lib.tpg_fir_staged_launch if fir else lib.tpg_threshold_staged_launch
     fn.argtypes = tpg._ARGTYPES
     fn.restype = ctypes.c_int
     dev = state.device
-    out = tpg._launch(fn, feed, state, cfg, tc, k_slots, time_packed, None,
-                      dev.index if dev.index is not None
+    out = tpg._launch(fn, feed, state, cfg, tc, k_slots, time_packed,
+                      packed14, dev.index if dev.index is not None
                       else torch.cuda.current_device(),
                       torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
@@ -166,60 +191,103 @@ def chain_length(body) -> int:
     return longest
 
 
-def group_loops(insns, min_insns: int = 8 * GROUP) -> list:
+# integer multiplies (the running sum's); IMAD's move, add and shift forms
+# are not, nor an IMAD with a zero factor (a move of its addend)
+_MUL_SKIP = ("MOV", "IADD", "SHL", "X")
+
+
+def _is_mul(op: str, ops: list) -> bool:
+    base, *mods = op.split(".")
+    return base in ("IMAD", "IMUL") and not set(mods) & set(_MUL_SKIP) \
+        and "RZ" not in ops[1:3]
+
+
+def group_loops(insns, min_insns: int = 6 * GROUP) -> list:
     """Every warp's group loop (an inner loop of at least ``min_insns``
     instructions: 16 ticks) in address order: {"insns", "per_tick",
-    "chain_per_tick", "lds", "sts"}."""
+    "chain_per_tick", "lds", "sts", "mul"}."""
     out = []
     for body in inner_loops(insns):
         if len(body) < min_insns:
             continue
-        ops = [op.split(".")[0] for _, _, op, _ in body]
+        bases = [op.split(".")[0] for _, _, op, _ in body]
         out.append({"insns": len(body), "per_tick": len(body) / GROUP,
                     "chain_per_tick": chain_length(body) / GROUP,
-                    "lds": ops.count("LDS"), "sts": ops.count("STS")})
+                    "lds": bases.count("LDS"), "sts": bases.count("STS"),
+                    "mul": sum(_is_mul(op, ops) for _, _, op, ops in body)})
     return out
 
 
-# the pipeline's instantiations that the rows report: (encoding, mode,
-# gated, peaks, avx, carry) of csrc/tpg.cuh::fir_pipe_kernel, on plain rows
-# without peaks
-REPORTED = {"K3": (0, 1, 0, 0, 1, 0), "K5 twopass 1": (0, 2, 0, 0, 1, 0),
-            "K5 twopass 2": (0, 3, 0, 0, 1, 0), "staged": (0, 0, 0, 0, 1, 0)}
-# each warp's group loop by its shared-memory traffic per 16 ticks (plain
-# rows, no peaks): (LDS, STS) -> role.  The front loads a sample and
-# stores s and sigma per tick; K5's filter loads s and sigma and stores
-# flags and to_add; the hit warps load two words per tick and store none
-# (the slots are global); the staged arm loads a sample and stores none.
-ROLES = {"K3": {(16, 32): "loader + front", (32, 0): "filter + hit"},
-         "K5 twopass 1": {(16, 32): "loader + front", (32, 32): "filter",
-                          (32, 0): "hit"},
-         "K5 twopass 2": {(16, 32): "loader + front", (32, 32): "filter",
-                          (32, 0): "hit"},
-         "staged": {(16, 0): "loader + whole tick"}}
+# the pipeline's instantiations that the rows report, csrc/tpg.cuh::
+# pipe_kernel<encoding, mode, channel, carry> with the direct store:
+# (encoding, mode, channel type, its template arguments).  The FIR cases
+# without peaks, AVX semantics; the threshold cases as phase 3 runs them
+# (AbsRS floored; SimpleThreshold at a positive threshold, unfloored).
+REPORTED = {
+    "K3": (0, 1, "FirChannel", "Lb0ELb0ELb1ELb0E"),
+    "K5 twopass 1": (0, 2, "FirChannel", "Lb0ELb0ELb1ELb0E"),
+    "K5 twopass 2": (0, 3, "FirChannel", "Lb0ELb0ELb1ELb0E"),
+    "staged": (0, 0, "FirChannel", "Lb0ELb0ELb1ELb0E"),
+    "K2 AbsRS": (0, 4, "ThresholdChannel", "Li1ELb0ELb1ELb0ELb0E"),
+    "K2 SimpleThreshold": (0, 4, "ThresholdChannel", "Li0ELb0ELb0ELb0ELb0E"),
+    "K4 AbsRS": (2, 4, "ThresholdChannel", "Li1ELb0ELb1ELb0ELb0E"),
+    "K4 FIR": (2, 1, "FirChannel", "Lb0ELb0ELb1ELb0E"),
+    "staged AbsRS plain": (0, 0, "ThresholdChannel", "Li1ELb0ELb1ELb0ELb0E"),
+    "staged AbsRS packed": (2, 0, "ThresholdChannel",
+                            "Li1ELb0ELb1ELb0ELb0E"),
+}
+# each warp's group loop by its shared-memory traffic per 16 ticks:
+# (LDS, STS) -> role, and where two roles share it (the threshold front
+# and the running sum on plain samples) (LDS, STS, at least one multiply a
+# tick).  The front loads a sample (two words on packed rows) and stores s
+# (and sigma for FIR) per tick; K5's filter loads s and sigma and stores
+# flags and to_add; the running sum loads s and stores over; the hit warps
+# load one or two words per tick and store none (the slots are global);
+# the staged arms load a sample (two words) and store none.
+_FIR_K3 = {(16, 32): "loader + front", (32, 0): "filter + hit"}
+_FIR_K5 = {(16, 32): "loader + front", (32, 32): "filter", (32, 0): "hit"}
+ROLES = {"K3": _FIR_K3, "K5 twopass 1": _FIR_K5, "K5 twopass 2": _FIR_K5,
+         "staged": {(16, 0): "loader + whole tick"},
+         "K2 AbsRS": {(16, 16, False): "loader + front",
+                      (16, 16, True): "running sum", (32, 0): "hit"},
+         "K2 SimpleThreshold": {(16, 16): "loader + front", (16, 0): "hit"},
+         "K4 AbsRS": {(32, 16): "loader + front", (16, 16): "running sum",
+                      (32, 0): "hit"},
+         "K4 FIR": {(32, 32): "loader + front", (32, 0): "filter + hit"},
+         "staged AbsRS plain": {(16, 0): "loader + whole tick"},
+         "staged AbsRS packed": {(32, 0): "loader + whole tick"}}
+
+
+def _role(roles: dict, loop: dict):
+    key = (loop["lds"], loop["sts"])
+    if key in roles:
+        return roles[key]
+    return roles.get(key + (loop["mul"] >= GROUP,))
 
 
 def pipe_sass(sass_text: str) -> dict:
-    """{"K3" | "K5 twopass 1" | "K5 twopass 2" | "staged": {role: group
-    loop}} of the reported instantiations (the FIR plain datapath without
-    peaks, AVX semantics), each loop told by its shared-memory traffic
-    (:data:`ROLES`; the machine code need not keep the warps' order);
-    ``chain_per_tick`` of the longest role is the chain floor's count.
-    Raises unless every warp has one group loop."""
+    """{label of :data:`REPORTED`: {role: group loop}}, each loop told by
+    its shared-memory traffic (:data:`ROLES`; the machine code need not
+    keep the warps' order); ``chain_per_tick`` of the longest role is the
+    chain floor's count.  Raises unless every warp has one group loop."""
     kernels = sass_kernels(sass_text)
     out = {}
-    for label, args in REPORTED.items():
-        needle = "fir_pipe_kernelI" + "".join(
-            f"L{'i' if i < 2 else 'b'}{a}E" for i, a in enumerate(args))
-        hits = [k for k in kernels if needle in k]
+    for label, (enc, mode, channel, args) in REPORTED.items():
+        needle = re.compile(rf"pipe_kernelILi{enc}ELi{mode}EN\w*?"
+                            rf"{len(channel)}{channel}I{args}EELb0E")
+        hits = [k for k in kernels if needle.search(k)]
         if len(hits) != 1:
-            raise LookupError(f"{len(hits)} kernels match {needle}")
-        roles = {ROLES[label].get((x["lds"], x["sts"])): x
+            raise LookupError(f"{len(hits)} kernels match {needle.pattern}")
+        roles = {_role(ROLES[label], x): x
                  for x in group_loops(kernels[hits[0]])}
         if set(roles) != set(ROLES[label].values()):
-            raise LookupError(f"{label}: group loops of roles {list(roles)} "
-                              f"for warps {list(ROLES[label].values())}")
-        out[label] = {role: roles[role] for role in ROLES[label].values()}
+            raise LookupError(
+                f"{label}: group loops of roles {list(roles)} for warps "
+                f"{list(ROLES[label].values())}: " + json.dumps(
+                    [{k: x[k] for k in ("insns", "lds", "sts", "mul")}
+                     for x in group_loops(kernels[hits[0]])]))
+        out[label] = {role: roles[role]
+                      for role in dict.fromkeys(ROLES[label].values())}
     return out
 
 
@@ -259,53 +327,75 @@ def _time(fn, flush: torch.Tensor, n: int) -> float:
 def run(device=None, trials: int = 3, reps: int = 10,
         check_plain: bool = True) -> dict:
     """Every case of :data:`CASES` (and :data:`STAGED` where this package
-    has the arm) at T x C: each result equal to the first K3 case's on its
-    rows and, with ``check_plain``, that one equal to the plain version;
-    then ms per launch (medians over ``trials`` of ``reps`` launches, cases
-    in rotated order) and cycles per tick per thread at the SM clock read
-    after the timing."""
+    has the arms) at T x C: each result equal to its family's
+    :data:`REFERENCE` case on the same samples (the peaks cases to the
+    first one with peaks) and, with ``check_plain``, those equal to the
+    plain version; then ms per launch (medians over ``trials`` of ``reps``
+    launches, cases in rotated order) and cycles per tick per thread at the
+    SM clock read after the timing."""
     from dataclasses import replace
 
     from fdreadoutlibs_tpu_torch.ops import (TPGConfig, init_chanstate,
                                              seed_chanstate, tpg)
-    from fdreadoutlibs_tpu_torch.testing import fir_stream, time2_words
+    from fdreadoutlibs_tpu_torch.ops.ingest import pack_words14
+    from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
+                                                 time2_words, tpg_stream)
     from fdreadoutlibs_tpu_torch.utils.preflight import sm_clock_mhz
     dev = torch.device("cuda", 0) if device is None else torch.device(device)
-    base = TPGConfig.from_raw("FIR", threshold=5, track_peaks=False)
-    adcs = fir_stream(T, C, TC, K, SEED)
-    state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], 0), C,
-                           device=dev)
-    rows = {False: torch.from_numpy(adcs).to(dev),
-            True: torch.from_numpy(time2_words(adcs)).to(dev)}
-    runs = {}
-    for label, time2, twopass, peaks in CASES:
-        cfg = replace(base, track_peaks=peaks)
-        runs[label] = (lambda cfg=cfg, time2=time2, twopass=twopass:
-                       tpg.launch_kernel(rows[time2], state, cfg, TC, K,
-                                         time2, fir_twopass=twopass))
+    cfgs = {"FIR": TPGConfig.from_raw("FIR", threshold=5, track_peaks=False),
+            "AbsRS": TPGConfig.from_raw("AbsRS", threshold=150),
+            "SimpleThreshold": TPGConfig(threshold=150)}
+    fir_adcs = fir_stream(T, C, TC, K, SEED)
+    thr_adcs, rmf = tpg_stream(T, C, TC, K, SEED)
+    inputs = {}      # family -> (state, {feed: tensor})
+    for fam in cfgs:
+        a, m = (fir_adcs, 0) if fam == "FIR" else (thr_adcs, rmf)
+        frames = torch.from_numpy(frame_words(a).view(np.int32)).to(dev)
+        inputs[fam] = (
+            tpg.pack_state(seed_chanstate(init_chanstate(C), a[0], m), C,
+                           device=dev),
+            {"plain": torch.from_numpy(a).to(dev),
+             "time2": torch.from_numpy(time2_words(a)).to(dev),
+             "frames": frames, "words14": pack_words14(frames)})
+    runs, family = {}, {}
+    for label, fam, feed, twopass, peaks in CASES:
+        cfg = replace(cfgs[fam], track_peaks=peaks)
+        state, feeds = inputs[fam]
+        packed = feed if feed in ("frames", "words14") else None
+        runs[label] = (lambda cfg=cfg, f=feeds[feed], state=state,
+                       time2=feed == "time2", packed=packed, tp=twopass:
+                       tpg.launch_kernel(f, state, cfg, TC, K, time2, packed,
+                                         fir_twopass=tp))
+        family[label] = (fam, peaks)
     here = Path(tpg.__file__).resolve().parents[1] == \
         Path(__file__).resolve().parents[1]
     if here:
-        for label, time2, peaks in STAGED:
-            cfg = replace(base, track_peaks=peaks)
-            runs[label] = (lambda cfg=cfg, time2=time2:
-                           staged_launch(rows[time2], state, cfg, TC, K,
-                                         time2))
+        for label, fam, feed in STAGED:
+            state, feeds = inputs[fam]
+            packed = feed if feed in ("frames", "words14") else None
+            runs[label] = (lambda cfg=cfgs[fam], f=feeds[feed], state=state,
+                           time2=feed == "time2", packed=packed:
+                           staged_launch(f, state, cfg, TC, K, time2,
+                                         packed))
+            family[label] = (fam, False)
     out = {"T": T, "C": C, "tc": TC, "k_slots": K, "cases": {}}
     results = {label: fn() for label, fn in runs.items()}
     torch.cuda.synchronize()
-    want = results["K3 FIR plain"]
     if check_plain:
-        plain = tpg.process_window_plain(rows[False], state, base, TC, K,
-                                         False)
-        for g, w in zip(want, plain):
-            if not torch.equal(g, w):
-                raise AssertionError("K3 differs from its plain version")
+        for fam, label in REFERENCE.items():
+            state, feeds = inputs[fam]
+            plain = tpg.process_window_plain(feeds["plain"], state,
+                                             cfgs[fam], TC, K, False)
+            for g, w in zip(results[label], plain):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{label} differs from its plain "
+                                         "version")
     for label, got in results.items():
-        ref = results["K3 FIR plain peaks"] if "peaks" in label else want
-        for g, w in zip(got, ref):
+        fam, peaks = family[label]
+        ref = "K3 FIR plain peaks" if peaks else REFERENCE[fam]
+        for g, w in zip(got, results[ref]):
             if not torch.equal(g, w):
-                raise AssertionError(f"{label} differs from K3")
+                raise AssertionError(f"{label} differs from {ref}")
         out["cases"][label] = {"digest": _digest(got),
                                "max_closes_per_chunk": int(got[1].max())}
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -331,7 +421,7 @@ def main(argv=None) -> int:
                          "this one)")
     ap.add_argument("--trials", type=int, default=3)
     ap.add_argument("--no-plain", action="store_true",
-                    help="skip the plain version's check (~10 s)")
+                    help="skip the plain versions' check (~20 s)")
     args = ap.parse_args(argv)
     from fdreadoutlibs_tpu_torch.ops import _build
     from fdreadoutlibs_tpu_torch.utils.preflight import (device_preflight,

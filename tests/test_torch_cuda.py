@@ -1,7 +1,9 @@
 """The hand-written CUDA kernel against its plain version on the card (K1,
 K2 and K3: both datapaths, all four families; K4: both packed layouts, all
-four families; K5: fir_twopass 1 and 2 on every encoding, also against
-K3, and through the words14 gather; K2b, K3b, K4b-gather, K4b-slab and
+four families; the pipeline of K2, K3, K4 and K5 launched 50 times each
+for races, and the staged arms; K5: fir_twopass 1 and 2 on every
+encoding, also against K3, and through the words14 gather; K2b, K3b,
+K4b-gather, K4b-slab and
 the float running sum; the ``SLOT_WORD_CARRY`` layout on every one of those
 datapaths; the probes' kernels P1-P3), and the APA app (every feed),
 ``StreamingIngest``, the WIB2 and
@@ -28,8 +30,8 @@ from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, init_chanstate,
                                          seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.ingest import StreamingIngest, pack_words14
 from fdreadoutlibs_tpu_torch import probes
-from fdreadoutlibs_tpu_torch.probes import (i16_ops, roofline, slots_ab,
-                                            swar_frugal)
+from fdreadoutlibs_tpu_torch.probes import (fir_pipe, i16_ops, roofline,
+                                            slots_ab, swar_frugal)
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor, \
     WIBFrameProcessor
 from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
@@ -299,6 +301,65 @@ def test_fir_pipeline_is_deterministic(card, C, T, tc):
         for got in runs:
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (time2, twopass)
+
+
+def _threshold_feeds(adcs, C):
+    """The window on plain rows, frame words (padded to whole links) and
+    words14 rows: K2's and K4's feeds."""
+    words = torch.from_numpy(frame_words(
+        np.pad(adcs, ((0, 0), (0, -C % 64)))).view(np.int32))
+    return [(torch.from_numpy(adcs), None), (words, "frames"),
+            (pack_words14(words), "words14")]
+
+
+@pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (160, 300, 150)])
+def test_threshold_pipeline_is_deterministic(card, C, T, tc):
+    """The threshold pipeline's warps meet only at its stage barriers: K2
+    and K4 (frame words, words14 rows) for AbsRS (three warps) and
+    SimpleThreshold (two), each launched 50 times on the same inputs, give
+    bit-identical slots, nclose and state every time, equal to the plain
+    version."""
+    k = 4
+    for cfg in (CONFIGS[2], CONFIGS[0]):
+        adcs, rmf = tpg_stream(T, C, tc, k, seed=C + 6)
+        state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0],
+                                              rmf), C, device=card)
+        want = tpg.process_window_plain(torch.from_numpy(adcs).to(card),
+                                        state, cfg, tc, k, False)
+        assert int(want[1].max()) > k             # drops exercised
+        for feed, packed14 in _threshold_feeds(adcs, C):
+            feed = feed.to(card)
+            runs = [tpg.process_window(feed, state, cfg, tc, k, False,
+                                       packed14) for _ in range(50)]
+            torch.cuda.synchronize()
+            for got in runs:
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (cfg.algorithm, packed14)
+
+
+@pytest.mark.parametrize("cfg", CONFIGS + [
+    TPGConfig.from_raw("AbsRS", threshold=150, rs_float=True)],
+    ids=IDS[:len(CONFIGS)] + ["AbsRS-float"])
+@pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (160, 300, 150)])
+def test_threshold_staged_arm_matches_plain(card, cfg, C, T, tc):
+    """The threshold pipeline's staged arm (``probes.fir_pipe.
+    staged_launch``: one warp copies the feed into the ring and runs
+    ThresholdChannel's whole tick) on plain samples, frame words and words14
+    rows against its plain version, and the launches counted."""
+    k = 4
+    adcs, rmf = tpg_stream(T, C, tc, k, seed=C + 8)
+    state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], rmf),
+                           C, device=card)
+    want = tpg.process_window_plain(torch.from_numpy(adcs).to(card), state,
+                                    cfg, tc, k, False)
+    before = fir_pipe.launches
+    for feed, packed14 in _threshold_feeds(adcs, C):
+        got = fir_pipe.staged_launch(feed.to(card), state, cfg, tc, k, False,
+                                     packed14)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), packed14
+    assert fir_pipe.launches == before + 3
+    assert int((want[0][:, :, -1] != 0).sum()) > 0
 
 
 def _tuned(tmp_path, monkeypatch, twopass):

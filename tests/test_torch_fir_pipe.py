@@ -1,9 +1,14 @@
-"""The FIR pipeline's probe on the CPU (``probes/fir_pipe.py``): the reading
+"""The pipeline's probe on the CPU (``probes/fir_pipe.py``): the reading
 of the machine code that counts each warp's group loop and its longest
-chain of register dependences, on hand-written ``cuobjdump -sass`` text,
-and the staged arm's entry, which on CPU tensors is K3's plain version.
-The kernels themselves run in ``tests/test_torch_kernel_host.py`` (host
-build) and on the card."""
+chain of register dependences, on hand-written ``cuobjdump -sass`` text;
+the instantiations it reports, found by name among the host-built
+library's kernels; and the staged arms' entry, which on CPU tensors is the
+fused tick's plain version.  The kernels themselves run in
+``tests/test_torch_kernel_host.py`` (host build) and on the card."""
+
+import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -12,7 +17,9 @@ import torch
 from fdreadoutlibs_tpu_torch.ops import (TPGConfig, init_chanstate,
                                          seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.probes import fir_pipe
-from fdreadoutlibs_tpu_torch.testing import fir_stream, time2_words
+from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
+                                             time2_words, tpg_stream)
+from torch_host_lib import host_library
 
 NAME = ("_ZN12_GLOBAL__N_115fir_pipe_kernelILi0ELi1ELb0ELb0ELb1ELb0EEEvN3tpg"
         "6ParamsE")
@@ -42,7 +49,7 @@ def test_sass_loop_and_chain():
     assert fir_pipe.chain_length(loops[0]) == 5
     got = fir_pipe.group_loops(insns, min_insns=4)
     assert got == [{"insns": 6, "per_tick": 6 / 16, "chain_per_tick": 5 / 16,
-                    "lds": 1, "sts": 1}]
+                    "lds": 1, "sts": 1, "mul": 0}]
     assert fir_pipe.group_loops(insns) == []       # no 16-tick body
 
 
@@ -58,6 +65,55 @@ def test_sass_registers(line, written, read):
     op, _, rest = line.partition(" ")
     w, r = fir_pipe._regs(op, None, fir_pipe._operands(rest))
     assert (w, r) == (written, read)
+
+
+@pytest.mark.parametrize("line,mul", [
+    ("IMAD R6, R2, R3, R6", True), ("IMAD.WIDE.U32 R4, R2, 0xc, R8", True),
+    ("IMUL R5, R2, R3", True), ("IMAD.MOV.U32 R5, RZ, RZ, R3", False),
+    ("IMAD R23, RZ, RZ, -UR4", False), ("IMAD.IADD R4, R2, 0x1, R3", False),
+    ("IMAD.SHL.U32 R4, R2, 0x4, RZ", False), ("IMAD.X R5, RZ, RZ, R7", False),
+    ("IADD3 R4, R2, R3, RZ", False)])
+def test_multiply_count(line, mul):
+    """A multiply is an IMAD or IMUL with two non-zero factors: not the
+    compiler's moves, adds and shifts in IMAD's form."""
+    op, _, rest = line.partition(" ")
+    assert fir_pipe._is_mul(op, fir_pipe._operands(rest)) is mul
+
+
+def test_roles_told_apart_by_multiplies():
+    """The threshold front and the running sum both load one word and store
+    one a tick on plain samples; the running sum's multiplies tell them
+    apart."""
+    roles = fir_pipe.ROLES["K2 AbsRS"]
+    loop = {"lds": 16, "sts": 16, "mul": 0}
+    assert fir_pipe._role(roles, loop) == "loader + front"
+    assert fir_pipe._role(roles, dict(loop, mul=32)) == "running sum"
+    assert fir_pipe._role(roles, {"lds": 32, "sts": 0, "mul": 0}) == "hit"
+    assert fir_pipe._role(fir_pipe.ROLES["K3"],
+                          {"lds": 16, "sts": 32, "mul": 40}) == \
+        "loader + front"
+
+
+def test_reported_kernels_are_instantiated():
+    """Each instantiation the probe reads is one kernel of the library
+    (its name as the host compiler mangles it, which the card's compiler
+    shares but for the anonymous namespace's name), and each role map has
+    one role per warp of its mode."""
+    nm = shutil.which("nm")
+    if nm is None:
+        pytest.skip("needs nm")
+    lib = host_library("tpg")
+    names = subprocess.run([nm, lib._name], capture_output=True, text=True,
+                           check=True).stdout.split()
+    names = {n for n in names if n.startswith("_ZN") and "pipe_kernel" in n
+             and n.endswith("N3tpg6ParamsE")}
+    for label, (enc, mode, channel, args) in fir_pipe.REPORTED.items():
+        needle = re.compile(rf"pipe_kernelILi{enc}ELi{mode}EN\w*?"
+                            rf"{len(channel)}{channel}I{args}EELb0E")
+        assert len([n for n in names if needle.search(n)]) == 1, label
+        warps = 1 if mode == 0 else 2 if mode == 1 or \
+            label == "K2 SimpleThreshold" else 3
+        assert len(set(fir_pipe.ROLES[label].values())) == warps, label
 
 
 def test_chain_floor_is_the_longest_warp():
@@ -82,6 +138,29 @@ def test_staged_entry_on_cpu_is_k3_plain(time2):
         assert torch.equal(g, w)
     assert fir_pipe.launches == 0
     assert int(np.asarray(want[1]).max()) > 2
+
+
+@pytest.mark.parametrize("packed14", [None, "frames", "words14"])
+def test_threshold_staged_entry_on_cpu_is_plain(packed14):
+    """The threshold staged arm's entry on CPU tensors: the fused tick's
+    plain version on plain samples and packed words; no launch."""
+    from fdreadoutlibs_tpu_torch.ops.ingest import pack_words14
+    cfg = TPGConfig.from_raw("AbsRS", threshold=150)
+    C, T, tc = 128, 192, 64
+    adcs, rmf = tpg_stream(T, C, tc, 2, seed=6)
+    state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], rmf),
+                           C)
+    feed = torch.from_numpy(adcs)
+    if packed14 is not None:
+        feed = torch.from_numpy(frame_words(adcs).view(np.int32))
+        if packed14 == "words14":
+            feed = pack_words14(feed)
+    got = fir_pipe.staged_launch(feed, state, cfg, tc, 2, False, packed14)
+    want = tpg.process_window_plain(torch.from_numpy(adcs), state, cfg, tc,
+                                    2, False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert fir_pipe.launches == 0
 
 
 def test_kernel_of_names_the_function_a_launch_runs():

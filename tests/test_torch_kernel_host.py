@@ -2,20 +2,22 @@
 ``SLOT_WORD_CARRY`` units ``csrc/tpg_carry_*.cu`` among them) and
 ``csrc/probes*.cu`` compiled with the host C++ compiler against a stand-in
 CUDA runtime
-(``tests/cuda_host/cuda_runtime.h``, ``-DTPG_HOST_EMULATION``: a grid
-without barriers runs serially; the blocks of the FIR pipeline (K3, K5),
-K4b-slab and K4b-gather run as host threads that meet at a real barrier
-or shuffle), called
+(``tests/cuda_host/cuda_runtime.h``, ``-DTPG_HOST_EMULATION``; built
+once by ``tests/torch_host_lib.py``: a grid without barriers runs
+serially; the blocks of the pipeline (K2, K3, K4, K5), K4b-slab and
+K4b-gather run as host threads that meet at a real barrier or shuffle),
+called
 through the wrapper's own argument marshalling (``ops/tpg._launch``) and
 held bit-equal to the plain version for every encoding (K1 time2, K2
 plain, K4 frame words and words14 rows, K4b-gather and K4b-slab on words14
 rows) and family (K3 FIR, K3b with the SWAR carry, the float running sum),
 the int16 state (K2b), and K5 (fir_twopass 1 and 2, also through the
 gather) for the FIR variants, at a shape with whole 16-tick groups and one
-with a ragged chunk tail or a partly empty block and warp; the FIR
-pipeline (K3 on plain and time2 rows, K5, the staged arm; its warps as
-host threads, its stage barriers and copies the stand-in's) also at
-ProtoWIB plane widths and chunks that are no whole stage.  The carry
+with a ragged chunk tail or a partly empty block and warp; the pipeline
+(K3 on plain, time2 and packed rows, K5, K2 and K4 for the threshold
+families, the staged arms; its warps as host threads, its stage barriers
+and copies the stand-in's) also at ProtoWIB plane widths, partly empty
+warps and 7-word groups, and chunks that are no whole stage.  The carry
 layout runs every encoding and variant with the flag flipped, below, at and
 above its register ceiling; the probes' kernels (P1-P3) run through their
 modules' own marshalling against their plain versions.  What only the
@@ -24,24 +26,21 @@ card shows (the build for sm_90a, scheduling, timing) is
 
 import ctypes
 import dataclasses
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, _build,
+from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig,
                                          init_chanstate, seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.ingest import pack_words14
 from fdreadoutlibs_tpu_torch.probes import i16_ops, roofline, swar_frugal
 from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
                                              time2_words, tpg_stream)
+from torch_host_lib import host_library
 
 torch.set_num_threads(1)
 
-STUB = Path(__file__).resolve().parent / "cuda_host"
 _FIR = TPGConfig.from_raw("FIR", threshold=5)
 CONFIGS = {
     "Simple": TPGConfig(algorithm=Algorithm.SIMPLE_THRESHOLD, threshold=120),
@@ -58,32 +57,14 @@ CONFIGS = {
 }
 
 
-def _host_build(name, out):
-    """The translation units of kernel library ``name`` compiled with g++
-    at once, as ``ops/_build.py`` compiles them with nvcc, and linked."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a host C++ compiler")
-    objs, _ = _build.compile_units(
-        lambda src, obj: [cxx, "-std=c++17", "-O1", "-fPIC", "-pthread",
-                          "-x", "c++", "-DTPG_HOST_EMULATION", f"-I{STUB}",
-                          "-c", "-o", str(obj), str(src)],
-        _build.units(name), out)
-    lib = out / f"lib{name}_host.so"
-    res = subprocess.run([cxx, "-shared", "-pthread", "-o", str(lib),
-                          *map(str, objs)], capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
-    return ctypes.CDLL(str(lib))
+@pytest.fixture(scope="module")
+def host_lib():
+    return host_library("tpg")
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    return _host_build("tpg", tmp_path_factory.mktemp("tpg_host"))
-
-
-@pytest.fixture(scope="module")
-def host_probes(tmp_path_factory):
-    return _host_build("probes", tmp_path_factory.mktemp("probes_host"))
+def host_probes():
+    return host_library("probes")
 
 
 @pytest.fixture
@@ -111,12 +92,17 @@ def host_fir2(host_lib):
     return fn
 
 
-def _inputs(cfg, C, T, tc, k):
-    """The window as every encoding the kernel takes, and its state."""
+def _inputs(cfg, C, T, tc, k, split_pulse=False):
+    """The window as every encoding the kernel takes, and its state; with
+    ``split_pulse`` a pulse on channel 2 (memoryless for the RS families)
+    ends on tick T / 2 - 1, so a second window from T / 2 closes it on its
+    first tick from the carried state alone."""
     if cfg.algorithm == Algorithm.FIR:
         adcs, rmf = fir_stream(T, C, tc, k, seed=C), 0
     else:
         adcs, rmf = tpg_stream(T, C, tc, k, seed=C)
+    if split_pulse:
+        adcs[T // 2 - 4:T // 2, 2] += 2000
     state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], rmf), C)
     # whole 64-channel links; the kernel reads only the first C channels
     links = np.pad(adcs, ((0, 0), (0, -C % 64)))
@@ -204,6 +190,127 @@ def test_fir_staged_arm_source_matches_plain(host_lib, name):
                               None)
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (C, tc, time2)
+
+
+# The threshold pipeline's shapes (csrc/tpg.cuh::pipe_kernel,
+# kPipeThreshold, 32-channel blocks, 32-tick stages): C = 40 and 100 leave
+# the last warp partly empty (plain samples only: packed words come in
+# 16-channel groups), C = 48 and 80 a last warp of one 7-word group; tc =
+# 48, 50 and 160 are no whole stage (50 no whole group); K = 1, and K = 5
+# and 6 above the carry layout's register ceiling.  The burst channel closes
+# K + 2 hits in a chunk where its running sum does not merge them.
+THRESHOLD_PIPE_SHAPES = [(40, 192, 48, 2), (100, 200, 50, 1),
+                         (48, 320, 160, 6), (80, 384, 96, 5)]
+THRESHOLDS = [n for n in CONFIGS if not n.startswith("FIR")]
+
+
+def _halves(feed, packed14, T):
+    """A feed of T ticks as two windows of T / 2 (a chunk boundary, where
+    the test stream holds a pulse)."""
+    if packed14 == "frames":                  # (L, T, 28)
+        return [feed[:, :T // 2].contiguous(), feed[:, T // 2:].contiguous()]
+    return [feed[:T // 2].contiguous(), feed[T // 2:].contiguous()]
+
+
+def _two_windows(fn, feed, state, cfg, tc, k, packed14, T):
+    """fn's results on two consecutive windows, state carried."""
+    out = []
+    for half in _halves(feed, packed14, T):
+        got = fn(half, state, cfg, tc, k, packed14)
+        state = got[2]
+        out.append(got)
+    return out
+
+
+@pytest.mark.parametrize("slot_word_carry", [False, True],
+                         ids=["direct", "carry"])
+@pytest.mark.parametrize("name", THRESHOLDS)
+def test_threshold_pipeline_source_matches_plain(host_kernel, name,
+                                                 slot_word_carry,
+                                                 monkeypatch):
+    """K2 and K4 (the threshold families on plain samples, frame words and
+    words14 rows) through the pipeline at THRESHOLD_PIPE_SHAPES, with the
+    direct store and with ``SLOT_WORD_CARRY``, against the plain
+    version: slots, nclose with drops, and state, over two windows whose
+    split falls inside a pulse (the hit warp's first previous over flag
+    comes from the carried state)."""
+    monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", slot_word_carry)
+    cfg = CONFIGS[name]
+    drops = 0
+
+    def plain(feed, state, cfg, tc, k, packed14):
+        return tpg.process_window_plain(feed, state, cfg, tc, k, False,
+                                        packed14)
+
+    def kernel(feed, state, cfg, tc, k, packed14):
+        return tpg._launch(host_kernel, feed, state, cfg, tc, k, False,
+                           packed14, 0, None)
+
+    for C, T, tc, k in THRESHOLD_PIPE_SHAPES:
+        feeds, state = _inputs(cfg, C, T, tc, k, split_pulse=True)
+        want = _two_windows(plain, feeds[0][0], state, cfg, tc, k, None, T)
+        drops += max(int(w[1].max()) for w in want) > k
+        for feed, time2, packed14 in feeds:
+            if time2 or (packed14 and C % 16):
+                continue
+            got = _two_windows(kernel, feed, state, cfg, tc, k, packed14, T)
+            for n, (gw, ww) in enumerate(zip(got, want)):
+                for g, w in zip(gw, ww):
+                    assert torch.equal(g, w), (C, tc, k, packed14, n)
+    assert drops >= 1
+
+
+@pytest.mark.parametrize("name", THRESHOLDS)
+def test_threshold_staged_arm_source_matches_plain(host_lib, name):
+    """The threshold pipeline's staged arm (``tpg_threshold_staged_launch``:
+    one warp, ThresholdChannel's whole tick on the staged feed) on plain
+    samples and packed words at THRESHOLD_PIPE_SHAPES, against the plain
+    version; it refuses the time2 feed and the FIR family."""
+    fn = host_lib.tpg_threshold_staged_launch
+    fn.argtypes = tpg._ARGTYPES
+    fn.restype = ctypes.c_int
+    cfg = CONFIGS[name]
+    for C, T, tc, k in THRESHOLD_PIPE_SHAPES:
+        feeds, state = _inputs(cfg, C, T, tc, k)
+        want = tpg.process_window_plain(feeds[0][0], state, cfg, tc, k,
+                                        False)
+        for feed, time2, packed14 in feeds:
+            if time2 or (packed14 and C % 16):
+                continue
+            got = tpg._launch(fn, feed, state, cfg, tc, k, False, packed14,
+                              0, None)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (C, tc, k, packed14)
+    feeds, state = _inputs(cfg, 64, 128, 64, 2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tpg._launch(fn, feeds[1][0], state, cfg, 64, 2, True, None, 0, None)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tpg._launch(fn, feeds[0][0], state, CONFIGS["FIR"], 64, 2, False,
+                    None, 0, None)
+
+
+@pytest.mark.parametrize("slot_word_carry", [False, True],
+                         ids=["direct", "carry"])
+@pytest.mark.parametrize("name", [n for n in CONFIGS if n.startswith("FIR")])
+def test_fir_pipeline_packed_source_matches_plain(host_kernel, name,
+                                                  slot_word_carry,
+                                                  monkeypatch):
+    """K4's FIR (K3's pipeline on packed words, ``pipe_kernel<kPacked14,
+    kPipeK3>``) on frame words and words14 rows with a last warp of one
+    7-word group (C = 48, 80), chunks that are no whole stage, K = 1 and
+    above the carry ceiling, against the plain version."""
+    monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", slot_word_carry)
+    cfg = CONFIGS[name]
+    for C, T, tc, k in [(48, 200, 50, 1), (80, 320, 160, 6)]:
+        feeds, state = _inputs(cfg, C, T, tc, k)
+        want = tpg.process_window_plain(feeds[0][0], state, cfg, tc, k,
+                                        False)
+        assert int(want[1].max()) > k
+        for feed, _, packed14 in feeds[2:]:
+            got = tpg._launch(host_kernel, feed, state, cfg, tc, k, False,
+                              packed14, 0, None)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (C, tc, k, packed14)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
