@@ -11,14 +11,15 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    (``fdreadoutlibs_tpu_torch/csrc/tpg*.cu``, one ``nvcc`` each, all at
    once) and summarizes ``ptxas -v`` (registers, stack, spills; the FIR
    kernels side by side: the pipeline's K3 on plain, time2 and packed
-   rows, K5 and staged arm, and K3b; every instantiation of the threshold
-   families' pipeline, K2 and K4 with both emission layouts and their
-   staged arms);
+   rows, K2b's FIR on int16 rows, K5 and staged arm, and K3b; every
+   instantiation of the threshold families' pipeline, K1, K2, K4 and K2b
+   with both emission layouts and their staged arms);
 3. kernel  — the hand-written kernel against its plain PyTorch version on
    the card at T=8192 ticks x 2560 channels (tc=256, K=4): K1 (time2
    datapath) and K2 (plain-sample datapath) for SimpleThreshold, AbsRS and
    StandardRS (K2 also for AbsRS with the float running sum, ``rs_float``;
-   K2's time beside K1's on the same samples for each family),
+   K2's time beside K1's on the same samples for each family, both the
+   pipeline),
    K3 (FIR, threshold 5) on both datapaths with and without
    peak tracking.  Slots, nclose and state must be bit-equal and some
    chunk must close more than K hits (drops exercised); both are timed.
@@ -91,10 +92,10 @@ if they do not load, so no host stage is timed on the numpy fallback.
 Phase 3 also holds K5 (fir_twopass 1 and 2, peaks off and on, plain and
 time2 datapaths) bit-equal to K3 and to the plain result K3 was held to on
 the same inputs, and to K5's own plain version once per schedule, and
-times both in the same call (K3 and K5, and the threshold families' K2 and
-K4, are the pipeline of ``csrc/tpg.cuh``; phase 8 reads each of its warps'
-group loops in the machine code and gives the chain floor beside the
-time).  It then holds
+times both in the same call (K3 and K5, the threshold families' K1, K2 and
+K4, and K2b, are the pipeline of ``csrc/tpg.cuh``; phase 8 reads each of
+its warps' group loops in the machine code and gives the chain floor
+beside the time).  It then holds
 the variants of the fused tick on the same inputs, each timed beside the
 kernel it varies and held once to its own plain version: K3b
 (``fir_packed``) on K3's plain (peaks off and on), time2 and words14 feeds,
@@ -283,7 +284,10 @@ def ptxas_kernels(log: str) -> dict:
 # the encodings (its first)
 PIPE_MODES = {"0": "staged arm", "1": "K3", "2": "K5 twopass 1",
               "3": "K5 twopass 2", "4": "threshold"}
-ENCODINGS = {"0": "plain", "1": "time2", "2": "packed14", "3": "gather14"}
+ENCODINGS = {"0": "plain", "1": "time2", "2": "packed14", "3": "gather14",
+             "5": "int16"}
+# the kernel the threshold mode runs on each encoding (ROADMAP.md's names)
+THRESHOLD_KERNEL = {"0": "K2", "1": "K1", "2": "K4", "5": "K2b"}
 # a kernel's name: its template, its channel type and arguments, and the
 # emission layout (the last template argument)
 _PIPE = re.compile(r"pipe_kernelILi(\d)ELi(\d)EN\w*?\d+(FirChannel|"
@@ -297,8 +301,8 @@ _THRESHOLDS = {"0": "SimpleThreshold", "1": "AbsRS", "2": "StandardRS"}
 
 def pipe_name(name: str) -> str | None:
     """A short name of a pipeline kernel ("K2 AbsRS plain gated floor
-    rs_float carry", "K3 packed14 peaks", ...), or None for another
-    kernel."""
+    rs_float carry", "K2b AbsRS int16 floor", "K3 packed14 peaks", ...), or
+    None for another kernel."""
     m = _PIPE.search(name)
     if m is None:
         return None
@@ -308,7 +312,7 @@ def pipe_name(name: str) -> str | None:
     if channel == "ThresholdChannel":
         fam, gated, floor, _, rs_float = (v for _, v in flags)
         if mode == "4":
-            words[0] = "K2" if enc == "0" else "K4"
+            words[0] = THRESHOLD_KERNEL[enc]
         words.append(_THRESHOLDS[fam])
         words += [w for w, v in (("gated", gated), ("floor", floor),
                                  ("rs_float", rs_float)) if v == "1"]
@@ -324,17 +328,17 @@ def pipe_name(name: str) -> str | None:
 
 
 def fir_registers(kernels: dict) -> dict:
-    """The FIR kernels on an int32 state: the pipeline's (K3 on plain,
-    time2 and packed rows, K5 on every encoding, the staged arm; direct
-    store and carry), and K3b's fused tick: {kernel: {"peaks" or "no
-    peaks": (min regs, max regs, max spill B)}}."""
+    """The FIR kernels: the pipeline's (K3 on plain, time2 and packed rows,
+    K2b's FIR on int16 rows in K3's mode, K5 on every encoding, the staged
+    arm; direct store and carry), and K3b's fused tick: {kernel: {"peaks"
+    or "no peaks": (min regs, max regs, max spill B)}}."""
     out = {}
     for name, (regs, spill) in kernels.items():
         m, mp = _FUSED.search(name), _PIPE.search(name)
         if mp is not None and mp.group(3) == "FirChannel":
             enc, mode, _, args, carry = mp.groups()
-            kern = PIPE_MODES[mode] + \
-                (f" {ENCODINGS[enc]}" if enc in ("2", "3") else "") + \
+            kern = ("K2b (K3's mode)" if enc == "5" else PIPE_MODES[mode]) \
+                + (f" {ENCODINGS[enc]}" if enc in ("2", "3") else "") + \
                 (" carry" if carry == "1" else "")
             peaks = re.findall(r"Lb(\d)E", args)[1]
         elif m is not None and "FirPackedChannel" in name and \
@@ -349,8 +353,8 @@ def fir_registers(kernels: dict) -> dict:
 
 
 def threshold_registers(kernels: dict) -> dict:
-    """Every instantiation of the threshold families' pipeline (K2, K4,
-    direct store and carry, and their staged arms): {short name:
+    """Every instantiation of the threshold families' pipeline (K1, K2, K4,
+    K2b, direct store and carry, and their staged arms): {short name:
     [registers, spill store B]}."""
     return {pipe_name(name): list(v) for name, v in sorted(kernels.items())
             if "ThresholdChannel" in name and pipe_name(name) is not None}
@@ -527,13 +531,12 @@ def kernel_vs_plain(dev):
                kernel_work(feed, cfg, "time2" if time2 else "plain", T_APA,
                            C_APA), case=(run, want))
 
-    # K2, the threshold pipeline, beside K1, tpg_kernel's tick, on the same
-    # samples (K1's time2 words split back into K2's rows), timed in this
-    # call
+    # K2 beside K1 on the same samples (K1's time2 words split back into
+    # K2's rows), both the threshold pipeline, timed in this call
     for fam in thr:
         k2_ms, k1_ms = case_ms[f"{fam} plain"], case_ms[f"{fam} time2"]
-        print(f"  K2 (pipeline) vs K1 (one thread per channel) on the same "
-              f"{fam} samples: {k2_ms:.4f} / {k1_ms:.4f} ms/batch = "
+        print(f"  K2 (plain rows) vs K1 (time2 rows) on the same {fam} "
+              f"samples: {k2_ms:.4f} / {k1_ms:.4f} ms/batch = "
               f"{k2_ms / k1_ms:.4f}", flush=True)
 
     # K4: the same ADCs as packed words.  Its plain version is the torch
@@ -1407,7 +1410,7 @@ def pipeline_rows(kernels: dict, summary: dict, mhz: float) -> dict:
     longest chain of register dependences per tick, and the time that chain
     alone takes at the dependent-op latency P1 measured (the chain floor),
     for every instantiation the probe reports (``fir_pipe.REPORTED``).
-    Returns the extra keys of the K2, K3, K4 and K5 rows, with their cycles
+    Returns the extra keys of the K1-K5 and K2b rows, with their cycles
     per tick per thread (``roofline.summarize``)."""
     pipe = fir_pipe.pipe_sass(_build.sass("tpg"))
     floors = fir_pipe.chain_floor_ms(pipe, summary["tpg_cycles_per_dep_op"],
@@ -1419,8 +1422,9 @@ def pipeline_rows(kernels: dict, summary: dict, mhz: float) -> dict:
                                  "chain_per_tick": r["chain_per_tick"]}
                           for role, r in roles.items()}))
     out = {}
-    for k, label in (("K2", "K2 AbsRS"), ("K3", "K3"), ("K4", "K4 AbsRS"),
-                     ("K5", "K5 twopass 2")):
+    for k, label in (("K1", "K1 AbsRS"), ("K2", "K2 AbsRS"), ("K3", "K3"),
+                     ("K4", "K4 AbsRS"), ("K5", "K5 twopass 2"),
+                     ("K2b", "K2b AbsRS")):
         r = summary["kernels"][f"{k} ({kernels[k]['timed']})"]
         out[k] = {"cycles_per_tick": r["cycles_per_tick_per_thread"],
                   "chain_floor_ms": floors[label],
@@ -1667,12 +1671,19 @@ def main() -> int:
         if "tpg" in _build.build_log:
             regs = ptxas_kernels(_build.build_log["tpg"])
             print("  ptxas FIR kernels: the pipeline (K3 on plain, time2 "
-                  "and packed rows, K5, the staged arm), K3b (registers "
-                  "min, max, spill stores B):",
+                  "and packed rows, K2b's FIR, K5, the staged arm), K3b "
+                  "(registers min, max, spill stores B):",
                   json.dumps(fir_registers(regs)))
-            print("  ptxas threshold pipeline, every instantiation (K2, K4, "
-                  "their carry layout and staged arms; registers, spill "
-                  "stores B):", json.dumps(threshold_registers(regs)))
+            thr_regs = threshold_registers(regs)
+            print("  ptxas threshold pipeline, every instantiation (K1, K2, "
+                  "K4, K2b, their carry layout and staged arms; registers, "
+                  "spill stores B):", json.dumps(thr_regs))
+            pipe_spills = {pipe_name(n): v[1] for n, v in regs.items()
+                           if pipe_name(n) is not None}
+            print(f"  ptxas pipeline: {len(pipe_spills)} instantiations, "
+                  f"{sum(1 for v in pipe_spills.values() if v)} with spill "
+                  "stores:", json.dumps({n: v for n, v in
+                                         pipe_spills.items() if v}))
             print("  ptxas direct store vs SLOT_WORD_CARRY (registers min, "
                   "max):", json.dumps(carry_registers(regs)))
         # the host codecs timed below must be the native library's

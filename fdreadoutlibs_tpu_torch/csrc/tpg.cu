@@ -76,7 +76,8 @@ bool make_params(Params& p, const void* feed, int feed_stride, int encoding,
 // its end (ops/tpg.py::SLOT_WORD_CARRY; the launch is refused when that
 // staging does not fit a block's shared memory).
 //
-// tpg_launch: K1-K4 and K2b, K3b, K4b, the fused tick of every family.
+// tpg_launch: K1-K4 and K2b, K3b, K4b, the fused tick of every family
+// (K1-K4 and K2b the pipeline of tpg.cuh).
 extern "C" int tpg_launch(const void* feed, int feed_stride, int encoding,
                           int groups_per_row, int group_outer,
                           int group_inner, int word_stride, int n_chunks,
@@ -177,7 +178,7 @@ extern "C" int tpg_fir2_launch(
 }
 
 // The pipeline's staged arms (one warp, the whole fused tick on a staged
-// feed, int32 state, direct store), with tpg_launch's arguments; the probes
+// feed, direct store), with tpg_launch's arguments; the probes
 // time them against the pipeline.  Same outputs as the fused tick.
 //
 // tpg_fir_staged_launch: the FIR family on plain or time2 rows, against K3.
@@ -208,8 +209,9 @@ extern "C" int tpg_fir_staged_launch(
 }
 
 // tpg_threshold_staged_launch: SimpleThreshold, AbsRS and StandardRS
-// (rs_float included) on plain samples or packed 14-bit words (kPacked14),
-// against K2 and K4.
+// (rs_float included) on time2 rows, plain samples or packed 14-bit words
+// (kPacked14), on an int32 state, or on int16 samples with `int16` (the
+// int16 state, kPlain only), against K1, K2, K4 and K2b.
 extern "C" int tpg_threshold_staged_launch(
     const void* feed, int feed_stride, int encoding, int groups_per_row,
     int group_outer, int group_inner, int word_stride, int n_chunks,
@@ -222,8 +224,10 @@ extern "C" int tpg_threshold_staged_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
-  if (family < kSimpleThreshold || family >= kFIR || int16 || fir_packed ||
-      slot_word_carry || (encoding != kPlain && encoding != kPacked14) ||
+  if (family < kSimpleThreshold || family >= kFIR || fir_packed ||
+      slot_word_carry ||
+      (encoding != kPlain && encoding != kTime2 && encoding != kPacked14) ||
+      (int16 && encoding != kPlain) ||
       !make_params(p, feed, feed_stride, encoding, groups_per_row,
                    group_outer, group_inner, word_stride, n_chunks,
                    ticks_per_chunk, state, n_channels, slots, nclose, k_slots,
@@ -233,7 +237,7 @@ extern "C" int tpg_threshold_staged_launch(
   const Variant v{family, peak_gated != 0, charge_floor != 0,
                   track_peaks != 0, avx != 0, false, rs_float != 0};
   return static_cast<int>(launch_threshold_staged(
-      p, v, encoding, static_cast<cudaStream_t>(stream)));
+      p, v, int16 ? kPlain16 : encoding, static_cast<cudaStream_t>(stream)));
 }
 
 // The dynamic shared memory one block of a fused launch takes, in bytes, as

@@ -6,10 +6,12 @@
 //
 // Replaces fdreadoutlibs_tpu/ops/pallas_tpg.py::_tpg_kernel:
 //   K1  the time2 datapath (time_packed=True, tick 2j in the low and 2j+1 in
-//       the high 16 bits of a word) for SimpleThreshold, AbsRS, StandardRS;
+//       the high 16 bits of a word) for SimpleThreshold, AbsRS, StandardRS:
+//       the warp-specialised pipeline (pipe_kernel below, kPipeThreshold),
+//       its loader staging time2 rows and its front splitting them;
 //   K2  the plain-sample datapath (time_packed=False, one int32 sample per
-//       row; _decode_ticks :399-400), for the same families: the
-//       warp-specialised pipeline (pipe_kernel below, kPipeThreshold);
+//       row; _decode_ticks :399-400), for the same families: the same
+//       pipeline;
 //   K3  the FIR+IQR family (:464-490, :556-560), on any datapath: on plain,
 //       time2 and packed rows a two-warp pipeline (pipe_kernel, kPipeK3);
 //   K4  the in-kernel 14-bit unpack (_unpack14_rows :241-265, reached via
@@ -17,7 +19,9 @@
 //       words, for every family, staged into the pipeline's ring and
 //       decoded there (kPipeThreshold; kPipeK3 for FIR);
 //   K2b the native int16 state (i16_mode :475-476, fixedpoint.I16Fx): every
-//       family on int16 state and feed, plain datapath only;
+//       family on int16 state and feed, plain datapath only: the pipeline
+//       (kPipeThreshold; kPipeK3 for FIR) with its roles on the int16
+//       arithmetic and its loader staging int16 samples;
 //   K3b the FIR family with the SWAR carry (fir_packed, :466-501, :522-525,
 //       :547-548, :561-574; fir.py:278-332);
 //   K4b the words14 unpack as a gather (_unpack14_rows_gather :268-305,
@@ -37,7 +41,7 @@
 // process_window_twopass_plain) run those very functions on torch tensors,
 // and the two are compared bit for bit.
 //
-// Design (the fused tick of tpg_kernel: K1, K2b, K3b, K4b-gather; the pipeline
+// Design (the fused tick of tpg_kernel: K3b and K4b-gather; the pipeline
 // has its own note below).  One thread owns one channel; consecutive threads
 // take consecutive channels, so every feed load and slot store of a warp is
 // coalesced.  The grid is ceil(C/128) blocks of 128 threads.  Inside a thread a
@@ -96,7 +100,8 @@
 // promotes short to int, so every op that I16Fx does in int16 and that can
 // leave the int16 range goes back through int16_t (w16); add_clamp, div10
 // and rs_div10 widen in I16Fx too and need no wrap.  State and feed are
-// int16_t, slots and nclose int32.
+// int16_t, slots and nclose int32; the pipeline's slabs hold the values
+// sign-extended to int32.
 //
 // K3b (FirPackedChannel): the IQR quantiles and accumulators ride as two
 // words of biased 16-bit halves and charge/tover/prev_was_over as one, so
@@ -302,12 +307,29 @@ __device__ __forceinline__ int clip1(int d) {
   return d > 1 ? 1 : (d < -1 ? -1 : d);
 }
 
+// The int16 state's bump of a frugal median: +1 past limit, else -1 past
+// -limit (the first test wins where a negative limit makes both hold),
+// resetting the accumulator, as selects: with the int16 wraps around it
+// the if / else-if of the int32 form compiles to divergent branches (BSSY,
+// BRA) in the pipeline's warps, which cost K2b about a third of its time
+// (PERF.md §6).  w16(m + 0) is m, always in the state's range.  The int32
+// form stays written out where it is used, as the int32 kernels were
+// measured: the same logic through a helper, or as selects, changes
+// nvcc's code for K3's and K5's warps (PERF.md §7).
+__device__ __forceinline__ void bump_i16(int& m, int& acc, int limit) {
+  const int b = acc > limit ? 1 : (acc < -limit ? -1 : 0);
+  m = wrap_i16(m + b);
+  acc = b != 0 ? 0 : acc;
+}
+
 // step.py::frugal_update: delta = clip(s - m, -1, 1); a bump of the median
 // resets the accumulator.
 template <bool kI16>
 __device__ __forceinline__ void frugal(int& m, int& acc, int s, int limit) {
   acc = w16<kI16>(acc + clip1(w16<kI16>(s - m)));
-  if (acc > limit) {
+  if constexpr (kI16) {
+    bump_i16(m, acc, limit);
+  } else if (acc > limit) {
     m = w16<kI16>(m + 1);
     acc = 0;
   } else if (acc < -limit) {
@@ -659,7 +681,9 @@ struct FirFront {
     int qa = lt ? q25 : q75;
     int aa = lt ? a25 : a75;
     aa = w16<kI16>(aa + ((lt || gt) ? clip1(w16<kI16>(s_raw - qa)) : 0));
-    if (aa > limit) {
+    if constexpr (kI16) {
+      bump_i16(qa, aa, limit);
+    } else if (aa > limit) {
       qa = w16<kI16>(qa + 1);
       aa = 0;
     } else if (aa < -limit) {
@@ -1302,15 +1326,19 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---- The warp-specialised pipeline: K3, K5, K2 and K4 ---------------------
+// ---- The warp-specialised pipeline: K1-K5 and K2b --------------------------
 //
 // Replaces, for the FIR family, pallas_tpg.py::_tpg_kernel's fused tick on
 // the plain, time2 and packed 14-bit datapaths (K3, :464-490, :556-560;
 // K4's FIR) and pallas_tpg.py::_fir2_kernel on every datapath (K5,
 // fir_twopass 1 and 2, :585-765); for SimpleThreshold, AbsRS and
-// StandardRS, _tpg_kernel's tick on plain samples (K2, :399-400) and on
-// packed 14-bit words (K4, _unpack14_rows :241-265).  Same outputs as
-// FirChannel and ThresholdChannel in tpg_kernel, bit for bit.
+// StandardRS, _tpg_kernel's tick on time2 rows (K1, _decode_ticks :379),
+// plain samples (K2, :399-400) and packed 14-bit words (K4,
+// _unpack14_rows :241-265); for every family, the tick on the native int16
+// state (K2b, i16_mode :475-476: kPipeThreshold and kPipeK3 with the
+// channel type's kI16, which every role takes for its arithmetic and its
+// state rows).  Same outputs as FirChannel and ThresholdChannel run one
+// thread per channel, bit for bit.
 //
 // A tick is a few chains that need little of each other.  FIR: (a) the
 // pedestal and IQR frugal chains (FirFront), which need only the raw sample
@@ -1340,8 +1368,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 //           on its carried prev_was_over;
 //       warp 2  (c) and the emission: the close tested in place (fir_twopass
 //           1) or read from the slab (2);
-//   K2 and K4 (kPipeThreshold), RS families, warp 1  (r): over into the
-//           stage's flag slab;
+//   K1, K2, K4 and K2b (kPipeThreshold), RS families, warp 1  (r): over
+//           into the stage's flag slab;
 //       the hit warp (warp 2; warp 1 for SimpleThreshold, which tests
 //           s > threshold itself, a two-warp mode)  (c) on s and over, and
 //           the emission (direct, or SLOT_WORD_CARRY).
@@ -1363,10 +1391,12 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // stage and are stored with its last, and tick u of a stage ends at window
 // tick t0 + u + 1.  Lanes past the last channel run the loops with the
 // others (every warp arrives at every barrier) and store nothing.  K5 takes
-// no global scratch: its slabs are the ring.  The staged arm (kPipeStaged,
-// tpg_fir_staged_launch and tpg_threshold_staged_launch, measured by the
-// probes against K3, K2 and K4) is one warp that copies the feed the same
-// way and runs the channel's whole fused tick.
+// no global scratch: its slabs are the ring.  On the int16 state (K2b) the
+// slabs stay int32: s, sigma and the flags are held sign-extended, and each
+// role wraps its own ops (w16) as the channel types do.  The staged arm
+// (kPipeStaged, tpg_fir_staged_launch and tpg_threshold_staged_launch,
+// measured by the probes against K1-K4 and K2b) is one warp that copies the
+// feed the same way and runs the channel's whole fused tick.
 //
 // What bounds it: the slowest warp's instructions per tick, if the others
 // keep up (~3 SM cycles each on an H100, above the loop-carried chain;
@@ -1396,14 +1426,14 @@ template <bool kG, bool kP, bool kA, bool kI>
 struct PipeOf<FirChannel<kG, kP, kA, kI>> {
   static constexpr int kFamily = kFIR;
   static constexpr bool kGated = kG, kPeaks = kP, kAvx = kA;
-  static constexpr bool kFloor = true, kRsFloat = false;
+  static constexpr bool kFloor = true, kRsFloat = false, kI16 = kI;
 };
 
 template <int kF, bool kG, bool kFl, bool kI, bool kR>
 struct PipeOf<ThresholdChannel<kF, kG, kFl, kI, kR>> {
   static constexpr int kFamily = kF;
   static constexpr bool kGated = kG, kPeaks = true, kAvx = false;
-  static constexpr bool kFloor = kFl, kRsFloat = kR;
+  static constexpr bool kFloor = kFl, kRsFloat = kR, kI16 = kI;
 };
 
 // The threshold pipeline's RS warp (AbsRS, StandardRS).
@@ -1569,24 +1599,52 @@ __device__ __forceinline__ void run_stage(Role& role, int n) {
 // into column k of the tick's row, and every lane takes its low and high
 // word from the row (K4b-gather's exchange, through shared memory) and
 // funnel-shifts as K4's fused tick does: the decode leaves the chain.
+// int16 samples (K2b): where a row starts on a 4-byte boundary (an even
+// stride from an aligned feed; every block's first channel is a multiple of
+// 32), lane l < 16 copies the word of channels 2l and 2l + 1 into column l
+// of the row, and every lane takes its half of that word, the low one
+// sign-extended and the high one by an arithmetic shift, as the time2 split
+// does (`pairs`).  Otherwise (an odd stride) each lane loads its own sample
+// with a plain load, stores it sign-extended into its column and arrives on
+// the same `full` barrier: one feed path or the other per launch.
 template <int kEnc>
 struct PipeFeed {
   static constexpr bool kPacked = kEnc == kPacked14 || kEnc == kGather14;
-  const int32_t* src;   // the lane's word of tick 0, or null: no copies
+  // a lane reads words that other lanes copied: the warp meets before it
+  // copies the next round into the slab
+  static constexpr bool kShared = kPacked || kEnc == kPlain16;
+  const FeedT<kEnc>* src;   // the lane's word of tick 0, or null: no copies
   size_t stride;
   int lane;
   int src_lo, src_hi;   // packed: the lane's two words in a row
   unsigned sh;
+  bool pairs;           // int16: 4-byte copies of sample pairs
+  int col, shl, shr;    // int16: the lane's word in a row and its half
 
   __device__ __forceinline__ void init(const Params& p, int c0, int lane_) {
     lane = lane_;
     stride = static_cast<size_t>(p.feed_stride);
     const int c = c0 + lane;
-    const int32_t* feed = static_cast<const int32_t*>(p.feed);
+    const FeedT<kEnc>* feed = static_cast<const FeedT<kEnc>*>(p.feed);
     src = nullptr;
     src_lo = src_hi = 0;
     sh = 0;
-    if constexpr (kPacked) {
+    pairs = false;
+    col = lane;
+    shl = shr = 0;
+    if constexpr (kEnc == kPlain16) {
+      pairs = p.feed_stride % 2 == 0 &&
+              (reinterpret_cast<uintptr_t>(p.feed) & 3) == 0;
+      if (pairs) {
+        col = lane / 2;
+        shl = lane % 2 == 0 ? 16 : 0;
+        shr = 16;
+        if (lane < kPipeLanes / 2 && c0 + 2 * lane < p.n_channels)
+          src = feed + c0 + 2 * lane;
+      } else if (c < p.n_channels) {
+        src = feed + c;
+      }
+    } else if constexpr (kPacked) {
       const int g0 = c0 / 16, g = c / 16, r = c % 16;
       const int j = 14 * r / 32;
       // class 15 ends on its group's last bit: read word 6 twice
@@ -1604,21 +1662,54 @@ struct PipeFeed {
   // Copy stage st's feed into `slab`; arrive on `full` when it has landed.
   __device__ __forceinline__ void issue(const PipeStage& st, int32_t* slab,
                                         StageBar* full) const {
+    if constexpr (kEnc == kPlain16) {
+      if (!pairs) {
+        load_rows(st, slab);
+        stage_bar_arrive(full);
+        return;
+      }
+    }
     if (src != nullptr) {
       const int rows = st.n / kRowTicks<kEnc>;
-      const int32_t* from =
+      const FeedT<kEnc>* from =
           src + static_cast<size_t>(st.t0 / kRowTicks<kEnc>) * stride;
       for (int r = 0; r < rows; ++r)
         stage_copy(slab + r * kPipeLanes + lane,
-                   from + static_cast<size_t>(r) * stride);
+                   reinterpret_cast<const int32_t*>(
+                       from + static_cast<size_t>(r) * stride));
     }
     stage_copy_arrive(full);
+  }
+
+  // int16 samples at an odd stride: the lane's own samples of stage st,
+  // loaded kLoadBatch rows at a time (their latencies overlap) and stored
+  // sign-extended into its column.
+  __device__ __forceinline__ void load_rows(const PipeStage& st,
+                                            int32_t* slab) const {
+    constexpr int kLoadBatch = 8;
+    if (src == nullptr) return;
+    const FeedT<kEnc>* from = src + static_cast<size_t>(st.t0) * stride;
+    for (int r0 = 0; r0 < st.n; r0 += kLoadBatch) {
+      int v[kLoadBatch];
+#pragma unroll
+      for (int i = 0; i < kLoadBatch; ++i)
+        v[i] = r0 + i < st.n
+                   ? __ldg(from + static_cast<size_t>(r0 + i) * stride)
+                   : 0;
+#pragma unroll
+      for (int i = 0; i < kLoadBatch; ++i)
+        if (r0 + i < st.n) slab[(r0 + i) * kPipeLanes + lane] = v[i];
+    }
   }
 
   // The sample of tick g + kU of the stage (g a multiple of kGroup).
   template <int kU>
   __device__ __forceinline__ int sample(const int32_t* slab, int g) const {
-    if constexpr (kEnc == kTime2) {
+    if constexpr (kEnc == kPlain16) {
+      const uint32_t w =
+          static_cast<uint32_t>(slab[(g + kU) * kPipeLanes + col]);
+      return static_cast<int>(w << shl) >> shr;
+    } else if constexpr (kEnc == kTime2) {
       const int w = slab[(g / 2 + kU / 2) * kPipeLanes + lane];
       return kU % 2 == 0 ? wrap_i16(w) : (w >> 16);
     } else if constexpr (kPacked) {
@@ -1634,21 +1725,23 @@ struct PipeFeed {
 };
 
 // Warp 0's chain, FIR: (a) over a stage, s and sigma into the lane's
-// columns.
-template <int kEnc>
+// columns (kI16: the int16 state's arithmetic).
+template <int kEnc, bool kI16>
 struct PipeFront {
-  FirFront<false> front;
+  FirFront<kI16> front;
   PipeFeed<kEnc> feed;
   const int32_t* in;   // the stage's feed slab
   int32_t* s;
   int32_t* sigma;
   const Params* p;
 
-  __device__ __forceinline__ void load(const int32_t* st, size_t C) {
+  template <class S>
+  __device__ __forceinline__ void load(const S* st, size_t C) {
     front.load(st, C);
   }
 
-  __device__ __forceinline__ void store(int32_t* st, size_t C) const {
+  template <class S>
+  __device__ __forceinline__ void store(S* st, size_t C) const {
     front.store(st, C);
   }
 
@@ -1671,8 +1764,9 @@ struct PipeFront {
 };
 
 // Warp 0's chain, threshold families: the raw pedestal's frugal update
-// over a stage, s = sample - pedestal into the lane's column.
-template <int kEnc>
+// over a stage, s = sample - pedestal into the lane's column (kI16: both
+// wrapped through int16, as ThresholdChannel::tick).
+template <int kEnc, bool kI16>
 struct PipeThresholdFront {
   int ped, acc;
   PipeFeed<kEnc> feed;
@@ -1680,12 +1774,14 @@ struct PipeThresholdFront {
   int32_t* s;
   const Params* p;
 
-  __device__ __forceinline__ void load(const int32_t* st, size_t C) {
+  template <class S>
+  __device__ __forceinline__ void load(const S* st, size_t C) {
     ped = st[kPedestals * C];
     acc = st[kAccum * C];
   }
 
-  __device__ __forceinline__ void store(int32_t* st, size_t C) const {
+  template <class S>
+  __device__ __forceinline__ void store(S* st, size_t C) const {
     put(st, kPedestals, C, ped);
     put(st, kAccum, C, acc);
   }
@@ -1699,8 +1795,8 @@ struct PipeThresholdFront {
     });
     each_tick<kGuard>(n, [&](auto u) {
       constexpr int kU = decltype(u)::value;
-      frugal<false>(ped, acc, x[kU], p->accumulator_limit);
-      s[(g + kU) * kPipeLanes] = x[kU] - ped;
+      frugal<kI16>(ped, acc, x[kU], p->accumulator_limit);
+      s[(g + kU) * kPipeLanes] = w16<kI16>(x[kU] - ped);
     });
   }
 
@@ -1831,10 +1927,10 @@ struct PipeHit {
 
 // The threshold pipeline's RS warp: (r) over a stage, the running sum and
 // its pedestal on each tick's s, over into the lane's flag column; rs
-// carries x from tick to tick.
-template <int kFamily, bool kRsFloat>
+// carries x from tick to tick (kI16: the int16 state's arithmetic).
+template <int kFamily, bool kI16, bool kRsFloat>
 struct PipeRs {
-  RsChain<kFamily, false, kRsFloat> rsc;
+  RsChain<kFamily, kI16, kRsFloat> rsc;
   const int32_t* s;
   int32_t* flags;
   const Params* p;
@@ -1931,8 +2027,9 @@ struct PipeWhole {
 
 // The pipeline of mode kMode for channel type Ch (FirChannel for the FIR
 // modes, either for the staged arm, ThresholdChannel for kPipeThreshold)
-// on an int32 state, with the direct store or the carry layout (kCarry:
-// K3 and kPipeThreshold).
+// on the channel type's state (int32, or int16 for K2b: kPipeThreshold,
+// kPipeK3 and the threshold staged arm), with the direct store or the
+// carry layout (kCarry: K3 and kPipeThreshold).
 template <int kEnc, int kMode, class Ch, bool kCarry>
 __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
     pipe_kernel(Params p) {
@@ -1953,7 +2050,8 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
   const int c = c0 + lane;
   const bool live = c < p.n_channels;
   const size_t C = static_cast<size_t>(p.n_channels);
-  int32_t* const st = static_cast<int32_t*>(p.state) + c;
+  typename Ch::State* const st =
+      static_cast<typename Ch::State*>(p.state) + c;
   // the chunk's slot words of the channel, and slab i of ring slot j
   auto slot_base = [&](int chunk) {
     return p.slots + static_cast<size_t>(chunk) * p.k_slots * kWords * C + c;
@@ -1999,15 +2097,16 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
         w.t0 = sg.t0;
         run_stage(w, sg.n);
         if (sg.last && live) p.nclose[sg.chunk * C + c] = w.ch.nclose;
-        // packed rows are read across lanes: all reads before the refill
-        if constexpr (PipeFeed<kEnc>::kPacked) __syncwarp();
+        // packed and int16 rows are read across lanes: all reads before
+        // the refill
+        if constexpr (PipeFeed<kEnc>::kShared) __syncwarp();
         if (q + kPipeStages < n_stages)
           feed.issue(pipe_stage(p, q + kPipeStages), slab(0, j), &full[j]);
       }
       if (live) w.ch.store(st, C);
     } else {
-      std::conditional_t<Of::kFamily == kFIR, PipeFront<kEnc>,
-                         PipeThresholdFront<kEnc>>
+      std::conditional_t<Of::kFamily == kFIR, PipeFront<kEnc, Of::kI16>,
+                         PipeThresholdFront<kEnc, Of::kI16>>
           a{};
       a.feed = feed;
       a.p = &p;
@@ -2023,8 +2122,9 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
         if constexpr (Of::kFamily == kFIR) a.sigma = slab(2, j) + lane;
         run_stage(a, sg.n);
         stage_bar_arrive(&ready[j]);
-        // packed rows are read across lanes: all reads before the refill
-        if constexpr (PipeFeed<kEnc>::kPacked) __syncwarp();
+        // packed and int16 rows are read across lanes: all reads before
+        // the refill
+        if constexpr (PipeFeed<kEnc>::kShared) __syncwarp();
         if (q + kPipeStages < n_stages)
           feed.issue(pipe_stage(p, q + kPipeStages), slab(0, j), &full[j]);
       }
@@ -2081,8 +2181,8 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
       }
       if (live) {
 #pragma unroll
-        for (int i = 0; i < kTaps; ++i) st[(kFirRow0 + i) * C] = f.ring[i];
-        if (kLift) st[kPrevWasOver * C] = f.prev_over;
+        for (int i = 0; i < kTaps; ++i) put(st, kFirRow0 + i, C, f.ring[i]);
+        if (kLift) put(st, kPrevWasOver, C, f.prev_over);
       }
     } else {
       PipeHit<Of::kGated, Of::kPeaks, kLift> h{};
@@ -2110,7 +2210,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
       }
       if (live) {
         h.hit.store(st, C);
-        if (!kLift) st[kPrevWasOver * C] = h.prev_over;
+        if (!kLift) put(st, kPrevWasOver, C, h.prev_over);
       }
     }
   } else if constexpr (kMode == kPipeThreshold) {
@@ -2118,7 +2218,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
     // SimpleThreshold)
     if constexpr (kRsWarp) {
       if (warp == 1) {
-        PipeRs<Of::kFamily, Of::kRsFloat> r{};
+        PipeRs<Of::kFamily, Of::kI16, Of::kRsFloat> r{};
         r.p = &p;
         if (live) r.rsc.load(st, C);
         for (int q = 0; q < n_stages; ++q) {
@@ -2168,7 +2268,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
     }
     if (live) {
       h.hit.store(st, C);
-      if (!kRsWarp) st[kPrevWasOver * C] = h.prev_over;
+      if (!kRsWarp) put(st, kPrevWasOver, C, h.prev_over);
     }
   }
 }
@@ -2247,20 +2347,20 @@ cudaError_t pick_threshold(const Variant& v, F&& f) {
 // combinations the JAX package admits are instantiated (the peak gate only
 // with peak registers, the charge floor of the RS families always on,
 // rs_float for the RS families, the SWAR carry for FIR on an int32 state).
-// The pipeline runs K3 on plain, time2 and packed rows, and the threshold
-// families on plain samples (K2) and packed words (K4); tpg_kernel runs K1,
-// K2b, K3b and K4b-gather, tpg_slab_kernel K4b-slab.
+// The pipeline runs K3 on plain, time2, packed and int16 rows, and the
+// threshold families on time2 rows (K1), plain samples (K2), packed words
+// (K4) and int16 samples (K2b); tpg_kernel runs K3b and K4b-gather,
+// tpg_slab_kernel K4b-slab.
 template <int kEnc, bool kCarry = false>
 cudaError_t dispatch_fused(const Params& p, const Variant& v,
                            cudaStream_t s) {
   constexpr bool kI16 = kEnc == kPlain16;
-  constexpr bool kPipeFir =
-      kEnc == kPlain || kEnc == kTime2 || kEnc == kPacked14;
-  constexpr bool kPipeThr = kEnc == kPlain || kEnc == kPacked14;
+  constexpr bool kPipe = kEnc == kPlain || kEnc == kTime2 ||
+                         kEnc == kPacked14 || kEnc == kPlain16;
   if (v.family != kFIR) {
     return pick_threshold<kI16>(v, [&](auto tag) -> cudaError_t {
       using Ch = typename decltype(tag)::type;
-      if constexpr (kPipeThr)
+      if constexpr (kPipe)
         return launch_pipe<kEnc, kPipeThreshold, Ch, kCarry>(p, s);
       else
         return launch<Ch, kEnc, kCarry>(p, s);
@@ -2278,7 +2378,7 @@ cudaError_t dispatch_fused(const Params& p, const Variant& v,
                           kEnc, kCarry>(p, s);
         }
         using Ch = FirChannel<kPeaks && kGated, kPeaks, kAvx, kI16>;
-        if constexpr (kPipeFir)
+        if constexpr (kPipe)
           return launch_pipe<kEnc, kPipeK3, Ch, kCarry>(p, s);
         else
           return launch<Ch, kEnc, kCarry>(p, s);
@@ -2305,11 +2405,12 @@ cudaError_t dispatch_pipe(const Params& p, const Variant& v,
   });
 }
 
-// The pipeline's staged arm for the threshold families on encoding kEnc.
+// The pipeline's staged arm for the threshold families on encoding kEnc
+// (kPlain16: on the int16 state).
 template <int kEnc>
 cudaError_t dispatch_threshold_staged(const Params& p, const Variant& v,
                                       cudaStream_t s) {
-  return pick_threshold<false>(v, [&](auto tag) {
+  return pick_threshold<kEnc == kPlain16>(v, [&](auto tag) {
     return launch_pipe<kEnc, kPipeStaged, typename decltype(tag)::type>(p,
                                                                         s);
   });

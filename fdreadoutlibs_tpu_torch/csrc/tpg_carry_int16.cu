@@ -1,5 +1,6 @@
 // K2b: the int16 state and feed,
-// with the SLOT_WORD_CARRY emission layout (CarrySlots in tpg.cuh).
+// with the SLOT_WORD_CARRY emission layout (CarrySlots in tpg.cuh; in
+// columns of 32 in the pipeline).
 // One translation unit of the kernel library: the fused tick's
 // instantiations for this encoding with the carry layout, apart from the
 // direct-store unit so both build in parallel.

@@ -1,4 +1,5 @@
-// K2b: every family on an int16 state and feed (plain datapath).
+// K2b: every family on an int16 state and feed (plain datapath), the
+// pipeline's threshold mode and its FIR mode (K3's) on the int16 arithmetic.
 // One translation unit of the kernel library: the fused tick's
 // instantiations for this encoding (the kernels are in tpg.cuh).
 #include "tpg.cuh"

@@ -1,4 +1,5 @@
-// K1 (and K3, K3b): the time2 datapath.
+// K1 (the threshold families' pipeline), K3 (the FIR pipeline) and K3b
+// (FIR with fir_packed): the time2 datapath.
 // One translation unit of the kernel library: the fused tick's
 // instantiations for this encoding (the kernels are in tpg.cuh).
 #include "tpg.cuh"

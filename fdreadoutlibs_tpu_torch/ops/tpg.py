@@ -18,17 +18,19 @@ low and 2j+1 in the high 16 bits), one sample per row
 (T, WR, 7, 128) words14 relayout; :data:`PACKED14`).  On CUDA tensors it
 launches the hand-written Hopper kernels (``csrc/tpg*.cu``, ROADMAP.md's
 names): K1 = time2 datapath, K2 = plain datapath, K3 = the FIR family on
-any, K4 = the in-kernel 14-bit unpack (K2, K3 and K4 a warp-specialised
-pipeline per 32 channels: a loader-and-front warp, then for FIR a
-filter-and-hit warp, for AbsRS and StandardRS a running-sum warp and a hit
-warp, for SimpleThreshold a hit warp; K3b's fused tick for FIR with
+any, K4 = the in-kernel 14-bit unpack (K1-K4 a warp-specialised pipeline
+per 32 channels: a loader-and-front warp, then for FIR a filter-and-hit
+warp, for AbsRS and StandardRS a running-sum warp and a hit warp, for
+SimpleThreshold a hit warp; K3b's fused tick for FIR with
 ``fir_packed``); K5 = the two-pass FIR schedule, selected by
 ``fir_twopass`` 1 or 2 as ``pallas_tpg.process_window_pallas`` selects
 ``_fir2_kernel`` (the same pipeline with a warp each for front, filter
 and hit; its slabs live in shared memory, so it takes no scratch); and the
 variants of
-``_tpg_kernel`` that its arguments select: K2b = an int16 state (``pack_state(dtype=torch.int16)``,
-the native int16 arithmetic of ``fixedpoint.I16Fx`` on an int16 feed), K3b
+``_tpg_kernel`` that its arguments select: K2b = an int16 state
+(``pack_state(dtype=torch.int16)``, the native int16 arithmetic of
+``fixedpoint.I16Fx`` on an int16 feed; the same pipeline, its roles on the
+int16 arithmetic), K3b
 = ``fir_packed`` (the FIR family with the SWAR carry), K4b-gather =
 ``words14_gather`` and K4b-slab = ``words14_slab`` (the words14 unpack as a
 gather, or as a whole-chunk slab before the time2 tick loop).  With
@@ -621,7 +623,9 @@ def kernels_of(cfg: TPGConfig, time_packed: bool,
     (plain-sample datapath), K4 (in-kernel 14-bit unpack; K4b-gather or
     K4b-slab for its schedules), K3 (FIR family, on any datapath; K3b with
     the SWAR carry), K2b alone for an int16 state (every family) — or K5
-    alone, the two-pass FIR schedule (its own C entry, on any datapath)."""
+    alone, the two-pass FIR schedule (its own C entry, on any datapath).
+    The names stay ROADMAP.md's whatever code runs them: K1 and K2b, like
+    K2-K5, are the pipeline of ``csrc/tpg.cuh``."""
     if fir_twopass:
         return ("K5",)
     if int16:
@@ -648,7 +652,9 @@ def kernel_of(cfg: TPGConfig, time_packed: bool,
     kernel on its datapath: K5, K2b, K4b-slab or K4b-gather, K4 for any
     family on packed words, K3b, K3 for the FIR fused tick on plain and
     time2 rows, else K1 (time2) or K2 (plain samples) for the threshold
-    families (K2, K3 and K4 the pipeline of ``csrc/tpg.cuh``)."""
+    families (K1-K5 and K2b the pipeline of ``csrc/tpg.cuh``; K3b and
+    K4b-gather its one-thread-per-channel tick, K4b-slab its slab
+    kernel)."""
     if fir_twopass:
         return "K5"
     if int16:

@@ -1,10 +1,12 @@
 """The pipeline's two levers on the card (``csrc/tpg.cuh``,
 ``pipe_kernel``): K3 (the loader-and-front warp and the filter-and-hit
-warp), K5 (a warp each for front, filter and hit), K2 and K4 (the threshold
-families: a loader-and-front warp, for AbsRS a running-sum warp, and a hit
-warp; K4 also runs FIR on packed words as K3's pipeline) against the staged
-arms (the asynchronous feed staging alone: one warp copies the feed into
-the shared-memory ring ahead of its chain and runs the whole fused tick),
+warp), K5 (a warp each for front, filter and hit), K1, K2, K4 and K2b (the
+threshold families on time2 rows, plain samples, packed words and int16
+samples and state: a loader-and-front warp, for AbsRS a running-sum warp,
+and a hit warp; K4 also runs FIR on packed words and K2b on int16 samples
+as K3's pipeline) against the staged arms (the asynchronous feed staging
+alone: one warp copies the feed into the shared-memory ring ahead of its
+chain and runs the whole fused tick),
 on the same inputs, bit-equal, timed in rotated turns; and the machine code
 of every warp's group loop (16 ticks): its instructions and its longest
 chain of register dependences per tick.
@@ -12,7 +14,7 @@ chain of register dependences per tick.
     python fdreadoutlibs_tpu_torch/probes/fir_pipe.py [--root DIR]
 
 prints one JSON line.  ``--root`` times the package of another checkout
-instead (an earlier commit's K2, K3, K4 and K5 through
+instead (an earlier commit's K1-K5 and K2b through
 ``tpg.launch_kernel``, whose arguments are the same), so that two commits
 can be compared on one card in one call; the staged arms and the machine
 code are this package's only.  Each case's ``digest`` (of its slots,
@@ -36,8 +38,9 @@ import torch
 T, C, TC, K = 8192, 2560, 256, 4
 SEED = 20260
 # (label, family, feed, fir_twopass, peaks): the feed is "plain" or
-# "time2" rows, or packed 14-bit "frames" or "words14" rows of the same
-# samples; the staged arms' cases follow
+# "time2" rows, packed 14-bit "frames" or "words14" rows, or "int16"
+# samples on the int16 state, of the same samples; the staged arms' cases
+# follow
 CASES = (("K3 FIR plain", "FIR", "plain", 0, False),
          ("K3 FIR time2", "FIR", "time2", 0, False),
          ("K3 FIR plain peaks", "FIR", "plain", 0, True),
@@ -47,14 +50,23 @@ CASES = (("K3 FIR plain", "FIR", "plain", 0, False),
          ("K2 SimpleThreshold plain", "SimpleThreshold", "plain", 0, False),
          ("K4 AbsRS frames", "AbsRS", "frames", 0, False),
          ("K4 AbsRS words14", "AbsRS", "words14", 0, False),
-         ("K4 FIR frames", "FIR", "frames", 0, False))
+         ("K4 FIR frames", "FIR", "frames", 0, False),
+         ("K1 AbsRS time2", "AbsRS", "time2", 0, False),
+         ("K1 SimpleThreshold time2", "SimpleThreshold", "time2", 0, False),
+         ("K2b AbsRS int16", "AbsRS", "int16", 0, False),
+         ("K2b FIR int16", "FIR", "int16", 0, False))
 STAGED = (("staged FIR plain", "FIR", "plain"),
           ("staged FIR time2", "FIR", "time2"),
           ("staged AbsRS plain", "AbsRS", "plain"),
-          ("staged AbsRS frames", "AbsRS", "frames"))
-# the case each family's results must equal (held to the plain version)
+          ("staged AbsRS frames", "AbsRS", "frames"),
+          ("staged AbsRS time2", "AbsRS", "time2"),
+          ("staged AbsRS int16", "AbsRS", "int16"))
+# the cases held to the plain version on their own feed and state, by
+# family (" int16": on the int16 state); every case must equal its
+# family's (the int16 state's values widened: 14-bit streams stay in range)
 REFERENCE = {"FIR": "K3 FIR plain", "AbsRS": "K2 AbsRS plain",
-             "SimpleThreshold": "K2 SimpleThreshold plain"}
+             "SimpleThreshold": "K2 SimpleThreshold plain",
+             "AbsRS int16": "K2b AbsRS int16", "FIR int16": "K2b FIR int16"}
 GROUP = 16                 # ticks in a group loop's body (tpg.cuh kGroup)
 # launches of the staged arms' kernels (never the plain version)
 launches = 0
@@ -64,23 +76,24 @@ def staged_launch(feed: torch.Tensor, state: torch.Tensor, cfg, tc: int,
                   k_slots: int, time_packed: bool = True,
                   packed14: str | None = None):
     """The staged arms on CUDA tensors: ``csrc/tpg.cu::
-    tpg_fir_staged_launch`` (the FIR family on plain or time2 rows) or
-    ``tpg_threshold_staged_launch`` (the threshold families on plain
-    samples or packed 14-bit words, ``packed14`` as ``tpg.process_window``
-    takes it), an int32 state, the direct store; raises on anything else.
-    On CPU tensors the fused tick's plain version (the same function).
-    Returns (slots, nclose, new_state)."""
+    tpg_fir_staged_launch`` (the FIR family on plain or time2 rows, an
+    int32 state) or ``tpg_threshold_staged_launch`` (the threshold families
+    on time2 rows, plain samples or packed 14-bit words, ``packed14`` as
+    ``tpg.process_window`` takes it, or on int16 samples and state), the
+    direct store; raises on anything else.  On CPU tensors the fused
+    tick's plain version (the same function).  Returns (slots, nclose,
+    new_state)."""
     global launches
     from fdreadoutlibs_tpu_torch.ops import Algorithm, _build, tpg
     if feed.device.type == "cpu" and state.device.type == "cpu":
         return tpg.process_window_plain(feed, state, cfg, tc, k_slots,
                                         time_packed, packed14)
     fir = cfg.algorithm == Algorithm.FIR
-    if state.dtype != torch.int32 or (fir and packed14 is not None) or \
-            (not fir and time_packed):
+    if fir and (state.dtype != torch.int32 or packed14 is not None):
         raise ValueError("the staged arms run FIR on plain or time2 rows "
-                         "and the threshold families on plain samples or "
-                         "packed words, on an int32 state")
+                         "on an int32 state, and the threshold families on "
+                         "time2 rows, plain samples, packed words or int16 "
+                         "samples")
     if not (feed.is_cuda and state.is_cuda and feed.device == state.device
             and feed.is_contiguous() and state.is_contiguous()):
         raise ValueError("the staged arm needs contiguous feed and state on "
@@ -204,13 +217,17 @@ def _is_mul(op: str, ops: list) -> bool:
 
 def group_loops(insns, min_insns: int = 6 * GROUP) -> list:
     """Every warp's group loop (an inner loop of at least ``min_insns``
-    instructions: 16 ticks) in address order: {"insns", "per_tick",
-    "chain_per_tick", "lds", "sts", "mul"}."""
+    instructions: 16 ticks, that reads its stage from shared memory; not
+    the int16 feed's per-lane copy at an odd stride, which loads from
+    global memory and only stores to shared) in address order: {"insns",
+    "per_tick", "chain_per_tick", "lds", "sts", "mul"}."""
     out = []
     for body in inner_loops(insns):
         if len(body) < min_insns:
             continue
         bases = [op.split(".")[0] for _, _, op, _ in body]
+        if "LDS" not in bases:
+            continue
         out.append({"insns": len(body), "per_tick": len(body) / GROUP,
                     "chain_per_tick": chain_length(body) / GROUP,
                     "lds": bases.count("LDS"), "sts": bases.count("STS"),
@@ -225,6 +242,10 @@ def group_loops(insns, min_insns: int = 6 * GROUP) -> list:
 # (AbsRS floored; SimpleThreshold at a positive threshold, unfloored).
 REPORTED = {
     "K3": (0, 1, "FirChannel", "Lb0ELb0ELb1ELb0E"),
+    "K1 AbsRS": (1, 4, "ThresholdChannel", "Li1ELb0ELb1ELb0ELb0E"),
+    "K1 SimpleThreshold": (1, 4, "ThresholdChannel", "Li0ELb0ELb0ELb0ELb0E"),
+    "K2b AbsRS": (5, 4, "ThresholdChannel", "Li1ELb0ELb1ELb1ELb0E"),
+    "K2b FIR": (5, 1, "FirChannel", "Lb0ELb0ELb1ELb1E"),
     "K5 twopass 1": (0, 2, "FirChannel", "Lb0ELb0ELb1ELb0E"),
     "K5 twopass 2": (0, 3, "FirChannel", "Lb0ELb0ELb1ELb0E"),
     "staged": (0, 0, "FirChannel", "Lb0ELb0ELb1ELb0E"),
@@ -235,27 +256,38 @@ REPORTED = {
     "staged AbsRS plain": (0, 0, "ThresholdChannel", "Li1ELb0ELb1ELb0ELb0E"),
     "staged AbsRS packed": (2, 0, "ThresholdChannel",
                             "Li1ELb0ELb1ELb0ELb0E"),
+    "staged AbsRS time2": (1, 0, "ThresholdChannel", "Li1ELb0ELb1ELb0ELb0E"),
+    "staged AbsRS int16": (5, 0, "ThresholdChannel", "Li1ELb0ELb1ELb1ELb0E"),
 }
 # each warp's group loop by its shared-memory traffic per 16 ticks:
 # (LDS, STS) -> role, and where two roles share it (the threshold front
-# and the running sum on plain samples) (LDS, STS, at least one multiply a
-# tick).  The front loads a sample (two words on packed rows) and stores s
-# (and sigma for FIR) per tick; K5's filter loads s and sigma and stores
-# flags and to_add; the running sum loads s and stores over; the hit warps
-# load one or two words per tick and store none (the slots are global);
-# the staged arms load a sample (two words) and store none.
+# and the running sum on plain and int16 samples) (LDS, STS, at least one
+# multiply a tick).  The front loads a sample (two words on packed rows, one
+# word per two ticks on time2 rows, the word of its sample pair on int16
+# rows) and stores s (and sigma for FIR) per tick; K5's filter loads s and
+# sigma and stores flags and to_add; the running sum loads s and stores
+# over; the hit warps load one or two words per tick and store none (the
+# slots are global); the staged arms load a sample (two words, or one per
+# two ticks) and store none.
 _FIR_K3 = {(16, 32): "loader + front", (32, 0): "filter + hit"}
 _FIR_K5 = {(16, 32): "loader + front", (32, 32): "filter", (32, 0): "hit"}
+_THR_RS = {(16, 16, False): "loader + front", (16, 16, True): "running sum",
+           (32, 0): "hit"}
 ROLES = {"K3": _FIR_K3, "K5 twopass 1": _FIR_K5, "K5 twopass 2": _FIR_K5,
+         "K1 AbsRS": {(8, 16): "loader + front", (16, 16): "running sum",
+                      (32, 0): "hit"},
+         "K1 SimpleThreshold": {(8, 16): "loader + front", (16, 0): "hit"},
+         "K2b AbsRS": _THR_RS, "K2b FIR": _FIR_K3,
          "staged": {(16, 0): "loader + whole tick"},
-         "K2 AbsRS": {(16, 16, False): "loader + front",
-                      (16, 16, True): "running sum", (32, 0): "hit"},
+         "K2 AbsRS": _THR_RS,
          "K2 SimpleThreshold": {(16, 16): "loader + front", (16, 0): "hit"},
          "K4 AbsRS": {(32, 16): "loader + front", (16, 16): "running sum",
                       (32, 0): "hit"},
          "K4 FIR": {(32, 32): "loader + front", (32, 0): "filter + hit"},
          "staged AbsRS plain": {(16, 0): "loader + whole tick"},
-         "staged AbsRS packed": {(32, 0): "loader + whole tick"}}
+         "staged AbsRS packed": {(32, 0): "loader + whole tick"},
+         "staged AbsRS time2": {(8, 0): "loader + whole tick"},
+         "staged AbsRS int16": {(16, 0): "loader + whole tick"}}
 
 
 def _role(roles: dict, loop: dict):
@@ -329,10 +361,11 @@ def run(device=None, trials: int = 3, reps: int = 10,
     """Every case of :data:`CASES` (and :data:`STAGED` where this package
     has the arms) at T x C: each result equal to its family's
     :data:`REFERENCE` case on the same samples (the peaks cases to the
-    first one with peaks) and, with ``check_plain``, those equal to the
-    plain version; then ms per launch (medians over ``trials`` of ``reps``
-    launches, cases in rotated order) and cycles per tick per thread at the
-    SM clock read after the timing."""
+    first one with peaks; the int16 state widened) and, with
+    ``check_plain``, the :data:`REFERENCE` cases equal to the plain version
+    on their own feed and state; then ms per launch (medians over
+    ``trials`` of ``reps`` launches, cases in rotated order) and cycles per
+    tick per thread at the SM clock read after the timing."""
     from dataclasses import replace
 
     from fdreadoutlibs_tpu_torch.ops import (TPGConfig, init_chanstate,
@@ -347,22 +380,31 @@ def run(device=None, trials: int = 3, reps: int = 10,
             "SimpleThreshold": TPGConfig(threshold=150)}
     fir_adcs = fir_stream(T, C, TC, K, SEED)
     thr_adcs, rmf = tpg_stream(T, C, TC, K, SEED)
-    inputs = {}      # family -> (state, {feed: tensor})
+    inputs = {}      # family -> ({state dtype: state}, {feed: tensor})
     for fam in cfgs:
         a, m = (fir_adcs, 0) if fam == "FIR" else (thr_adcs, rmf)
         frames = torch.from_numpy(frame_words(a).view(np.int32)).to(dev)
+        state = tpg.pack_state(seed_chanstate(init_chanstate(C), a[0], m), C,
+                               device=dev)
+        if not torch.equal(state.to(torch.int16).to(torch.int32), state):
+            raise AssertionError(f"{fam}: the seeded state leaves int16")
         inputs[fam] = (
-            tpg.pack_state(seed_chanstate(init_chanstate(C), a[0], m), C,
-                           device=dev),
+            {torch.int32: state, torch.int16: state.to(torch.int16)},
             {"plain": torch.from_numpy(a).to(dev),
              "time2": torch.from_numpy(time2_words(a)).to(dev),
-             "frames": frames, "words14": pack_words14(frames)})
+             "frames": frames, "words14": pack_words14(frames),
+             "int16": torch.from_numpy(a.astype(np.int16)).to(dev)})
+
+    def feed_state(fam, feed):
+        states, feeds = inputs[fam]
+        return feeds[feed], states[feeds[feed].dtype]
+
     runs, family = {}, {}
     for label, fam, feed, twopass, peaks in CASES:
         cfg = replace(cfgs[fam], track_peaks=peaks)
-        state, feeds = inputs[fam]
+        f, state = feed_state(fam, feed)
         packed = feed if feed in ("frames", "words14") else None
-        runs[label] = (lambda cfg=cfg, f=feeds[feed], state=state,
+        runs[label] = (lambda cfg=cfg, f=f, state=state,
                        time2=feed == "time2", packed=packed, tp=twopass:
                        tpg.launch_kernel(f, state, cfg, TC, K, time2, packed,
                                          fir_twopass=tp))
@@ -371,9 +413,9 @@ def run(device=None, trials: int = 3, reps: int = 10,
         Path(__file__).resolve().parents[1]
     if here:
         for label, fam, feed in STAGED:
-            state, feeds = inputs[fam]
+            f, state = feed_state(fam, feed)
             packed = feed if feed in ("frames", "words14") else None
-            runs[label] = (lambda cfg=cfgs[fam], f=feeds[feed], state=state,
+            runs[label] = (lambda cfg=cfgs[fam], f=f, state=state,
                            time2=feed == "time2", packed=packed:
                            staged_launch(f, state, cfg, TC, K, time2,
                                          packed))
@@ -382,10 +424,11 @@ def run(device=None, trials: int = 3, reps: int = 10,
     results = {label: fn() for label, fn in runs.items()}
     torch.cuda.synchronize()
     if check_plain:
-        for fam, label in REFERENCE.items():
-            state, feeds = inputs[fam]
-            plain = tpg.process_window_plain(feeds["plain"], state,
-                                             cfgs[fam], TC, K, False)
+        for key, label in REFERENCE.items():
+            fam, _, dtype = key.partition(" ")
+            f, state = feed_state(fam, dtype or "plain")
+            plain = tpg.process_window_plain(f, state, cfgs[fam], TC, K,
+                                             False)
             for g, w in zip(results[label], plain):
                 if not torch.equal(g, w):
                     raise AssertionError(f"{label} differs from its plain "
@@ -394,7 +437,7 @@ def run(device=None, trials: int = 3, reps: int = 10,
         fam, peaks = family[label]
         ref = "K3 FIR plain peaks" if peaks else REFERENCE[fam]
         for g, w in zip(got, results[ref]):
-            if not torch.equal(g, w):
+            if not torch.equal(g.to(w.dtype), w):
                 raise AssertionError(f"{label} differs from {ref}")
         out["cases"][label] = {"digest": _digest(got),
                                "max_closes_per_chunk": int(got[1].max())}
@@ -428,9 +471,11 @@ def main(argv=None) -> int:
                                                          nvidia_smi)
     device_preflight()
     out = {"device": nvidia_smi(), "root": str(Path(_build.PKG_DIR).parent)}
+    # the machine code first: a reading that fails costs no timed work
+    sass = pipe_sass(_build.sass("tpg")) if args.root is None else None
     out.update(run(trials=args.trials, check_plain=not args.no_plain))
-    if args.root is None:
-        out["sass"] = pipe_sass(_build.sass("tpg"))
+    if sass is not None:
+        out["sass"] = sass
     print(json.dumps(out))
     return 0
 

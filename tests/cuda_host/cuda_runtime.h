@@ -15,6 +15,7 @@
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
+#include <cstring>
 #include <memory>
 #include <mutex>
 #include <thread>
@@ -174,9 +175,12 @@ inline void stage_bar_wait(StageBar* bar, unsigned parity) {
   bar->cv.wait(lock, [&] { return (bar->phase & 1u) != parity; });
 }
 
-// The pipeline's asynchronous copy as a plain one, landed at once, and
-// its arrival on the stage's barrier.
-inline void stage_copy(int32_t* dst, const int32_t* src) { *dst = *src; }
+// The pipeline's asynchronous copy of 4 bytes as a plain one, landed at
+// once (by bytes: the int16 feed's words are two samples), and its arrival
+// on the stage's barrier.
+inline void stage_copy(int32_t* dst, const int32_t* src) {
+  std::memcpy(dst, src, sizeof(int32_t));
+}
 inline void stage_copy_arrive(StageBar* bar) { stage_bar_arrive(bar); }
 
 // The block's dynamic shared memory (the launch's byte count).

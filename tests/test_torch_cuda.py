@@ -1,7 +1,9 @@
 """The hand-written CUDA kernel against its plain version on the card (K1,
 K2 and K3: both datapaths, all four families; K4: both packed layouts, all
-four families; the pipeline of K2, K3, K4 and K5 launched 50 times each
-for races, and the staged arms; K5: fir_twopass 1 and 2 on every
+four families; the pipeline of K1-K5 and K2b launched 50 times each for
+races (K2b at an even and an odd feed stride), and the staged arms; that
+K1 and K2b launch the pipeline, by ``tpg.kernel_of`` and the machine
+code's kernel names; K5: fir_twopass 1 and 2 on every
 encoding, also against K3, and through the words14 gather; K2b, K3b,
 K4b-gather, K4b-slab and
 the float running sum; the ``SLOT_WORD_CARRY`` layout on every one of those
@@ -18,6 +20,7 @@ conftest:
 
 import dataclasses
 import json
+import re
 
 import numpy as np
 import pytest
@@ -65,6 +68,32 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def tpg_functions():
+    """The kernel functions of the card's tpg library, by mangled name
+    (``cuobjdump -sass``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from fdreadoutlibs_tpu_torch.ops import _build
+    return set(fir_pipe._FUNC.findall(_build.sass("tpg")))
+
+
+def _assert_pipeline(functions, kernel, cfg, carry):
+    """K1 (encoding 1) and K2b (encoding 5) are instantiated only as the
+    pipeline (``pipe_kernel``, the threshold mode, K3's for K2b's FIR),
+    with this emission layout, and no one-thread-per-channel tick
+    (``tpg_kernel``) of their encoding and families is left to fall back
+    to."""
+    enc = {"K1": 1, "K2b": 5}[kernel]
+    mode = 1 if cfg.algorithm == Algorithm.FIR else 4
+    tail = f"ELb{int(carry)}EEEvN3tpg6ParamsE"
+    assert any(re.search(rf"pipe_kernelILi{enc}ELi{mode}E", f)
+               and f.endswith(tail) for f in functions), (kernel, mode)
+    back = [f for f in functions if re.search(rf"tpg_kernelI\w*ELi{enc}ELb", f)
+            and (enc == 5 or "ThresholdChannel" in f)]
+    assert back == [], back
 
 
 @pytest.mark.parametrize("time_packed", [True, False],
@@ -312,13 +341,32 @@ def _threshold_feeds(adcs, C):
             (pack_words14(words), "words14")]
 
 
+def _threshold_runs(adcs, state, C, card):
+    """(feed, state, time2, packed14) on the card: K2's plain rows, K4's
+    frame words and words14 rows, K1's time2 rows, and K2b's int16 samples
+    and state at the feed's own stride and one column wider (an even and
+    an odd stride for even C: the word copies and the per-lane loads)."""
+    runs = [(f.to(card), state, False, p) for f, p in
+            _threshold_feeds(adcs, C)]
+    runs.append((torch.from_numpy(time2_words(adcs)).to(card), state, True,
+                 None))
+    s16 = state.to(torch.int16)
+    assert torch.equal(s16.to(torch.int32), state)
+    a16 = torch.from_numpy(adcs.astype(np.int16))
+    for pad in (0, 1):
+        runs.append((torch.nn.functional.pad(a16, (0, pad)).contiguous().to(
+            card), s16, False, None))
+    return runs
+
+
 @pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (160, 300, 150)])
 def test_threshold_pipeline_is_deterministic(card, C, T, tc):
-    """The threshold pipeline's warps meet only at its stage barriers: K2
-    and K4 (frame words, words14 rows) for AbsRS (three warps) and
+    """The threshold pipeline's warps meet only at its stage barriers: K2,
+    K4 (frame words, words14 rows), K1 (time2 rows) and K2b (int16 samples
+    and state, an even and an odd feed stride) for AbsRS (three warps) and
     SimpleThreshold (two), each launched 50 times on the same inputs, give
     bit-identical slots, nclose and state every time, equal to the plain
-    version."""
+    version (the int16 state widened: 14-bit streams stay in range)."""
     k = 4
     for cfg in (CONFIGS[2], CONFIGS[0]):
         adcs, rmf = tpg_stream(T, C, tc, k, seed=C + 6)
@@ -327,14 +375,15 @@ def test_threshold_pipeline_is_deterministic(card, C, T, tc):
         want = tpg.process_window_plain(torch.from_numpy(adcs).to(card),
                                         state, cfg, tc, k, False)
         assert int(want[1].max()) > k             # drops exercised
-        for feed, packed14 in _threshold_feeds(adcs, C):
-            feed = feed.to(card)
-            runs = [tpg.process_window(feed, state, cfg, tc, k, False,
+        for feed, s0, time2, packed14 in _threshold_runs(adcs, state, C,
+                                                         card):
+            runs = [tpg.process_window(feed, s0, cfg, tc, k, time2,
                                        packed14) for _ in range(50)]
             torch.cuda.synchronize()
             for got in runs:
                 for g, w in zip(got, want):
-                    assert torch.equal(g, w), (cfg.algorithm, packed14)
+                    assert torch.equal(g.to(w.dtype), w), \
+                        (cfg.algorithm, time2, packed14, tuple(feed.shape))
 
 
 @pytest.mark.parametrize("cfg", CONFIGS + [
@@ -344,8 +393,9 @@ def test_threshold_pipeline_is_deterministic(card, C, T, tc):
 def test_threshold_staged_arm_matches_plain(card, cfg, C, T, tc):
     """The threshold pipeline's staged arm (``probes.fir_pipe.
     staged_launch``: one warp copies the feed into the ring and runs
-    ThresholdChannel's whole tick) on plain samples, frame words and words14
-    rows against its plain version, and the launches counted."""
+    ThresholdChannel's whole tick) on plain samples, frame words, words14
+    rows, time2 rows and int16 samples and state (an even and an odd feed
+    stride) against its plain version, and the launches counted."""
     k = 4
     adcs, rmf = tpg_stream(T, C, tc, k, seed=C + 8)
     state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], rmf),
@@ -353,12 +403,13 @@ def test_threshold_staged_arm_matches_plain(card, cfg, C, T, tc):
     want = tpg.process_window_plain(torch.from_numpy(adcs).to(card), state,
                                     cfg, tc, k, False)
     before = fir_pipe.launches
-    for feed, packed14 in _threshold_feeds(adcs, C):
-        got = fir_pipe.staged_launch(feed.to(card), state, cfg, tc, k, False,
-                                     packed14)
+    runs = _threshold_runs(adcs, state, C, card)
+    for feed, s0, time2, packed14 in runs:
+        got = fir_pipe.staged_launch(feed, s0, cfg, tc, k, time2, packed14)
         for g, w in zip(got, want):
-            assert torch.equal(g, w), packed14
-    assert fir_pipe.launches == before + 3
+            assert torch.equal(g.to(w.dtype), w), \
+                (time2, packed14, tuple(feed.shape))
+    assert fir_pipe.launches == before + len(runs) == before + 6
     assert int((want[0][:, :, -1] != 0).sum()) > 0
 
 
@@ -442,11 +493,13 @@ def _variant_inputs(cfg, C, T, tc, k, card):
 
 @pytest.mark.parametrize("cfg", VARIANT_CONFIGS, ids=VARIANT_IDS)
 @pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (208, 960, 192)])
-def test_variant_kernels_match_plain(card, cfg, C, T, tc):
+def test_variant_kernels_match_plain(card, tpg_functions, cfg, C, T, tc):
     """K4b-gather and K4b-slab on words14 rows, K2b on the int16 state and
     feed, and K3b (fir_packed) on every encoding for FIR, each against its
     plain version; the float running sum rides every one of them.  C = 208
-    leaves a partly empty block and a half warp."""
+    leaves a partly empty block and a half warp.  K2b's launch counts as
+    K2b (``tpg.kernel_of``) and reaches the pipeline (the machine code's
+    kernel names)."""
     k = 4
     adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
     state = tpg.pack_state(st, C, device=card)
@@ -469,14 +522,22 @@ def test_variant_kernels_match_plain(card, cfg, C, T, tc):
             runs.append((feed, state, dict(kw, fir_packed=True)))
     for feed, s0, kw in runs:
         before = dict(tpg.process_window.kernel_launches)
+        before_fn = dict(tpg.process_window.function_launches)
         got = tpg.process_window(feed, s0, cfg, tc=tc, k_slots=k, **kw)
         opts = {o: kw.get(o, False) for o in ("fir_packed", "words14_gather",
                                               "words14_slab")}
+        int16 = s0.dtype == torch.int16
         for name in tpg.kernels_of(cfg, kw["time_packed"],
-                                   kw.get("packed14"),
-                                   int16=s0.dtype == torch.int16, **opts):
+                                   kw.get("packed14"), int16=int16, **opts):
             assert tpg.process_window.kernel_launches[name] == \
                 before[name] + 1, (name, kw)
+        fn = tpg.kernel_of(cfg, kw["time_packed"], kw.get("packed14"),
+                           int16=int16, **opts)
+        assert tpg.process_window.function_launches[fn] == \
+            before_fn[fn] + 1, (fn, kw)
+        if int16:
+            assert fn == "K2b"
+            _assert_pipeline(tpg_functions, fn, cfg, carry=False)
         want = tpg.process_window_plain(feed, s0, cfg, tc, k, **kw)
         for g, w in zip(got, want):
             assert torch.equal(g, w), kw
@@ -503,11 +564,14 @@ def test_k5_gather_matches_plain(card, C, T, tc, fir_twopass):
 @pytest.mark.parametrize("cfg", VARIANT_CONFIGS, ids=VARIANT_IDS)
 @pytest.mark.parametrize("C,T,tc,k", [(2560, 1024, 256, 4),
                                       (208, 960, 192, 6)])
-def test_slot_word_carry_matches_plain(card, cfg, C, T, tc, k):
+def test_slot_word_carry_matches_plain(card, tpg_functions, cfg, C, T, tc,
+                                       k):
     """``SLOT_WORD_CARRY`` on every datapath the flag reaches (K1-K4, K2b,
     K3b, K4b), against the plain version and the direct store: k = 4 fills
     the register slots, k = 6 the shared-memory staging; C = 208 leaves a
-    partly empty block and a half warp.  K5 ignores the flag."""
+    partly empty block and a half warp.  K5 ignores the flag.  K1's and
+    K2b's carry launches reach the pipeline (``tpg.kernel_of`` and the
+    machine code's kernel names)."""
     adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
     state = tpg.pack_state(st, C, device=card)
     padded = np.pad(adcs, ((0, 0), (0, -C % 64)), constant_values=900)
@@ -534,11 +598,15 @@ def test_slot_word_carry_matches_plain(card, cfg, C, T, tc, k):
             got = tpg.process_window(feed, s0, cfg, tc=tc, k_slots=k, **kw)
         opts = {o: kw.get(o, False) for o in ("fir_packed", "words14_gather",
                                               "words14_slab")}
+        int16 = s0.dtype == torch.int16
         for name in tpg.kernels_of(cfg, kw["time_packed"],
-                                   kw.get("packed14"),
-                                   int16=s0.dtype == torch.int16, **opts):
+                                   kw.get("packed14"), int16=int16, **opts):
             assert tpg.process_window.carry_launches[name] == \
                 before[name] + 1, (name, kw)
+        fn = tpg.kernel_of(cfg, kw["time_packed"], kw.get("packed14"),
+                           int16=int16, **opts)
+        if fn in ("K1", "K2b"):
+            _assert_pipeline(tpg_functions, fn, cfg, carry=True)
         want = tpg.process_window_plain(feed, s0, cfg, tc, k, **kw)
         for g, w, d in zip(got, want, direct):
             assert torch.equal(g, w), kw

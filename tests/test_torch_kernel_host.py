@@ -14,10 +14,11 @@ rows) and family (K3 FIR, K3b with the SWAR carry, the float running sum),
 the int16 state (K2b), and K5 (fir_twopass 1 and 2, also through the
 gather) for the FIR variants, at a shape with whole 16-tick groups and one
 with a ragged chunk tail or a partly empty block and warp; the pipeline
-(K3 on plain, time2 and packed rows, K5, K2 and K4 for the threshold
-families, the staged arms; its warps as host threads, its stage barriers
-and copies the stand-in's) also at ProtoWIB plane widths, partly empty
-warps and 7-word groups, and chunks that are no whole stage.  The carry
+(K3 on plain, time2 and packed rows, K5, K1, K2, K4 and K2b for the
+threshold families, K2b for FIR, the staged arms; its warps as host
+threads, its stage barriers and copies the stand-in's) also at ProtoWIB
+plane widths, partly empty warps and 7-word groups, chunks that are no
+whole stage, and K2b's int16 feed at odd and even strides.  The carry
 layout runs every encoding and variant with the flag flipped, below, at and
 above its register ceiling; the probes' kernels (P1-P3) run through their
 modules' own marshalling against their plain versions.  What only the
@@ -204,22 +205,41 @@ THRESHOLD_PIPE_SHAPES = [(40, 192, 48, 2), (100, 200, 50, 1),
 THRESHOLDS = [n for n in CONFIGS if not n.startswith("FIR")]
 
 
-def _halves(feed, packed14, T):
+def _halves(feed, packed14, T, time2=False):
     """A feed of T ticks as two windows of T / 2 (a chunk boundary, where
-    the test stream holds a pulse)."""
+    the test stream holds a pulse); time2 rows hold two ticks each."""
     if packed14 == "frames":                  # (L, T, 28)
         return [feed[:, :T // 2].contiguous(), feed[:, T // 2:].contiguous()]
-    return [feed[:T // 2].contiguous(), feed[T // 2:].contiguous()]
+    half = T // 4 if time2 else T // 2
+    return [feed[:half].contiguous(), feed[half:].contiguous()]
 
 
-def _two_windows(fn, feed, state, cfg, tc, k, packed14, T):
+def _two_windows(fn, feed, state, cfg, tc, k, packed14, T, time2=False):
     """fn's results on two consecutive windows, state carried."""
     out = []
-    for half in _halves(feed, packed14, T):
-        got = fn(half, state, cfg, tc, k, packed14)
+    for half in _halves(feed, packed14, T, time2):
+        got = fn(half, state, cfg, tc, k, packed14, time2)
         state = got[2]
         out.append(got)
     return out
+
+
+def _plain(feed, state, cfg, tc, k, packed14, time2=False):
+    return tpg.process_window_plain(feed, state, cfg, tc, k, time2, packed14)
+
+
+def _host_launch(fn):
+    """A window through the host-built C entry ``fn`` (``tpg._launch``)."""
+    def launch(feed, state, cfg, tc, k, packed14, time2=False):
+        return tpg._launch(fn, feed, state, cfg, tc, k, time2, packed14, 0,
+                           None)
+    return launch
+
+
+def _assert_windows_equal(got, want, *what):
+    for n, (gw, ww) in enumerate(zip(got, want)):
+        for g, w in zip(gw, ww):
+            assert torch.equal(g, w), what + (n,)
 
 
 @pytest.mark.parametrize("slot_word_carry", [False, True],
@@ -228,44 +248,75 @@ def _two_windows(fn, feed, state, cfg, tc, k, packed14, T):
 def test_threshold_pipeline_source_matches_plain(host_kernel, name,
                                                  slot_word_carry,
                                                  monkeypatch):
-    """K2 and K4 (the threshold families on plain samples, frame words and
-    words14 rows) through the pipeline at THRESHOLD_PIPE_SHAPES, with the
-    direct store and with ``SLOT_WORD_CARRY``, against the plain
-    version: slots, nclose with drops, and state, over two windows whose
-    split falls inside a pulse (the hit warp's first previous over flag
-    comes from the carried state)."""
+    """K1, K2 and K4 (the threshold families on time2 rows, plain samples,
+    frame words and words14 rows) and K2b (int16 samples and state)
+    through the pipeline at THRESHOLD_PIPE_SHAPES, with the direct store
+    and with ``SLOT_WORD_CARRY``, against the plain version: slots, nclose
+    with drops, and state, over two windows whose split falls inside a
+    pulse (the hit warp's first previous over flag comes from the carried
+    state)."""
     monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", slot_word_carry)
     cfg = CONFIGS[name]
     drops = 0
-
-    def plain(feed, state, cfg, tc, k, packed14):
-        return tpg.process_window_plain(feed, state, cfg, tc, k, False,
-                                        packed14)
-
-    def kernel(feed, state, cfg, tc, k, packed14):
-        return tpg._launch(host_kernel, feed, state, cfg, tc, k, False,
-                           packed14, 0, None)
-
+    kernel = _host_launch(host_kernel)
     for C, T, tc, k in THRESHOLD_PIPE_SHAPES:
         feeds, state = _inputs(cfg, C, T, tc, k, split_pulse=True)
-        want = _two_windows(plain, feeds[0][0], state, cfg, tc, k, None, T)
+        want = _two_windows(_plain, feeds[0][0], state, cfg, tc, k, None, T)
         drops += max(int(w[1].max()) for w in want) > k
         for feed, time2, packed14 in feeds:
-            if time2 or (packed14 and C % 16):
+            if packed14 and C % 16:
                 continue
-            got = _two_windows(kernel, feed, state, cfg, tc, k, packed14, T)
-            for n, (gw, ww) in enumerate(zip(got, want)):
-                for g, w in zip(gw, ww):
-                    assert torch.equal(g, w), (C, tc, k, packed14, n)
+            got = _two_windows(kernel, feed, state, cfg, tc, k, packed14, T,
+                               time2)
+            _assert_windows_equal(got, want, C, tc, k, time2, packed14)
+        adcs16, s16 = feeds[0][0].to(torch.int16), state.to(torch.int16)
+        want = _two_windows(_plain, adcs16, s16, cfg, tc, k, None, T)
+        got = _two_windows(kernel, adcs16, s16, cfg, tc, k, None, T)
+        _assert_windows_equal(got, want, C, tc, k, "int16")
+    assert drops >= 1
+
+
+# K2b's int16 feed at both stride parities: C = 45 and 77 with the feed as
+# wide as the state (an odd stride: each lane loads its own sample and
+# stores it into the slab) and one column wider (an even stride: 4-byte
+# copies of sample pairs, the last pair's high half past the channels);
+# chunks that are no whole stage, K above the carry ceiling.
+INT16_STRIDE_SHAPES = [(45, 192, 48, 2), (77, 320, 160, 5)]
+
+
+@pytest.mark.parametrize("slot_word_carry", [False, True],
+                         ids=["direct", "carry"])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_int16_pipeline_feed_stride_source_matches_plain(
+        host_kernel, name, slot_word_carry, monkeypatch):
+    """K2b (every family on the int16 state; FIR in K3's mode) at an odd C
+    with an odd and an even ``feed_stride``, the synchronous feed and the
+    word copies, against the plain version over two windows whose split
+    falls inside a pulse."""
+    monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", slot_word_carry)
+    cfg = CONFIGS[name]
+    kernel = _host_launch(host_kernel)
+    drops = 0
+    for C, T, tc, k in INT16_STRIDE_SHAPES:
+        feeds, state = _inputs(cfg, C, T, tc, k, split_pulse=True)
+        adcs16, s16 = feeds[0][0].to(torch.int16), state.to(torch.int16)
+        want = _two_windows(_plain, adcs16, s16, cfg, tc, k, None, T)
+        drops += max(int(w[1].max()) for w in want) > k
+        for pad in (0, 1):
+            feed = torch.nn.functional.pad(adcs16, (0, pad)).contiguous()
+            assert feed.shape[1] % 2 == 1 - pad          # odd, then even
+            got = _two_windows(kernel, feed, s16, cfg, tc, k, None, T)
+            _assert_windows_equal(got, want, C, tc, k, feed.shape[1])
     assert drops >= 1
 
 
 @pytest.mark.parametrize("name", THRESHOLDS)
 def test_threshold_staged_arm_source_matches_plain(host_lib, name):
     """The threshold pipeline's staged arm (``tpg_threshold_staged_launch``:
-    one warp, ThresholdChannel's whole tick on the staged feed) on plain
-    samples and packed words at THRESHOLD_PIPE_SHAPES, against the plain
-    version; it refuses the time2 feed and the FIR family."""
+    one warp, ThresholdChannel's whole tick on the staged feed) on time2
+    rows, plain samples, packed words and int16 samples and state at
+    THRESHOLD_PIPE_SHAPES, against the plain version; it refuses the FIR
+    family."""
     fn = host_lib.tpg_threshold_staged_launch
     fn.argtypes = tpg._ARGTYPES
     fn.restype = ctypes.c_int
@@ -275,15 +326,18 @@ def test_threshold_staged_arm_source_matches_plain(host_lib, name):
         want = tpg.process_window_plain(feeds[0][0], state, cfg, tc, k,
                                         False)
         for feed, time2, packed14 in feeds:
-            if time2 or (packed14 and C % 16):
+            if packed14 and C % 16:
                 continue
-            got = tpg._launch(fn, feed, state, cfg, tc, k, False, packed14,
+            got = tpg._launch(fn, feed, state, cfg, tc, k, time2, packed14,
                               0, None)
             for g, w in zip(got, want):
-                assert torch.equal(g, w), (C, tc, k, packed14)
+                assert torch.equal(g, w), (C, tc, k, time2, packed14)
+        adcs16, s16 = feeds[0][0].to(torch.int16), state.to(torch.int16)
+        want = tpg.process_window_plain(adcs16, s16, cfg, tc, k, False)
+        got = tpg._launch(fn, adcs16, s16, cfg, tc, k, False, None, 0, None)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (C, tc, k, "int16")
     feeds, state = _inputs(cfg, 64, 128, 64, 2)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        tpg._launch(fn, feeds[1][0], state, cfg, 64, 2, True, None, 0, None)
     with pytest.raises(RuntimeError, match="CUDA error"):
         tpg._launch(fn, feeds[0][0], state, CONFIGS["FIR"], 64, 2, False,
                     None, 0, None)

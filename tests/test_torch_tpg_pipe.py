@@ -1,12 +1,16 @@
 """The threshold families' warp-specialised pipeline (``csrc/tpg.cuh``,
-``pipe_kernel`` in its kPipeThreshold mode: K2 on plain samples, K4 on frame
-words and words14 rows), built for the host (``tests/torch_host_lib.py``)
+``pipe_kernel`` in its kPipeThreshold mode: K1 on time2 rows, K2 on plain
+samples, K4 on frame words and words14 rows; K2b, every family on the
+int16 state, in that mode and, for FIR, in K3's), built for the host
+(``tests/torch_host_lib.py``)
 and called through the wrapper's own marshalling (``ops/tpg._launch``),
 held directly against the JAX package's
 ``process_window_pallas(..., interpret=True)`` on the same numpy-made
 inputs, over two consecutive windows whose split falls inside a pulse
 (state carried through both packages): slots, nclose (drops included) and
-the carried state, bit for bit (tolerance 0: an integer pipeline).  The
+the carried state, bit for bit (tolerance 0: an integer pipeline), with
+the direct store and, on one case of K1 and of K2b, the ``SLOT_WORD_CARRY``
+emission layout.  The
 JAX fused words14 kernel keeps state and slots in the words14 lane
 positions, the port in canonical channel order; both are compared in
 canonical order."""
@@ -25,7 +29,8 @@ from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
 from fdreadoutlibs_tpu.ops.reference import process_window_reference
 from fdreadoutlibs_tpu_torch.ops import tpg
 from fdreadoutlibs_tpu_torch.ops.ingest import pack_words14
-from fdreadoutlibs_tpu_torch.testing import frame_words, tpg_stream
+from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
+                                             time2_words, tpg_stream)
 from test_torch_tpg import jax_outputs_to_port
 from torch_host_lib import host_library
 
@@ -46,6 +51,29 @@ K4_CASES = {
     "AbsRS": TPGConfig.from_raw("AbsRS", threshold=150),
     "StandardRS": TPGConfig(algorithm=Algorithm.STANDARD_RS, threshold=150),
 }
+# K1 on time2 rows: (family config, channels)
+K1_CASES = {
+    "SimpleThreshold": (TPGConfig(algorithm=Algorithm.SIMPLE_THRESHOLD,
+                                  threshold=120), 64),
+    "AbsRS": (TPGConfig.from_raw("AbsRS", threshold=150), 96),
+    "AbsRS-rs_float": (TPGConfig.from_raw("AbsRS", threshold=150,
+                                          rs_float=True), 96),
+    "StandardRS": (TPGConfig(algorithm=Algorithm.STANDARD_RS, threshold=150),
+                   128),
+}
+# K2b on the int16 state: (family config, channels), FIR through K3's mode
+K2B_CASES = {
+    "SimpleThreshold": (TPGConfig(algorithm=Algorithm.SIMPLE_THRESHOLD,
+                                  threshold=120), 96),
+    "AbsRS": (TPGConfig.from_raw("AbsRS", threshold=150), 64),
+    "StandardRS": (TPGConfig(algorithm=Algorithm.STANDARD_RS, threshold=150),
+                   96),
+    "FIR": (TPGConfig.from_raw("FIR", threshold=5), 64),
+}
+# (case, SLOT_WORD_CARRY): every case with the direct store, one with the
+# carry layout
+K1_RUNS = [(n, False) for n in K1_CASES] + [("AbsRS", True)]
+K2B_RUNS = [(n, False) for n in K2B_CASES] + [("FIR", True)]
 
 
 @pytest.fixture(scope="module")
@@ -56,36 +84,44 @@ def host_kernel():
     return fn
 
 
-def _seeded(C, seed):
-    """The test stream, and a pulse on channel 2 (memoryless for the RS
-    families) that ends on the first window's last tick: the second
-    window's first tick closes it from the carried state alone."""
-    adcs, rmf = tpg_stream(T, C, TC, K, seed=seed)
+def _seeded(C, seed, fir=False):
+    """The test stream (the FIR family's with ``fir``), and a pulse on
+    channel 2 (memoryless for the RS families) that ends on the first
+    window's last tick: the second window's first tick closes it from the
+    carried state alone."""
+    if fir:
+        adcs, rmf = fir_stream(T, C, TC, K, seed), 0
+    else:
+        adcs, rmf = tpg_stream(T, C, TC, K, seed=seed)
     adcs[T // 2 - 4:T // 2, 2] += 2000
     return adcs, seed_chanstate(init_chanstate(C), adcs[0], rmf)
 
 
-@pytest.mark.parametrize("name", list(K2_CASES))
-def test_k2_pipeline_matches_pallas(host_kernel, name):
-    """K2: the pipeline on plain samples against the Pallas kernel on the
-    same samples (time_packed=False).  For rs_float, XLA on the CPU
-    contracts the interpret-mode kernel's 0.8 * rs + s into one FMA, which
-    the JAX package's own oracle does not (ROADMAP.md section 3): there the
-    pipeline equals the oracle's state on every channel and the Pallas
-    kernel on every channel where that kernel agrees with the oracle."""
-    cfg, C = K2_CASES[name]
-    adcs, st = _seeded(C, seed=C + 11)
-    stack = jtpg.pack_state(st, C)
+def _windows_match_pallas(host_kernel, cfg, C, adcs, st, time2=False,
+                          dtype=np.int32):
+    """The two windows of ``adcs`` through the Pallas kernel (interpret
+    mode) and the host-built pipeline, state carried through both: plain
+    samples, time2 words (``time2``) or int16 samples and state (``dtype``
+    np.int16).  For rs_float, XLA on the CPU contracts the interpret-mode
+    kernel's 0.8 * rs + s into one FMA, which the JAX package's own oracle
+    does not (ROADMAP.md section 3): there the pipeline equals the oracle's
+    state on every channel and the Pallas kernel on every channel where
+    that kernel agrees with the oracle."""
+    stack = jtpg.pack_state(st, C, dtype=dtype)
     state = tpg.state_from_jax(np.asarray(stack), C)
     closes = 0
     for w in range(2):
         win = adcs[w * T // 2:(w + 1) * T // 2]
+        if time2:
+            jfeed, feed = jtpg.pack_adcs_time2(win), time2_words(win)
+        else:
+            jfeed, feed = jtpg.pack_adcs(win, dtype=dtype), win.astype(dtype)
         js, jn, stack = jtpg.process_window_pallas(
-            jnp.asarray(jtpg.pack_adcs(win)), stack, cfg, tc=TC, k_slots=K,
-            interpret=True, time_packed=False)
+            jnp.asarray(jfeed), stack, cfg, tc=TC, k_slots=K,
+            interpret=True, time_packed=time2, unroll=2 if time2 else 1)
         slots, nclose, state = tpg._launch(
-            host_kernel, torch.from_numpy(np.ascontiguousarray(win)), state,
-            cfg, TC, K, False, None, 0, None)
+            host_kernel, torch.from_numpy(np.ascontiguousarray(feed)), state,
+            cfg, TC, K, time2, None, 0, None)
         js, jn = jax_outputs_to_port(js, jn, C)
         jstate = tpg.state_from_jax(np.asarray(stack), C)
         ok = np.arange(C)
@@ -101,9 +137,46 @@ def test_k2_pipeline_matches_pallas(host_kernel, name):
         np.testing.assert_array_equal(nclose.numpy()[:, ok], jn[:, ok])
         np.testing.assert_array_equal(state.numpy()[:, ok],
                                       jstate.numpy()[:, ok])
+        assert state.dtype == (torch.int16 if dtype == np.int16
+                               else torch.int32)
         assert int((js[:, :, -1] != 0).sum()) > 0
         closes = max(closes, int(jn.max()))
     assert closes > K                              # drops exercised
+
+
+@pytest.mark.parametrize("name", list(K2_CASES))
+def test_k2_pipeline_matches_pallas(host_kernel, name):
+    """K2: the pipeline on plain samples against the Pallas kernel on the
+    same samples (time_packed=False); rs_float as
+    :func:`_windows_match_pallas` says."""
+    cfg, C = K2_CASES[name]
+    adcs, st = _seeded(C, seed=C + 11)
+    _windows_match_pallas(host_kernel, cfg, C, adcs, st)
+
+
+@pytest.mark.parametrize("name,carry", K1_RUNS,
+                         ids=[n + ("-carry" if c else "") for n, c in K1_RUNS])
+def test_k1_pipeline_matches_pallas(host_kernel, name, carry, monkeypatch):
+    """K1: the pipeline on time2 rows (its loader stages 16 rows of two
+    ticks each per 32-tick stage) against the Pallas kernel on the same
+    time2 words (time_packed=True)."""
+    monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", carry)
+    cfg, C = K1_CASES[name]
+    adcs, st = _seeded(C, seed=C + 17)
+    _windows_match_pallas(host_kernel, cfg, C, adcs, st, time2=True)
+
+
+@pytest.mark.parametrize("name,carry", K2B_RUNS,
+                         ids=[n + ("-carry" if c else "")
+                              for n, c in K2B_RUNS])
+def test_k2b_pipeline_matches_pallas(host_kernel, name, carry, monkeypatch):
+    """K2b: the pipeline on int16 samples and state (the threshold mode;
+    K3's for FIR) against the Pallas kernel on the JAX package's int16
+    stack (``pack_state(dtype=np.int16)``)."""
+    monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", carry)
+    cfg, C = K2B_CASES[name]
+    adcs, st = _seeded(C, seed=C + 19, fir=cfg.algorithm == Algorithm.FIR)
+    _windows_match_pallas(host_kernel, cfg, C, adcs, st, dtype=np.int16)
 
 
 @pytest.mark.parametrize("name", list(K4_CASES))
