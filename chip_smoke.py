@@ -10,10 +10,12 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 2. build   — compiles the kernel library's translation units
    (``fdreadoutlibs_tpu_torch/csrc/tpg*.cu``, one ``nvcc`` each, all at
    once) and summarizes ``ptxas -v`` (registers, stack, spills; the FIR
-   kernels side by side: the pipeline's K3 on plain, time2 and packed
-   rows, K2b's FIR on int16 rows, K5 and staged arm, and K3b; every
-   instantiation of the threshold families' pipeline, K1, K2, K4 and K2b
-   with both emission layouts and their staged arms);
+   kernels side by side: the pipeline's K3 on plain, time2, packed and
+   words14 rows (the gather and the slab), K2b's FIR on int16 rows, K5 and
+   staged arm, and K3b; every instantiation of the threshold families'
+   pipeline, K1, K2, K4, K4b-gather, K4b-slab and K2b with both emission
+   layouts and their staged arms; it fails if a K4b instantiation
+   spills);
 3. kernel  — the hand-written kernel against its plain PyTorch version on
    the card at T=8192 ticks x 2560 channels (tc=256, K=4): K1 (time2
    datapath) and K2 (plain-sample datapath) for SimpleThreshold, AbsRS and
@@ -61,6 +63,7 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    and compaction, the same hits and TPs in all three runs, and a
    per-stage split of one batch;
 7. kernel entries — the entries that reach the variants of ``_tpg_kernel``
+   (``pallas_tpg.py``)
    at APA width (2560 channels), 8 windows of 8192 ticks carrying state:
    ``ingest.process_words14_feed(slab=True)`` (K4b-slab) on the words14
    rows of ``make_batch`` frames, the same rows through
@@ -92,10 +95,10 @@ if they do not load, so no host stage is timed on the numpy fallback.
 Phase 3 also holds K5 (fir_twopass 1 and 2, peaks off and on, plain and
 time2 datapaths) bit-equal to K3 and to the plain result K3 was held to on
 the same inputs, and to K5's own plain version once per schedule, and
-times both in the same call (K3 and K5, the threshold families' K1, K2 and
-K4, and K2b, are the pipeline of ``csrc/tpg.cuh``; phase 8 reads each of
-its warps' group loops in the machine code and gives the chain floor
-beside the time).  It then holds
+times both in the same call (every kernel but K3b is the pipeline of
+``csrc/tpg.cuh``; phase 8 reads each of its warps' group loops in the
+machine code, K4b-slab's unpack pass too, and gives the chain floor beside
+the time).  It then holds
 the variants of the fused tick on the same inputs, each timed beside the
 kernel it varies and held once to its own plain version: K3b
 (``fir_packed``) on K3's plain (peaks off and on), time2 and words14 feeds,
@@ -285,9 +288,10 @@ def ptxas_kernels(log: str) -> dict:
 PIPE_MODES = {"0": "staged arm", "1": "K3", "2": "K5 twopass 1",
               "3": "K5 twopass 2", "4": "threshold"}
 ENCODINGS = {"0": "plain", "1": "time2", "2": "packed14", "3": "gather14",
-             "5": "int16"}
+             "4": "slab14", "5": "int16"}
 # the kernel the threshold mode runs on each encoding (ROADMAP.md's names)
-THRESHOLD_KERNEL = {"0": "K2", "1": "K1", "2": "K4", "5": "K2b"}
+THRESHOLD_KERNEL = {"0": "K2", "1": "K1", "2": "K4", "3": "K4b-gather",
+                    "4": "K4b-slab", "5": "K2b"}
 # a kernel's name: its template, its channel type and arguments, and the
 # emission layout (the last template argument)
 _PIPE = re.compile(r"pipe_kernelILi(\d)ELi(\d)EN\w*?\d+(FirChannel|"
@@ -328,17 +332,18 @@ def pipe_name(name: str) -> str | None:
 
 
 def fir_registers(kernels: dict) -> dict:
-    """The FIR kernels: the pipeline's (K3 on plain, time2 and packed rows,
-    K2b's FIR on int16 rows in K3's mode, K5 on every encoding, the staged
-    arm; direct store and carry), and K3b's fused tick: {kernel: {"peaks"
-    or "no peaks": (min regs, max regs, max spill B)}}."""
+    """The FIR kernels: the pipeline's (K3 on plain, time2, packed and
+    words14 rows through the gather and the slab, K2b's FIR on int16 rows
+    in K3's mode, K5 on every encoding, the staged arm; direct store and
+    carry), and K3b's fused tick: {kernel: {"peaks" or "no peaks": (min
+    regs, max regs, max spill B)}}."""
     out = {}
     for name, (regs, spill) in kernels.items():
         m, mp = _FUSED.search(name), _PIPE.search(name)
         if mp is not None and mp.group(3) == "FirChannel":
             enc, mode, _, args, carry = mp.groups()
             kern = ("K2b (K3's mode)" if enc == "5" else PIPE_MODES[mode]) \
-                + (f" {ENCODINGS[enc]}" if enc in ("2", "3") else "") + \
+                + (f" {ENCODINGS[enc]}" if enc in ("2", "3", "4") else "") + \
                 (" carry" if carry == "1" else "")
             peaks = re.findall(r"Lb(\d)E", args)[1]
         elif m is not None and "FirPackedChannel" in name and \
@@ -1410,8 +1415,8 @@ def pipeline_rows(kernels: dict, summary: dict, mhz: float) -> dict:
     longest chain of register dependences per tick, and the time that chain
     alone takes at the dependent-op latency P1 measured (the chain floor),
     for every instantiation the probe reports (``fir_pipe.REPORTED``).
-    Returns the extra keys of the K1-K5 and K2b rows, with their cycles
-    per tick per thread (``roofline.summarize``)."""
+    Returns the extra keys of the K1-K5, K2b and K4b rows, with their
+    cycles per tick per thread (``roofline.summarize``)."""
     pipe = fir_pipe.pipe_sass(_build.sass("tpg"))
     floors = fir_pipe.chain_floor_ms(pipe, summary["tpg_cycles_per_dep_op"],
                                      mhz)
@@ -1424,7 +1429,9 @@ def pipeline_rows(kernels: dict, summary: dict, mhz: float) -> dict:
     out = {}
     for k, label in (("K1", "K1 AbsRS"), ("K2", "K2 AbsRS"), ("K3", "K3"),
                      ("K4", "K4 AbsRS"), ("K5", "K5 twopass 2"),
-                     ("K2b", "K2b AbsRS")):
+                     ("K2b", "K2b AbsRS"),
+                     ("K4b-slab", "K4b-slab AbsRS"),
+                     ("K4b-gather", "K4b-gather AbsRS")):
         r = summary["kernels"][f"{k} ({kernels[k]['timed']})"]
         out[k] = {"cycles_per_tick": r["cycles_per_tick_per_thread"],
                   "chain_floor_ms": floors[label],
@@ -1670,14 +1677,25 @@ def main() -> int:
             _build.load(lib_name)
         if "tpg" in _build.build_log:
             regs = ptxas_kernels(_build.build_log["tpg"])
-            print("  ptxas FIR kernels: the pipeline (K3 on plain, time2 "
-                  "and packed rows, K2b's FIR, K5, the staged arm), K3b "
-                  "(registers min, max, spill stores B):",
+            print("  ptxas FIR kernels: the pipeline (K3 on plain, time2, "
+                  "packed, gather14 and slab14 rows, K2b's FIR, K5, the "
+                  "staged arm), K3b (registers min, max, spill stores B):",
                   json.dumps(fir_registers(regs)))
             thr_regs = threshold_registers(regs)
             print("  ptxas threshold pipeline, every instantiation (K1, K2, "
-                  "K4, K2b, their carry layout and staged arms; registers, "
-                  "spill stores B):", json.dumps(thr_regs))
+                  "K4, K4b-gather, K4b-slab, K2b, their carry layout and "
+                  "staged arms; registers, spill stores B):",
+                  json.dumps(thr_regs))
+            k4b = {n: v for n, v in regs.items()
+                   if re.search(r"pipe_kernelILi[34]E", n)}
+            print(f"  ptxas K4b (pipe_kernel on gather14 and slab14 rows): "
+                  f"{len(k4b)} instantiations, registers "
+                  f"{min(r for r, _ in k4b.values())}-"
+                  f"{max(r for r, _ in k4b.values())}, spill stores max "
+                  f"{max(sp for _, sp in k4b.values())} B")
+            if any(sp for _, sp in k4b.values()):
+                raise AssertionError("K4b instantiations spill: " + json.dumps(
+                    {pipe_name(n): v for n, v in k4b.items() if v[1]}))
             pipe_spills = {pipe_name(n): v[1] for n, v in regs.items()
                            if pipe_name(n) is not None}
             print(f"  ptxas pipeline: {len(pipe_spills)} instantiations, "

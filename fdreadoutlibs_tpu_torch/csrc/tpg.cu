@@ -23,12 +23,9 @@ bool make_params(Params& p, const void* feed, int feed_stride, int encoding,
       packed ? (n_channels % 16 || groups_per_row <= 0 || group_outer < 0 ||
                 group_inner < 0 || word_stride <= 0 || feed_stride <= 0)
              : feed_stride < n_channels;
-  // the time2 slab of one chunk must fit the shared memory of a block
-  const bool bad_slab =
-      encoding == kSlab14 &&
-      (ticks_per_chunk % kGroup ||
-       static_cast<long long>(ticks_per_chunk) / 2 * kBlock * 4 >
-           kMaxSlabBytes);
+  // K4b-slab unpacks whole groups of ticks (K3b's slab kernel refuses a
+  // chunk whose slab does not fit a block's shared memory at its launch)
+  const bool bad_slab = encoding == kSlab14 && ticks_per_chunk % kGroup;
   if (n_channels <= 0 || n_chunks <= 0 || ticks_per_chunk <= 0 ||
       k_slots <= 0 || bad_layout || bad_slab ||
       (encoding == kTime2 && ticks_per_chunk % 2) || tap_exponent < 0 ||
@@ -77,7 +74,7 @@ bool make_params(Params& p, const void* feed, int feed_stride, int encoding,
 // staging does not fit a block's shared memory).
 //
 // tpg_launch: K1-K4 and K2b, K3b, K4b, the fused tick of every family
-// (K1-K4 and K2b the pipeline of tpg.cuh).
+// (all but K3b the pipeline of tpg.cuh).
 extern "C" int tpg_launch(const void* feed, int feed_stride, int encoding,
                           int groups_per_row, int group_outer,
                           int group_inner, int word_stride, int n_chunks,
@@ -240,15 +237,20 @@ extern "C" int tpg_threshold_staged_launch(
       p, v, int16 ? kPlain16 : encoding, static_cast<cudaStream_t>(stream)));
 }
 
-// The dynamic shared memory one block of a fused launch takes, in bytes, as
-// the launch computes it (tpg.cuh::block_shared_bytes), and through
-// `max_bytes` the most a launch may take before it is refused.  No launch.
-extern "C" long long tpg_shared_bytes(int n_words, int ticks_per_chunk,
-                                      int k_slots, int slab, int carry,
-                                      int* max_bytes) {
+// The shared memory one block of tpg_launch's kernel takes for these
+// arguments, in bytes, as the launch counts it (tpg.cuh::
+// fused_shared_bytes: the pipeline, or K3b's kernels with fir_packed), and
+// through `max_bytes` the most a launch may take before it is refused.  No
+// launch.
+extern "C" long long tpg_shared_bytes(int ticks_per_chunk, int k_slots,
+                                      int encoding, int family,
+                                      int track_peaks, int fir_packed,
+                                      int carry, int* max_bytes) {
   Params p{};
   p.ticks_per_chunk = ticks_per_chunk;
   p.k_slots = k_slots;
   if (max_bytes != nullptr) *max_bytes = kMaxSlabBytes;
-  return block_shared_bytes(p, n_words, slab != 0, carry != 0);
+  const Variant v{family, false, false, track_peaks != 0, false,
+                  fir_packed != 0, false};
+  return fused_shared_bytes(p, v, encoding, carry != 0);
 }

@@ -23,11 +23,15 @@
 //       (kPipeThreshold; kPipeK3 for FIR) with its roles on the int16
 //       arithmetic and its loader staging int16 samples;
 //   K3b the FIR family with the SWAR carry (fir_packed, :466-501, :522-525,
-//       :547-548, :561-574; fir.py:278-332);
+//       :547-548, :561-574; fir.py:278-332): the one-thread-per-channel
+//       tick (tpg_kernel; tpg_slab_kernel on words14 rows with the slab),
+//       the only kernel left outside the pipeline;
 //   K4b the words14 unpack as a gather (_unpack14_rows_gather :268-305,
-//       words14_gather; also in K5) and as a whole-chunk slab before the
-//       time2 tick loop (_unpack14_slab :308-329 and :445-463,
-//       words14_slab);
+//       words14_gather; also in K5) and as a slab of time2 words before the
+//       time2 tick (_unpack14_slab :308-329 and :445-463, words14_slab):
+//       both the pipeline (kPipeThreshold; kPipeK3 for FIR), the gather as
+//       K4's decode of the staged rows, the slab as an unpack pass of warp
+//       0 over each staged stage into a time2 slab of the ring;
 // and pallas_tpg.py::_fir2_kernel:
 //   K5  the two-pass FIR schedule (fir_twopass 1 and 2, :585-765), on any
 //       datapath: the pipeline with a warp each for the front, the filter
@@ -41,8 +45,8 @@
 // process_window_twopass_plain) run those very functions on torch tensors,
 // and the two are compared bit for bit.
 //
-// Design (the fused tick of tpg_kernel: K3b and K4b-gather; the pipeline
-// has its own note below).  One thread owns one channel; consecutive threads
+// Design (the fused tick of tpg_kernel and tpg_slab_kernel: K3b alone; the
+// pipeline has its own note below).  One thread owns one channel; consecutive threads
 // take consecutive channels, so every feed load and slot store of a warp is
 // coalesced.  The grid is ceil(C/128) blocks of 128 threads.  Inside a thread a
 // serial loop runs over chunks and, within a chunk, over groups of kGroup = 16
@@ -85,15 +89,18 @@
 // consecutive words per tick; the words14 layout spreads them over 7 rows.
 //
 // K4b-gather (kGather14): a warp's 32 channels are two whole groups, 14
-// words per tick.  Lanes 0-13 load them, one word each, and every lane
-// takes its low and high word from them with __shfl_sync — the gather of
-// _unpack14_rows_gather as a warp shuffle; the funnel shift is K4's.  A
-// word is loaded once per warp instead of by about 2.3 lanes.
+// words per tick, read once per warp: in the pipeline the loader stages
+// them and every lane takes its two words from the staged row (PipeFeed);
+// in K3b's tpg_kernel lanes 0-13 load them, one word each, and every lane
+// takes its low and high word with __shfl_sync — the gather of
+// _unpack14_rows_gather as a warp shuffle; the funnel shift is K4's.
 //
-// K4b-slab (kSlab14, tpg_slab_kernel): per chunk the block first unpacks
-// its 128 channels' words14 rows into a time2 slab in shared memory, tc/2
-// rows x 128 words (64 KB at tc = 256, dynamic shared memory above 48 KB),
-// with every load and extract of the chunk free of the chain; after a
+// K4b-slab (kSlab14): the pipeline's loader stages the words14 rows as
+// K4's does; warp 0 unpacks each staged stage in one pass into a time2 slab
+// of the ring (16 rows x 32 words) and runs K1's front on it, so shared
+// memory does not grow with tc.  K3b's tpg_slab_kernel instead unpacks a
+// whole chunk of its 128 channels into a time2 slab, tc/2 rows x 128 words
+// (64 KB at tc = 256, dynamic shared memory above 48 KB), and after a
 // barrier each thread runs the time2 tick loop on its column.  tc % 16 == 0.
 //
 // K2b (kI16 channel types, encoding kPlain16): the I16Fx arithmetic.  CUDA
@@ -172,8 +179,9 @@ enum Family : int {
   kFIR = 3
 };
 
-// K4b-slab's time2 slab of one chunk: tc/2 rows of kBlock words, within the
-// 227 KB of shared memory a block may use.
+// The shared memory a block may use (227 KB): the bound of every launch's
+// dynamic shared memory, K3b's time2 slab of one chunk (tpg_slab_kernel,
+// tc/2 rows of kBlock words) among them.
 constexpr int kMaxSlabBytes = 232448;
 
 struct Params {
@@ -390,10 +398,10 @@ __host__ __device__ constexpr long long carry_stage_words(int limit,
          n_words * lanes;
 }
 
-// Dynamic shared memory of one block in bytes: K4b-slab's time2 slab of one
-// chunk, then the carry layout's staging.  A launch that needs more than
-// kMaxSlabBytes is refused (ops/tpg.py::carry_shared_bytes restates this
-// for its own refusal; tpg_shared_bytes in tpg.cu gives the tests both).
+// Dynamic shared memory of one block of tpg_kernel and tpg_slab_kernel (K3b)
+// in bytes: tpg_slab_kernel's time2 slab of one chunk, then the carry
+// layout's staging.  A launch that needs more than kMaxSlabBytes is refused
+// (fused_shared_bytes below gives the rule of every fused launch).
 inline long long block_shared_bytes(const Params& p, int n_words, bool slab,
                                     bool carry) {
   return 4LL * ((slab ? p.ticks_per_chunk / 2 * kBlock : 0) +
@@ -859,8 +867,8 @@ struct FirBack {
 };
 
 // fir.py::tpg_tick_fir (unpacked layout): the FIR+IQR family, one fused
-// tick: the FIR family on packed words (K4, K4b), on the int16 state (K2b,
-// kI16) and in the pipeline's staged arm below.
+// tick: the channel type the pipeline's FIR modes read (PipeOf; kI16 for
+// K2b) and, with its whole tick, the pipeline's staged arm below.
 template <bool kPeakGated, bool kTrackPeaks, bool kAvx, bool kI16>
 struct FirChannel : FirBack<kPeakGated, kTrackPeaks, kAvx> {
   using Back = FirBack<kPeakGated, kTrackPeaks, kAvx>;
@@ -1226,12 +1234,12 @@ __global__ void __launch_bounds__(kBlock) tpg_kernel(Params p) {
   ch.store(st, C);
 }
 
-// K4b-slab.  Per chunk: every thread unpacks its channel's 14-bit samples
-// (K4's loads and funnel shifts, 16 ticks at a time, none of them on the
-// chain) into the block's time2 slab in shared memory, tick pair j of
-// thread x at slab[j * 128 + x]; after a barrier the thread runs the time2
-// tick loop on its column.  Threads past the last channel stay for the
-// barriers.
+// K3b on words14 rows with K4b-slab's schedule.  Per chunk: every thread
+// unpacks its channel's 14-bit samples (K4's loads and funnel shifts, 16
+// ticks at a time, none of them on the chain) into the block's time2 slab in
+// shared memory, tick pair j of thread x at slab[j * 128 + x]; after a
+// barrier the thread runs the time2 tick loop on its column.  Threads past
+// the last channel stay for the barriers.
 template <class Ch, bool kCarry = false>
 __global__ void __launch_bounds__(kBlock) tpg_slab_kernel(Params p) {
   // (tc / 2) x kBlock time2 words, then the carry layout's staging
@@ -1326,7 +1334,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---- The warp-specialised pipeline: K1-K5 and K2b --------------------------
+// ---- The warp-specialised pipeline: K1-K5, K2b and K4b ---------------------
 //
 // Replaces, for the FIR family, pallas_tpg.py::_tpg_kernel's fused tick on
 // the plain, time2 and packed 14-bit datapaths (K3, :464-490, :556-560;
@@ -1337,8 +1345,11 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // _unpack14_rows :241-265); for every family, the tick on the native int16
 // state (K2b, i16_mode :475-476: kPipeThreshold and kPipeK3 with the
 // channel type's kI16, which every role takes for its arithmetic and its
-// state rows).  Same outputs as FirChannel and ThresholdChannel run one
-// thread per channel, bit for bit.
+// state rows) and on words14 rows through the gather (K4b-gather,
+// _unpack14_rows_gather :268-305) and the slab (K4b-slab, _unpack14_slab
+// :308-329, the schedule :445-463: warp 0 unpacks each stage into a time2
+// slab of the ring before its front reads it).  Same outputs as FirChannel
+// and ThresholdChannel run one thread per channel, bit for bit.
 //
 // A tick is a few chains that need little of each other.  FIR: (a) the
 // pedestal and IQR frugal chains (FirFront), which need only the raw sample
@@ -1359,7 +1370,9 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 //           with cp.async, kPipeStages - 1 stages ahead of its chain, each
 //           stage completing on its `full` mbarrier; then runs (a) over the
 //           stage and writes s into the stage's slab (FIR: clamped, and
-//           sigma);
+//           sigma).  K4b-slab: before (a), one pass unpacks the stage's
+//           words14 rows into its time2 slab, hands the feed slab back to
+//           the loader, and (a) reads the time2 slab as K1's front does;
 //   K3, warp 1  (b) and (c) on each stage's s and sigma (FirBack, the FIR
 //           ring in its registers) and the emission into the K slots
 //           (direct, or SLOT_WORD_CARRY in columns of 32);
@@ -1452,16 +1465,23 @@ constexpr int kPipeWarps =
 
 // The slabs of one stage: the feed; s and sigma (K3, K5); K5's flags
 // (is_over | closed << 1), to_add, and filt with peaks; s and the RS
-// warp's over flags (K2, K4).
-template <int kMode, class Ch>
+// warp's over flags (K1, K2, K4, K2b); then for K4b-slab (kSlab14) the
+// stage's time2 slab, its words14 rows unpacked.  The one rule, for the
+// launch (kPipeSlabs) and for fused_shared_bytes from the run-time variant.
+constexpr int pipe_slabs(int enc, int mode, int family, bool peaks) {
+  return (mode == kPipeStaged
+              ? 1
+              : (mode == kPipeK3
+                     ? 3
+                     : (mode == kPipeThreshold
+                            ? (family != kSimpleThreshold ? 3 : 2)
+                            : 5 + (peaks ? 1 : 0)))) +
+         (enc == kSlab14 ? 1 : 0);
+}
+
+template <int kEnc, int kMode, class Ch>
 constexpr int kPipeSlabs =
-    kMode == kPipeStaged
-        ? 1
-        : (kMode == kPipeK3
-               ? 3
-               : (kMode == kPipeThreshold
-                      ? (kPipeRsWarp<kMode, Ch> ? 3 : 2)
-                      : 5 + (PipeOf<Ch>::kPeaks ? 1 : 0)));
+    pipe_slabs(kEnc, kMode, PipeOf<Ch>::kFamily, PipeOf<Ch>::kPeaks);
 
 // Dynamic shared memory of one block in bytes: the ring of `slabs` slabs
 // per stage, then the carry layout's staging in columns of kPipeLanes.
@@ -1472,6 +1492,23 @@ inline long long pipe_shared_bytes(const Params& p, int slabs, int n_words,
                 (carry ? carry_stage_words(carry_limit(p), n_words,
                                            kPipeLanes)
                        : 0));
+}
+
+// Shared memory of one block of the fused tick's launch (dispatch_fused) in
+// bytes, as that launch counts it against kMaxSlabBytes: K3b's tpg_kernel
+// and tpg_slab_kernel (block_shared_bytes), else the pipeline's ring, its
+// carry staging and its mbarriers (ops/tpg.py::carry_shared_bytes restates
+// this for its own refusal; tpg_shared_bytes in tpg.cu gives the tests
+// both).
+inline long long fused_shared_bytes(const Params& p, const Variant& v,
+                                    int enc, bool carry) {
+  const int n_words = v.family == kFIR && !v.track_peaks ? 2 : 3;
+  if (v.fir_packed)
+    return block_shared_bytes(p, n_words, enc == kSlab14, carry);
+  const int mode = v.family == kFIR ? kPipeK3 : kPipeThreshold;
+  return pipe_shared_bytes(p, pipe_slabs(enc, mode, v.family, v.track_peaks),
+                           n_words, carry) +
+         kPipeBars * kMbarrierBytes;
 }
 
 // The ring's primitives: an mbarrier, a 4-byte cp.async into shared memory
@@ -1594,11 +1631,14 @@ __device__ __forceinline__ void run_stage(Role& role, int n) {
 
 // One lane's part of a stage's feed: its copies and its decode.  Plain and
 // time2 rows: the lane copies its channel's words into its column of the
-// feed slab.  Packed 14-bit words (K4, K5): a warp's 32 channels are two
-// 7-word groups; lane k < 14 copies word k % 7 of group k / 7 of every tick
-// into column k of the tick's row, and every lane takes its low and high
-// word from the row (K4b-gather's exchange, through shared memory) and
-// funnel-shifts as K4's fused tick does: the decode leaves the chain.
+// feed slab.  Packed 14-bit words (K4, K4b, K5): a warp's 32 channels are
+// two 7-word groups; lane k < 14 copies word k % 7 of group k / 7 of every
+// tick into column k of the tick's row, and every lane takes its low and
+// high word from the row (the gather of _unpack14_rows_gather as an
+// exchange through shared memory) and funnel-shifts as K4's fused tick
+// does: the decode leaves the chain.  K4b-slab (kSlab14) copies the same
+// rows, and unpack() turns a stage of them into time2 words, which the
+// front reads as K1's does.
 // int16 samples (K2b): where a row starts on a 4-byte boundary (an even
 // stride from an aligned feed; every block's first channel is a multiple of
 // 32), lane l < 16 copies the word of channels 2l and 2l + 1 into column l
@@ -1609,10 +1649,16 @@ __device__ __forceinline__ void run_stage(Role& role, int n) {
 // the same `full` barrier: one feed path or the other per launch.
 template <int kEnc>
 struct PipeFeed {
-  static constexpr bool kPacked = kEnc == kPacked14 || kEnc == kGather14;
+  static constexpr bool kPacked =
+      kEnc == kPacked14 || kEnc == kGather14 || kEnc == kSlab14;
   // a lane reads words that other lanes copied: the warp meets before it
   // copies the next round into the slab
   static constexpr bool kShared = kPacked || kEnc == kPlain16;
+  // ticks per staged feed row: two in a time2 word; one tick's words per
+  // row of packed words, K4b-slab's included (the pipeline stages its raw
+  // rows, where K3b's tpg_slab_kernel reads kRowTicks<kSlab14> = 2 ticks
+  // per time2 word)
+  static constexpr int kFeedRowTicks = kEnc == kTime2 ? 2 : 1;
   const FeedT<kEnc>* src;   // the lane's word of tick 0, or null: no copies
   size_t stride;
   int lane;
@@ -1670,9 +1716,9 @@ struct PipeFeed {
       }
     }
     if (src != nullptr) {
-      const int rows = st.n / kRowTicks<kEnc>;
+      const int rows = st.n / kFeedRowTicks;
       const FeedT<kEnc>* from =
-          src + static_cast<size_t>(st.t0 / kRowTicks<kEnc>) * stride;
+          src + static_cast<size_t>(st.t0 / kFeedRowTicks) * stride;
       for (int r = 0; r < rows; ++r)
         stage_copy(slab + r * kPipeLanes + lane,
                    reinterpret_cast<const int32_t*>(
@@ -1702,22 +1748,47 @@ struct PipeFeed {
     }
   }
 
-  // The sample of tick g + kU of the stage (g a multiple of kGroup).
+  // The lane's 14-bit sample from a staged row of packed words.
+  __device__ __forceinline__ int decode14(const int32_t* row) const {
+    return static_cast<int>(
+        __funnelshift_r(static_cast<unsigned>(row[src_lo]),
+                        static_cast<unsigned>(row[src_hi]), sh) &
+        0x3FFFu);
+  }
+
+  // K4b-slab: the n ticks of a stage's packed words (`raw`, n a multiple
+  // of kGroup) unpacked into its time2 slab, tick pair u of the lane's
+  // channel at t2[u * kPipeLanes + lane] = (v[2u] & 0xFFFF) | v[2u+1] << 16
+  // as _unpack14_slab packs them (:455-459); a group's loads go out before
+  // its stores.
+  __device__ __forceinline__ void unpack(const int32_t* raw, int32_t* t2,
+                                         int n) const {
+#pragma unroll 1
+    for (int g = 0; g < n; g += kGroup) {
+      int v[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u)
+        v[u] = decode14(raw + (g + u) * kPipeLanes);
+#pragma unroll
+      for (int u = 0; u < kGroup / 2; ++u)
+        t2[(g / 2 + u) * kPipeLanes + lane] =
+            pack16(v[2 * u + 1], v[2 * u] & 0xFFFF);
+    }
+  }
+
+  // The sample of tick g + kU of the stage (g a multiple of kGroup), from
+  // the feed slab (K4b-slab: from the stage's time2 slab).
   template <int kU>
   __device__ __forceinline__ int sample(const int32_t* slab, int g) const {
     if constexpr (kEnc == kPlain16) {
       const uint32_t w =
           static_cast<uint32_t>(slab[(g + kU) * kPipeLanes + col]);
       return static_cast<int>(w << shl) >> shr;
-    } else if constexpr (kEnc == kTime2) {
+    } else if constexpr (kEnc == kTime2 || kEnc == kSlab14) {
       const int w = slab[(g / 2 + kU / 2) * kPipeLanes + lane];
       return kU % 2 == 0 ? wrap_i16(w) : (w >> 16);
     } else if constexpr (kPacked) {
-      const int32_t* row = slab + (g + kU) * kPipeLanes;
-      return static_cast<int>(
-          __funnelshift_r(static_cast<unsigned>(row[src_lo]),
-                          static_cast<unsigned>(row[src_hi]), sh) &
-          0x3FFFu);
+      return decode14(slab + (g + kU) * kPipeLanes);
     } else {
       return slab[(g + kU) * kPipeLanes + lane];
     }
@@ -2061,7 +2132,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
   };
   // the carry layout's staging after the ring, the lane's column
   int32_t* const stage =
-      smem + kPipeSlabs<kMode, Ch> * kPipeStages * kStageWords + lane;
+      smem + kPipeSlabs<kEnc, kMode, Ch> * kPipeStages * kStageWords + lane;
   // the RS families' hit warp: the carried rs, read before the barrier
   // below (the RS warp writes rs back at its end)
   const int rs0 = kRsWarp && warp == 2 && live ? st[kRs * C] : 0;
@@ -2108,6 +2179,8 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
       std::conditional_t<Of::kFamily == kFIR, PipeFront<kEnc, Of::kI16>,
                          PipeThresholdFront<kEnc, Of::kI16>>
           a{};
+      // K4b-slab's time2 slab, the stage's last
+      constexpr int kT2 = kPipeSlabs<kEnc, kMode, Ch> - 1;
       a.feed = feed;
       a.p = &p;
       if (live) a.load(st, C);
@@ -2116,17 +2189,28 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
         const int j = q % kPipeStages;
         const unsigned round = (q / kPipeStages) & 1;
         stage_bar_wait(&full[j], round);
+        if constexpr (kEnc == kSlab14) {
+          // the stage's words14 rows into its time2 slab in one pass, off
+          // the front's chain; the lanes read each other's words, so the
+          // warp meets before the feed slab goes back to the loader
+          feed.unpack(slab(0, j), slab(kT2, j), sg.n);
+          __syncwarp();
+          if (q + kPipeStages < n_stages)
+            feed.issue(pipe_stage(p, q + kPipeStages), slab(0, j), &full[j]);
+        }
         stage_bar_wait(&s_empty[j], round ^ 1);
-        a.in = slab(0, j);
+        a.in = slab(kEnc == kSlab14 ? kT2 : 0, j);
         a.s = slab(1, j) + lane;
         if constexpr (Of::kFamily == kFIR) a.sigma = slab(2, j) + lane;
         run_stage(a, sg.n);
         stage_bar_arrive(&ready[j]);
-        // packed and int16 rows are read across lanes: all reads before
-        // the refill
-        if constexpr (PipeFeed<kEnc>::kShared) __syncwarp();
-        if (q + kPipeStages < n_stages)
-          feed.issue(pipe_stage(p, q + kPipeStages), slab(0, j), &full[j]);
+        if constexpr (kEnc != kSlab14) {
+          // packed and int16 rows are read across lanes: all reads before
+          // the refill
+          if constexpr (PipeFeed<kEnc>::kShared) __syncwarp();
+          if (q + kPipeStages < n_stages)
+            feed.issue(pipe_stage(p, q + kPipeStages), slab(0, j), &full[j]);
+        }
       }
       if (live) a.store(st, C);
     }
@@ -2275,10 +2359,13 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
 
 template <int kEnc, int kMode, class Ch, bool kCarry = false>
 cudaError_t launch_pipe(const Params& p, cudaStream_t stream) {
+  static_assert(kEnc != kSlab14 ||
+                    (kMode == kPipeK3 || kMode == kPipeThreshold),
+                "K4b-slab runs the fused tick's modes only");
   constexpr int kThreads = kPipeWarps<kMode, Ch> * kPipeLanes;
   const int blocks = (p.n_channels + kPipeLanes - 1) / kPipeLanes;
   const long long smem_ll =
-      pipe_shared_bytes(p, kPipeSlabs<kMode, Ch>, Ch::kWords, kCarry);
+      pipe_shared_bytes(p, kPipeSlabs<kEnc, kMode, Ch>, Ch::kWords, kCarry);
   if (smem_ll + kPipeBars * kMbarrierBytes > kMaxSlabBytes)
     return cudaErrorInvalidValue;
   const int smem = static_cast<int>(smem_ll);
@@ -2347,23 +2434,19 @@ cudaError_t pick_threshold(const Variant& v, F&& f) {
 // combinations the JAX package admits are instantiated (the peak gate only
 // with peak registers, the charge floor of the RS families always on,
 // rs_float for the RS families, the SWAR carry for FIR on an int32 state).
-// The pipeline runs K3 on plain, time2, packed and int16 rows, and the
-// threshold families on time2 rows (K1), plain samples (K2), packed words
-// (K4) and int16 samples (K2b); tpg_kernel runs K3b and K4b-gather,
-// tpg_slab_kernel K4b-slab.
+// The pipeline runs every family on every encoding: K3 (FIR) on plain,
+// time2, packed, words14 (gather, slab) and int16 rows, the threshold
+// families on time2 rows (K1), plain samples (K2), packed words (K4),
+// int16 samples (K2b) and words14 rows through the gather and the slab
+// (K4b); tpg_kernel and tpg_slab_kernel run K3b (fir_packed) alone.
 template <int kEnc, bool kCarry = false>
 cudaError_t dispatch_fused(const Params& p, const Variant& v,
                            cudaStream_t s) {
   constexpr bool kI16 = kEnc == kPlain16;
-  constexpr bool kPipe = kEnc == kPlain || kEnc == kTime2 ||
-                         kEnc == kPacked14 || kEnc == kPlain16;
   if (v.family != kFIR) {
     return pick_threshold<kI16>(v, [&](auto tag) -> cudaError_t {
-      using Ch = typename decltype(tag)::type;
-      if constexpr (kPipe)
-        return launch_pipe<kEnc, kPipeThreshold, Ch, kCarry>(p, s);
-      else
-        return launch<Ch, kEnc, kCarry>(p, s);
+      return launch_pipe<kEnc, kPipeThreshold,
+                         typename decltype(tag)::type, kCarry>(p, s);
     });
   }
   return pick(v.peak_gated, [&](auto gated) -> cudaError_t {
@@ -2377,11 +2460,9 @@ cudaError_t dispatch_fused(const Params& p, const Variant& v,
             return launch<FirPackedChannel<kPeaks && kGated, kPeaks, kAvx>,
                           kEnc, kCarry>(p, s);
         }
-        using Ch = FirChannel<kPeaks && kGated, kPeaks, kAvx, kI16>;
-        if constexpr (kPipe)
-          return launch_pipe<kEnc, kPipeK3, Ch, kCarry>(p, s);
-        else
-          return launch<Ch, kEnc, kCarry>(p, s);
+        return launch_pipe<kEnc, kPipeK3,
+                           FirChannel<kPeaks && kGated, kPeaks, kAvx, kI16>,
+                           kCarry>(p, s);
       });
     });
   });

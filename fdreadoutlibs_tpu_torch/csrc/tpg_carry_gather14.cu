@@ -1,5 +1,6 @@
-// K4b-gather (and K3, K3b): words14 rows through the warp shuffle,
-// with the SLOT_WORD_CARRY emission layout (CarrySlots in tpg.cuh).
+// K4b-gather (the pipeline; K3b's fused tick with fir_packed): words14 rows
+// through the gather, with the SLOT_WORD_CARRY emission layout (CarrySlots
+// in tpg.cuh).
 // One translation unit of the kernel library: the fused tick's
 // instantiations for this encoding with the carry layout, apart from the
 // direct-store unit so both build in parallel.

@@ -1,5 +1,6 @@
-// K4b-slab (and K3, K3b): words14 rows through the shared-memory slab,
-// with the SLOT_WORD_CARRY emission layout (CarrySlots in tpg.cuh).
+// K4b-slab (the pipeline; K3b's slab kernel with fir_packed): words14 rows
+// unpacked into time2 slabs, with the SLOT_WORD_CARRY emission layout
+// (CarrySlots in tpg.cuh).
 // One translation unit of the kernel library: the fused tick's
 // instantiations for this encoding with the carry layout, apart from the
 // direct-store unit so both build in parallel.

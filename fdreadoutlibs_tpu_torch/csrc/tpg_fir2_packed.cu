@@ -1,4 +1,5 @@
-// K5, the two-pass FIR schedule, on packed 14-bit words (K4's decode and K4b-gather's).
+// K5, the two-pass FIR schedule, on packed 14-bit words (K4's decode, also
+// on K4b-gather's encoding).
 // One translation unit of the kernel library (the kernel is in tpg.cuh).
 #include "tpg.cuh"
 

@@ -13,8 +13,8 @@ Counterparts of ``fdreadoutlibs_tpu/ops/ingest.py``:
 * :func:`process_packed_frames_fused` (:84-104) and
   :func:`process_words14_feed` (:111-143) hand the packed words to the
   kernel, which unpacks them in-register (K4): the frame words as they
-  are, or the host's words14 relayout (with ``slab=True`` a chunk at a
-  time before the tick loop, K4b-slab);
+  are, or the host's words14 relayout (with ``slab=True`` unpacked into
+  time2 words before the tick, K4b-slab);
 * :func:`compact_on_device` (:279-296), :func:`unpack_compact` (:299-305)
   and :func:`collect_hits` (:308-331) turn the slot buffers into hits;
 * :class:`StreamingIngest` (:334-619), the pipelined multi-link ingest.
@@ -107,10 +107,11 @@ def process_words14_feed(W: torch.Tensor, state: torch.Tensor,
     """Direct words14 feed (K4): W is (T, WR, 7, 128) int32 rows from
     ``native.relayout_words14`` (or :func:`pack_words14`), unpacked
     in-register by the kernel.  ``slab=True`` selects the two-stage slab
-    schedule (K4b-slab): each chunk's rows are unpacked at once into a
-    time2 slab in shared memory, then the tick loop runs the time2
-    datapath on it; it needs tc % 16 == 0 and raises ValueError with
-    ``fir_twopass``, as the JAX package does.  Same contract as
+    schedule (K4b-slab): the rows are unpacked into a time2 slab in shared
+    memory (the JAX package a chunk at a time, the kernel a 32-tick stage
+    of its ring at a time), then the tick runs the time2 datapath on it;
+    it needs tc % 16 == 0 and raises ValueError with ``fir_twopass``, as
+    the JAX package does.  Same contract as
     :func:`process_packed_frames_fused`."""
     _check_channels(state, n_channels)
     return process_window(W, state, cfg, tc=tc, k_slots=k_slots,

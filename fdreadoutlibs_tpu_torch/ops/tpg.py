@@ -21,8 +21,8 @@ names): K1 = time2 datapath, K2 = plain datapath, K3 = the FIR family on
 any, K4 = the in-kernel 14-bit unpack (K1-K4 a warp-specialised pipeline
 per 32 channels: a loader-and-front warp, then for FIR a filter-and-hit
 warp, for AbsRS and StandardRS a running-sum warp and a hit warp, for
-SimpleThreshold a hit warp; K3b's fused tick for FIR with
-``fir_packed``); K5 = the two-pass FIR schedule, selected by
+SimpleThreshold a hit warp; K3b's one-thread-per-channel fused tick for
+FIR with ``fir_packed``); K5 = the two-pass FIR schedule, selected by
 ``fir_twopass`` 1 or 2 as ``pallas_tpg.process_window_pallas`` selects
 ``_fir2_kernel`` (the same pipeline with a warp each for front, filter
 and hit; its slabs live in shared memory, so it takes no scratch); and the
@@ -33,7 +33,8 @@ variants of
 int16 arithmetic), K3b
 = ``fir_packed`` (the FIR family with the SWAR carry), K4b-gather =
 ``words14_gather`` and K4b-slab = ``words14_slab`` (the words14 unpack as a
-gather, or as a whole-chunk slab before the time2 tick loop).  With
+gather, or into a slab of time2 words before the time2 tick; both the same
+pipeline, the slab unpacked a stage of the ring at a time).  With
 :data:`SLOT_WORD_CARRY` set, the fused kernels keep a chunk's records in
 registers and shared memory and store them at the chunk's end (the emission
 layout ``pallas_tpg.SLOT_WORD_CARRY``; same outputs).  On CPU
@@ -80,13 +81,19 @@ from .xp import DTYPES, TorchXP, check_supported, make_fx
 # it; K5 has the direct store only, as ``_fir2_kernel``.  No entry sets it:
 # ``probes/slots_ab.py`` and the tests flip and restore it.
 SLOT_WORD_CARRY = False
-# csrc/tpg.cuh: kCarrySlots, kBlock, kMaxSlabBytes, restated so that a launch
-# the kernel would refuse raises here with the sizes in words
+# csrc/tpg.cuh: kCarrySlots, kBlock (K3b's channels per block), kMaxSlabBytes,
+# and the pipeline's kPipeLanes (its channels per block), kPipeStages,
+# kStageWords (one slab) and mbarriers (kPipeBars of 8 B), restated so that
+# a launch the kernel would refuse raises here with the sizes in words
 # (:func:`carry_shared_bytes`); tests/test_torch_kernel_host.py holds them to
 # the C side's own ``tpg_shared_bytes``
 _CARRY_SLOTS = 4
 _BLOCK = 128
 _SHARED_MAX = 232448
+_PIPE_LANES = 32
+_PIPE_STAGES = 4
+_STAGE_WORDS = 32 * _PIPE_LANES
+_PIPE_BARRIER_BYTES = 20 * 8
 
 N_FIR_TAPS = 8
 KSTATE = NSTATE + 1 + N_FIR_TAPS           # + rs_memory_factor + FIR ring rows
@@ -111,8 +118,9 @@ _FAMILY = {Algorithm.SIMPLE_THRESHOLD: 0, Algorithm.ABS_RS: 1,
 _PLAIN, _TIME2, _PACKED14, _GATHER14, _SLAB14 = 0, 1, 2, 3, 4
 # the fir_packed carry's bias (fir.tpg_tick_fir)
 _B = 1 << 15
-# K4b-slab holds a chunk's time2 words of 128 channels in shared memory:
-# tc/2 * 512 B within the 227 KB a block may use
+# K3b on the slab (``fir_packed`` with ``words14_slab``: tpg_slab_kernel) holds
+# a chunk's time2 words of 128 channels in shared memory: tc/2 * 512 B within
+# the 227 KB a block may use (K4b-slab's pipeline holds a stage at a time)
 _SLAB_TC_MAX = 896
 
 # packed 14-bit feed layouts (``packed14=``): the (L, T, 28) frame words of
@@ -622,10 +630,11 @@ def kernels_of(cfg: TPGConfig, time_packed: bool,
     :func:`_options`): K1 (time2 datapath, threshold/RS families), K2
     (plain-sample datapath), K4 (in-kernel 14-bit unpack; K4b-gather or
     K4b-slab for its schedules), K3 (FIR family, on any datapath; K3b with
-    the SWAR carry), K2b alone for an int16 state (every family) — or K5
-    alone, the two-pass FIR schedule (its own C entry, on any datapath).
-    The names stay ROADMAP.md's whatever code runs them: K1 and K2b, like
-    K2-K5, are the pipeline of ``csrc/tpg.cuh``."""
+    the SWAR carry, whose code then runs the whole launch: :func:`kernel_of`),
+    K2b alone for an int16 state (every family) — or K5 alone, the two-pass
+    FIR schedule (its own C entry, on any datapath).  The names stay
+    ROADMAP.md's whatever code runs them: all but K3b are the pipeline of
+    ``csrc/tpg.cuh``."""
     if fir_twopass:
         return ("K5",)
     if int16:
@@ -649,21 +658,24 @@ def kernel_of(cfg: TPGConfig, time_packed: bool,
               words14_slab: bool = False) -> str:
     """The one kernel of ROADMAP.md whose code a launch runs (the effective
     options of :func:`_options`), where :func:`kernels_of` names every
-    kernel on its datapath: K5, K2b, K4b-slab or K4b-gather, K4 for any
-    family on packed words, K3b, K3 for the FIR fused tick on plain and
-    time2 rows, else K1 (time2) or K2 (plain samples) for the threshold
-    families (K1-K5 and K2b the pipeline of ``csrc/tpg.cuh``; K3b and
-    K4b-gather its one-thread-per-channel tick, K4b-slab its slab
-    kernel)."""
+    kernel on its datapath: K5, K2b, K3b whenever ``fir_packed`` is in
+    effect (on any feed: its one-thread-per-channel tick, ``tpg_kernel``,
+    or ``tpg_slab_kernel`` on words14 rows with the slab), K4b-slab or
+    K4b-gather, K4 for any family on packed words, K3 for the FIR fused
+    tick on plain and time2 rows, else K1 (time2) or K2 (plain samples) for
+    the threshold families (all but K3b the pipeline of ``csrc/tpg.cuh``;
+    K4b-slab and K4b-gather its modes on words14 rows)."""
     if fir_twopass:
         return "K5"
     if int16:
         return "K2b"
+    if fir_packed:
+        return "K3b"
     if packed14 is not None:
         return "K4b-slab" if words14_slab else \
             "K4b-gather" if words14_gather else "K4"
     if cfg.algorithm == Algorithm.FIR:
-        return "K3b" if fir_packed else "K3"
+        return "K3"
     return "K1" if time_packed else "K2"
 
 
@@ -679,14 +691,29 @@ def reset_launches() -> None:
 
 
 def carry_shared_bytes(cfg: TPGConfig, tc: int, k_slots: int,
-                       words14_slab: bool = False) -> int:
-    """Dynamic shared memory of one block under :data:`SLOT_WORD_CARRY`:
-    the staging of the slots above the register ceiling (a chunk of tc
-    ticks closes at most ceil(tc / 2) hits per channel, so no more slots
-    are carried), after K4b-slab's time2 slab."""
-    staged = max(0, min(k_slots, (tc + 1) // 2) - _CARRY_SLOTS)
-    slab = tc // 2 * _BLOCK * 4 if words14_slab else 0
-    return slab + staged * record_words(cfg) * _BLOCK * 4
+                       words14_slab: bool = False,
+                       fir_packed: bool = False) -> int:
+    """Shared memory of one block of a fused launch under
+    :data:`SLOT_WORD_CARRY`, as the launch counts it against
+    :data:`_SHARED_MAX` (``csrc/tpg.cuh::fused_shared_bytes``): the staging
+    of the slots above the register ceiling (a chunk of tc ticks closes at
+    most ceil(tc / 2) hits per channel, so no more slots are carried), one
+    column per channel of the block of the kernel that runs.  K3b
+    (``fir_packed``, 128 channels per block): after ``tpg_slab_kernel``'s
+    time2 slab of a chunk on words14 rows with ``words14_slab``.  Every
+    other launch, the pipeline (32 channels per block): after its ring of 4
+    stages of slabs (the feed, s, and sigma for FIR or the running sum's
+    over flags for AbsRS and StandardRS; K4b-slab's time2 slab), and its
+    mbarriers."""
+    staged = max(0, min(k_slots, (tc + 1) // 2) - _CARRY_SLOTS) \
+        * record_words(cfg)
+    if fir_packed:
+        slab = tc // 2 * _BLOCK if words14_slab else 0
+        return 4 * (slab + staged * _BLOCK)
+    slabs = (2 if cfg.algorithm == Algorithm.SIMPLE_THRESHOLD else 3) \
+        + int(words14_slab)
+    return 4 * (slabs * _PIPE_STAGES * _STAGE_WORDS + staged * _PIPE_LANES) \
+        + _PIPE_BARRIER_BYTES
 
 
 # csrc/tpg.cu::tpg_launch's C signature (the staged arms' too), and
@@ -755,14 +782,14 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
     new_state)."""
     T, C = _check_window(feed, state, tc, k_slots, time_packed, packed14)
     carry = bool(SLOT_WORD_CARRY) and not fir_twopass
-    if carry and carry_shared_bytes(cfg, tc, k_slots,
-                                    words14_slab) > _SHARED_MAX:
+    need = carry_shared_bytes(cfg, tc, k_slots, words14_slab,
+                              bool(fir_packed)) if carry else 0
+    if need > _SHARED_MAX:
         raise ValueError(
             f"SLOT_WORD_CARRY stages min(k_slots, ceil(tc / 2)) - "
             f"{_CARRY_SLOTS} slots per thread in shared memory: tc={tc}, "
-            f"k_slots={k_slots} need "
-            f"{carry_shared_bytes(cfg, tc, k_slots, words14_slab)} B > "
-            f"{_SHARED_MAX} B a block may use")
+            f"k_slots={k_slots} need {need} B > {_SHARED_MAX} B a block may "
+            "use")
     taps, tap_exponent, adc_max, sigma_cap, thr_mult = _fir_args(cfg)
     n_chunks = T // tc
     nw = record_words(cfg)
@@ -803,12 +830,12 @@ def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                          f"device, got {feed.device} and {state.device}")
     if not (feed.is_contiguous() and state.is_contiguous()):
         raise ValueError("feed and state must be contiguous")
-    if words14_slab and tc > _SLAB_TC_MAX:
-        raise ValueError(f"words14_slab holds tc/2 x 128 words in shared "
-                         f"memory: tc={tc} > {_SLAB_TC_MAX}")
     fir_packed, words14_gather, words14_slab = _options(
         cfg, state, tc, packed14, fir_twopass, fir_packed, words14_gather,
         words14_slab)
+    if fir_packed and words14_slab and tc > _SLAB_TC_MAX:
+        raise ValueError(f"fir_packed with words14_slab holds tc/2 x 128 "
+                         f"words in shared memory: tc={tc} > {_SLAB_TC_MAX}")
     dev = state.device
     out = _launch(_kernel_fn(fir_twopass), feed, state, cfg, tc, k_slots,
                   time_packed, packed14,
@@ -862,8 +889,9 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
       fir_packed: the SWAR carry (K3b); None or False is off, and it is
         silently off unless the family is FIR and the state int32.
       words14_gather: the words14 unpack as a gather (K4b-gather; with
-        fir_twopass too); words14_slab: the whole chunk unpacked before the
-        tick loop (K4b-slab; tc % 16 == 0, not with fir_twopass).  Both
+        fir_twopass too); words14_slab: the samples unpacked into time2
+        words before the tick (K4b-slab; tc % 16 == 0, not with
+        fir_twopass; with fir_packed on the card tc <= 896).  Both
         take packed14="words14" only; the gather is ignored for the
         unpacked encodings, as in the JAX package.
 

@@ -1,10 +1,10 @@
 """The pipeline's two levers on the card (``csrc/tpg.cuh``,
 ``pipe_kernel``): K3 (the loader-and-front warp and the filter-and-hit
-warp), K5 (a warp each for front, filter and hit), K1, K2, K4 and K2b (the
-threshold families on time2 rows, plain samples, packed words and int16
-samples and state: a loader-and-front warp, for AbsRS a running-sum warp,
-and a hit warp; K4 also runs FIR on packed words and K2b on int16 samples
-as K3's pipeline) against the staged arms (the asynchronous feed staging
+warp), K5 (a warp each for front, filter and hit), K1, K2, K4, K2b and K4b
+(the threshold families on time2 rows, plain samples, packed words, int16
+samples and state, and words14 rows through the gather and the slab: a
+loader-and-front warp, for AbsRS a running-sum warp, and a hit warp; K4,
+K4b and K2b also run FIR as K3's pipeline) against the staged arms (the asynchronous feed staging
 alone: one warp copies the feed into the shared-memory ring ahead of its
 chain and runs the whole fused tick),
 on the same inputs, bit-equal, timed in rotated turns; and the machine code
@@ -14,7 +14,7 @@ chain of register dependences per tick.
     python fdreadoutlibs_tpu_torch/probes/fir_pipe.py [--root DIR]
 
 prints one JSON line.  ``--root`` times the package of another checkout
-instead (an earlier commit's K1-K5 and K2b through
+instead (an earlier commit's K1-K5, K2b and K4b through
 ``tpg.launch_kernel``, whose arguments are the same), so that two commits
 can be compared on one card in one call; the staged arms and the machine
 code are this package's only.  Each case's ``digest`` (of its slots,
@@ -38,9 +38,10 @@ import torch
 T, C, TC, K = 8192, 2560, 256, 4
 SEED = 20260
 # (label, family, feed, fir_twopass, peaks): the feed is "plain" or
-# "time2" rows, packed 14-bit "frames" or "words14" rows, or "int16"
-# samples on the int16 state, of the same samples; the staged arms' cases
-# follow
+# "time2" rows, packed 14-bit "frames" or "words14" rows (K4's decode;
+# "words14-gather" and "words14-slab" the K4b schedules on the same rows),
+# or "int16" samples on the int16 state, of the same samples; the staged
+# arms' cases follow
 CASES = (("K3 FIR plain", "FIR", "plain", 0, False),
          ("K3 FIR time2", "FIR", "time2", 0, False),
          ("K3 FIR plain peaks", "FIR", "plain", 0, True),
@@ -54,7 +55,15 @@ CASES = (("K3 FIR plain", "FIR", "plain", 0, False),
          ("K1 AbsRS time2", "AbsRS", "time2", 0, False),
          ("K1 SimpleThreshold time2", "SimpleThreshold", "time2", 0, False),
          ("K2b AbsRS int16", "AbsRS", "int16", 0, False),
-         ("K2b FIR int16", "FIR", "int16", 0, False))
+         ("K2b FIR int16", "FIR", "int16", 0, False),
+         ("K4 FIR words14", "FIR", "words14", 0, False),
+         ("K4b-gather AbsRS", "AbsRS", "words14-gather", 0, False),
+         ("K4b-gather FIR", "FIR", "words14-gather", 0, False),
+         ("K4b-slab AbsRS", "AbsRS", "words14-slab", 0, False),
+         ("K4b-slab FIR", "FIR", "words14-slab", 0, False),
+         ("K5 FIR words14 twopass 2", "FIR", "words14", 2, False),
+         ("K5 FIR words14-gather twopass 2", "FIR", "words14-gather", 2,
+          False))
 STAGED = (("staged FIR plain", "FIR", "plain"),
           ("staged FIR time2", "FIR", "time2"),
           ("staged AbsRS plain", "AbsRS", "plain"),
@@ -62,14 +71,27 @@ STAGED = (("staged FIR plain", "FIR", "plain"),
           ("staged AbsRS time2", "AbsRS", "time2"),
           ("staged AbsRS int16", "AbsRS", "int16"))
 # the cases held to the plain version on their own feed and state, by
-# family (" int16": on the int16 state); every case must equal its
-# family's (the int16 state's values widened: 14-bit streams stay in range)
+# family and feed (the plain rows where none is named; "int16" on the int16
+# state); every case must equal its family's (the int16 state's values
+# widened: 14-bit streams stay in range)
 REFERENCE = {"FIR": "K3 FIR plain", "AbsRS": "K2 AbsRS plain",
              "SimpleThreshold": "K2 SimpleThreshold plain",
-             "AbsRS int16": "K2b AbsRS int16", "FIR int16": "K2b FIR int16"}
+             "AbsRS int16": "K2b AbsRS int16", "FIR int16": "K2b FIR int16",
+             "AbsRS words14-gather": "K4b-gather AbsRS",
+             "AbsRS words14-slab": "K4b-slab AbsRS",
+             "FIR words14-slab": "K4b-slab FIR"}
 GROUP = 16                 # ticks in a group loop's body (tpg.cuh kGroup)
 # launches of the staged arms' kernels (never the plain version)
 launches = 0
+
+
+def feed_options(feed: str) -> tuple:
+    """(time_packed, packed14, options) of ``tpg.launch_kernel`` for a feed
+    of :data:`CASES`."""
+    layout, _, sched = feed.partition("-")
+    packed14 = layout if layout in ("frames", "words14") else None
+    return (feed == "time2", packed14,
+            {f"words14_{sched}": True} if sched else {})
 
 
 def staged_launch(feed: torch.Tensor, state: torch.Tensor, cfg, tc: int,
@@ -215,18 +237,26 @@ def _is_mul(op: str, ops: list) -> bool:
         and "RZ" not in ops[1:3]
 
 
+# K4b-slab's unpack pass per 16 ticks: two words loaded and one time2 word
+# stored per tick pair and lane
+UNPACK_TRAFFIC = (2 * GROUP, GROUP // 2)
+
+
 def group_loops(insns, min_insns: int = 6 * GROUP) -> list:
     """Every warp's group loop (an inner loop of at least ``min_insns``
     instructions: 16 ticks, that reads its stage from shared memory; not
     the int16 feed's per-lane copy at an odd stride, which loads from
-    global memory and only stores to shared) in address order: {"insns",
-    "per_tick", "chain_per_tick", "lds", "sts", "mul"}."""
+    global memory and only stores to shared), and K4b-slab's unpack pass
+    over 16 ticks (:data:`UNPACK_TRAFFIC`, shorter), in address order:
+    {"insns", "per_tick", "chain_per_tick", "lds", "sts", "mul"}."""
     out = []
     for body in inner_loops(insns):
-        if len(body) < min_insns:
-            continue
         bases = [op.split(".")[0] for _, _, op, _ in body]
         if "LDS" not in bases:
+            continue
+        traffic = (bases.count("LDS"), bases.count("STS"))
+        if len(body) < min_insns and not (traffic == UNPACK_TRAFFIC
+                                          and len(body) >= 2 * GROUP):
             continue
         out.append({"insns": len(body), "per_tick": len(body) / GROUP,
                     "chain_per_tick": chain_length(body) / GROUP,
@@ -258,6 +288,10 @@ REPORTED = {
                             "Li1ELb0ELb1ELb0ELb0E"),
     "staged AbsRS time2": (1, 0, "ThresholdChannel", "Li1ELb0ELb1ELb0ELb0E"),
     "staged AbsRS int16": (5, 0, "ThresholdChannel", "Li1ELb0ELb1ELb1ELb0E"),
+    "K4b-gather AbsRS": (3, 4, "ThresholdChannel", "Li1ELb0ELb1ELb0ELb0E"),
+    "K4b-gather FIR": (3, 1, "FirChannel", "Lb0ELb0ELb1ELb0E"),
+    "K4b-slab AbsRS": (4, 4, "ThresholdChannel", "Li1ELb0ELb1ELb0ELb0E"),
+    "K4b-slab FIR": (4, 1, "FirChannel", "Lb0ELb0ELb1ELb0E"),
 }
 # each warp's group loop by its shared-memory traffic per 16 ticks:
 # (LDS, STS) -> role, and where two roles share it (the threshold front
@@ -268,7 +302,9 @@ REPORTED = {
 # sigma and stores flags and to_add; the running sum loads s and stores
 # over; the hit warps load one or two words per tick and store none (the
 # slots are global); the staged arms load a sample (two words, or one per
-# two ticks) and store none.
+# two ticks) and store none.  K4b-gather's front is K4's; K4b-slab's warp 0 runs the
+# unpack pass (two words in, one time2 word out per tick pair) and K1's
+# front on the time2 slab.
 _FIR_K3 = {(16, 32): "loader + front", (32, 0): "filter + hit"}
 _FIR_K5 = {(16, 32): "loader + front", (32, 32): "filter", (32, 0): "hit"}
 _THR_RS = {(16, 16, False): "loader + front", (16, 16, True): "running sum",
@@ -287,7 +323,15 @@ ROLES = {"K3": _FIR_K3, "K5 twopass 1": _FIR_K5, "K5 twopass 2": _FIR_K5,
          "staged AbsRS plain": {(16, 0): "loader + whole tick"},
          "staged AbsRS packed": {(32, 0): "loader + whole tick"},
          "staged AbsRS time2": {(8, 0): "loader + whole tick"},
-         "staged AbsRS int16": {(16, 0): "loader + whole tick"}}
+         "staged AbsRS int16": {(16, 0): "loader + whole tick"},
+         "K4b-gather AbsRS": {(32, 16): "loader + front",
+                              (16, 16): "running sum", (32, 0): "hit"},
+         "K4b-gather FIR": {(32, 32): "loader + front",
+                            (32, 0): "filter + hit"},
+         "K4b-slab AbsRS": {UNPACK_TRAFFIC: "unpack", (8, 16): "front",
+                            (16, 16): "running sum", (32, 0): "hit"},
+         "K4b-slab FIR": {UNPACK_TRAFFIC: "unpack", (8, 32): "front",
+                          (32, 0): "filter + hit"}}
 
 
 def _role(roles: dict, loop: dict):
@@ -402,12 +446,12 @@ def run(device=None, trials: int = 3, reps: int = 10,
     runs, family = {}, {}
     for label, fam, feed, twopass, peaks in CASES:
         cfg = replace(cfgs[fam], track_peaks=peaks)
-        f, state = feed_state(fam, feed)
-        packed = feed if feed in ("frames", "words14") else None
-        runs[label] = (lambda cfg=cfg, f=f, state=state,
-                       time2=feed == "time2", packed=packed, tp=twopass:
+        f, state = feed_state(fam, feed.partition("-")[0])
+        time2, packed, opts = feed_options(feed)
+        runs[label] = (lambda cfg=cfg, f=f, state=state, time2=time2,
+                       packed=packed, tp=twopass, opts=opts:
                        tpg.launch_kernel(f, state, cfg, TC, K, time2, packed,
-                                         fir_twopass=tp))
+                                         fir_twopass=tp, **opts))
         family[label] = (fam, peaks)
     here = Path(tpg.__file__).resolve().parents[1] == \
         Path(__file__).resolve().parents[1]
@@ -425,10 +469,11 @@ def run(device=None, trials: int = 3, reps: int = 10,
     torch.cuda.synchronize()
     if check_plain:
         for key, label in REFERENCE.items():
-            fam, _, dtype = key.partition(" ")
-            f, state = feed_state(fam, dtype or "plain")
+            fam, _, feed = key.partition(" ")
+            f, state = feed_state(fam, (feed or "plain").partition("-")[0])
+            _, packed, opts = feed_options(feed or "plain")
             plain = tpg.process_window_plain(f, state, cfgs[fam], TC, K,
-                                             False)
+                                             False, packed, **opts)
             for g, w in zip(results[label], plain):
                 if not torch.equal(g, w):
                     raise AssertionError(f"{label} differs from its plain "
@@ -464,7 +509,7 @@ def main(argv=None) -> int:
                          "this one)")
     ap.add_argument("--trials", type=int, default=3)
     ap.add_argument("--no-plain", action="store_true",
-                    help="skip the plain versions' check (~20 s)")
+                    help="skip the plain versions' check (~30 s)")
     args = ap.parse_args(argv)
     from fdreadoutlibs_tpu_torch.ops import _build
     from fdreadoutlibs_tpu_torch.utils.preflight import (device_preflight,

@@ -1,11 +1,11 @@
 """The hand-written CUDA kernel against its plain version on the card (K1,
 K2 and K3: both datapaths, all four families; K4: both packed layouts, all
-four families; the pipeline of K1-K5 and K2b launched 50 times each for
-races (K2b at an even and an odd feed stride), and the staged arms; that
-K1 and K2b launch the pipeline, by ``tpg.kernel_of`` and the machine
-code's kernel names; K5: fir_twopass 1 and 2 on every
-encoding, also against K3, and through the words14 gather; K2b, K3b,
-K4b-gather, K4b-slab and
+four families; the pipeline of K1-K5, K2b and K4b launched 50 times
+each for races (K2b at an even and an odd feed stride), and the staged
+arms; that K1, K2b and K4b launch the pipeline and K3b its own kernels, by
+``tpg.kernel_of`` and the machine code's kernel names; K5: fir_twopass 1
+and 2 on every encoding, also against K3, and through the words14 gather;
+K2b, K3b, K4b-gather, K4b-slab (also at a 1024-tick chunk) and
 the float running sum; the ``SLOT_WORD_CARRY`` layout on every one of those
 datapaths; the probes' kernels P1-P3), and the APA app (every feed),
 ``StreamingIngest``, the WIB2 and
@@ -80,20 +80,40 @@ def tpg_functions():
     return set(fir_pipe._FUNC.findall(_build.sass("tpg")))
 
 
+# csrc/tpg.cuh's encodings of the kernels that run the pipeline alone
+_PIPE_ENCODING = {"K1": 1, "K2b": 5, "K4b-gather": 3, "K4b-slab": 4}
+
+
 def _assert_pipeline(functions, kernel, cfg, carry):
-    """K1 (encoding 1) and K2b (encoding 5) are instantiated only as the
-    pipeline (``pipe_kernel``, the threshold mode, K3's for K2b's FIR),
-    with this emission layout, and no one-thread-per-channel tick
-    (``tpg_kernel``) of their encoding and families is left to fall back
-    to."""
-    enc = {"K1": 1, "K2b": 5}[kernel]
+    """K1 (encoding 1), K2b (5), K4b-gather (3) and K4b-slab (4) are
+    instantiated only as the pipeline (``pipe_kernel``, the threshold mode,
+    K3's for FIR), with this emission layout, and no one-thread-per-channel
+    tick (``tpg_kernel``; ``tpg_slab_kernel`` for the slab) of their
+    encoding is left to fall back to but K3b's (FirPackedChannel)."""
+    enc = _PIPE_ENCODING[kernel]
     mode = 1 if cfg.algorithm == Algorithm.FIR else 4
     tail = f"ELb{int(carry)}EEEvN3tpg6ParamsE"
     assert any(re.search(rf"pipe_kernelILi{enc}ELi{mode}E", f)
                and f.endswith(tail) for f in functions), (kernel, mode)
-    back = [f for f in functions if re.search(rf"tpg_kernelI\w*ELi{enc}ELb", f)
-            and (enc == 5 or "ThresholdChannel" in f)]
+    back = [f for f in functions
+            if (re.search(rf"tpg_kernelI\w*ELi{enc}ELb", f)
+                or (enc == 4 and "tpg_slab_kernel" in f))
+            and "FirPackedChannel" not in f]
     assert back == [], back
+
+
+def _assert_k3b(functions, kw, carry):
+    """K3b's launch (``fir_packed``) reaches its one-thread-per-channel
+    kernel on its encoding: ``tpg_slab_kernel`` on words14 rows with the
+    slab, ``tpg_kernel`` with FirPackedChannel on the others."""
+    if kw.get("words14_slab"):
+        pat = rf"tpg_slab_kernelINS_16FirPackedChannelI\w*?EELb{int(carry)}E"
+    else:
+        enc = 3 if kw.get("words14_gather") else \
+            2 if kw.get("packed14") else 1 if kw["time_packed"] else 0
+        pat = (rf"tpg_kernelINS_16FirPackedChannelI\w*?EELi{enc}"
+               rf"ELb{int(carry)}E")
+    assert any(re.search(pat, f) for f in functions), (pat, kw)
 
 
 @pytest.mark.parametrize("time_packed", [True, False],
@@ -497,9 +517,10 @@ def test_variant_kernels_match_plain(card, tpg_functions, cfg, C, T, tc):
     """K4b-gather and K4b-slab on words14 rows, K2b on the int16 state and
     feed, and K3b (fir_packed) on every encoding for FIR, each against its
     plain version; the float running sum rides every one of them.  C = 208
-    leaves a partly empty block and a half warp.  K2b's launch counts as
-    K2b (``tpg.kernel_of``) and reaches the pipeline (the machine code's
-    kernel names)."""
+    leaves a partly empty block and a half warp.  Each launch counts as its
+    kernel (``tpg.kernel_of``: K3b whenever fir_packed is in effect), and
+    K2b's and K4b's reach the pipeline, K3b's its own kernels (the machine
+    code's kernel names)."""
     k = 4
     adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
     state = tpg.pack_state(st, C, device=card)
@@ -537,6 +558,9 @@ def test_variant_kernels_match_plain(card, tpg_functions, cfg, C, T, tc):
             before_fn[fn] + 1, (fn, kw)
         if int16:
             assert fn == "K2b"
+        if fn == "K3b":
+            _assert_k3b(tpg_functions, kw, carry=False)
+        else:
             _assert_pipeline(tpg_functions, fn, cfg, carry=False)
         want = tpg.process_window_plain(feed, s0, cfg, tc, k, **kw)
         for g, w in zip(got, want):
@@ -544,10 +568,63 @@ def test_variant_kernels_match_plain(card, tpg_functions, cfg, C, T, tc):
         assert int(got[1].max()) > k, kw            # drops exercised
 
 
+@pytest.mark.parametrize("cfg", [CONFIGS[2], FIR_CONFIGS[1]],
+                         ids=["AbsRS", "FIR-peaks-gated"])
+@pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (160, 288, 144)])
+def test_k4b_pipeline_is_deterministic(card, cfg, C, T, tc):
+    """K4b-gather and K4b-slab (its unpack pass and K1's front on warp 0)
+    for AbsRS (three warps) and FIR (K3's two), each launched 50 times on
+    the same words14 rows, give bit-identical slots, nclose and state every
+    time, equal to the plain version; tc = 144 ends each chunk on a 16-tick
+    stage."""
+    k = 4
+    adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
+    state = tpg.pack_state(st, C, device=card)
+    want = tpg.process_window_plain(torch.from_numpy(adcs).to(card), state,
+                                    cfg, tc, k, False)
+    assert int(want[1].max()) > k                 # drops exercised
+    for opts in (dict(words14_gather=True), dict(words14_slab=True)):
+        runs = [tpg.process_window(w14, state, cfg, tc, k, False, "words14",
+                                   **opts) for _ in range(50)]
+        torch.cuda.synchronize()
+        for got in runs:
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), opts
+
+
+@pytest.mark.parametrize("cfg", [CONFIGS[2], FIR_CONFIGS[0]],
+                         ids=["AbsRS", "FIR"])
+def test_k4b_slab_long_chunk_matches_plain(card, cfg):
+    """K4b-slab at tc = 1024, above the 896 ticks whose time2 words of 128
+    channels a block's shared memory holds: the pipeline unpacks a stage at
+    a time, so the launch is taken (direct store and carry layout) and
+    equals the plain version; K3b on the slab (``fir_packed``), which holds
+    the chunk, is refused before it launches."""
+    k = 4
+    C, T, tc = 2560, 2048, 1024
+    adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
+    state = tpg.pack_state(st, C, device=card)
+    want = tpg.process_window_plain(w14, state, cfg, tc, k, False, "words14",
+                                    words14_slab=True)
+    assert int(want[1].max()) > k
+    direct = tpg.process_window(w14, state, cfg, tc, k, False, "words14",
+                                words14_slab=True)
+    with slots_ab.slot_word_carry():
+        carry = tpg.process_window(w14, state, cfg, tc, k, False, "words14",
+                                   words14_slab=True)
+    for g, w, c in zip(direct, want, carry):
+        assert torch.equal(g, w)
+        assert torch.equal(c, w)
+    if cfg.algorithm == Algorithm.FIR:
+        with pytest.raises(ValueError, match="tc=1024 > 896"):
+            tpg.process_window(w14, state, cfg, tc, k, False, "words14",
+                               fir_packed=True, words14_slab=True)
+
+
 @pytest.mark.parametrize("fir_twopass", [1, 2])
 @pytest.mark.parametrize("C,T,tc", [(2560, 1024, 256), (208, 1000, 200)])
 def test_k5_gather_matches_plain(card, C, T, tc, fir_twopass):
-    """K5 decoding words14 rows through K4b-gather's warp shuffle."""
+    """K5 decoding words14 rows through K4b-gather's decode."""
     cfg = FIR_CONFIGS[1]
     adcs, st, w14 = _variant_inputs(cfg, C, T, tc, 4, card)
     state = tpg.pack_state(st, C, device=card)
@@ -569,9 +646,9 @@ def test_slot_word_carry_matches_plain(card, tpg_functions, cfg, C, T, tc,
     """``SLOT_WORD_CARRY`` on every datapath the flag reaches (K1-K4, K2b,
     K3b, K4b), against the plain version and the direct store: k = 4 fills
     the register slots, k = 6 the shared-memory staging; C = 208 leaves a
-    partly empty block and a half warp.  K5 ignores the flag.  K1's and
-    K2b's carry launches reach the pipeline (``tpg.kernel_of`` and the
-    machine code's kernel names)."""
+    partly empty block and a half warp.  K5 ignores the flag.  K1's, K2b's
+    and K4b's carry launches reach the pipeline, K3b's its own kernels
+    (``tpg.kernel_of`` and the machine code's kernel names)."""
     adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
     state = tpg.pack_state(st, C, device=card)
     padded = np.pad(adcs, ((0, 0), (0, -C % 64)), constant_values=900)
@@ -605,7 +682,9 @@ def test_slot_word_carry_matches_plain(card, tpg_functions, cfg, C, T, tc,
                 before[name] + 1, (name, kw)
         fn = tpg.kernel_of(cfg, kw["time_packed"], kw.get("packed14"),
                            int16=int16, **opts)
-        if fn in ("K1", "K2b"):
+        if fn == "K3b":
+            _assert_k3b(tpg_functions, kw, carry=True)
+        elif fn in _PIPE_ENCODING:
             _assert_pipeline(tpg_functions, fn, cfg, carry=True)
         want = tpg.process_window_plain(feed, s0, cfg, tc, k, **kw)
         for g, w, d in zip(got, want, direct):

@@ -53,6 +53,38 @@ def test_sass_loop_and_chain():
     assert fir_pipe.group_loops(insns) == []       # no 16-tick body
 
 
+def test_unpack_pass_is_read_below_a_group_loop_length():
+    """K4b-slab's unpack pass over 16 ticks (32 shared loads, 8 shared
+    stores) is shorter than a tick loop and still read; another loop of
+    that length is not."""
+    body = "".join(f"        /*{0x20 + 0x10 * i:04x}*/                   "
+                   f"{op} ;\n" for i, op in enumerate(
+                       ["LDS R4, [R2+0x10]"] * 32 + ["STS [R2], R4"] * 8
+                       + ["IADD3 R2, R2, 0x4, RZ"] * 4))
+    end = 0x20 + 0x10 * 44
+    text = SASS.split("        /*0020*/")[0] + body + \
+        f"        /*{end:04x}*/              @!P0 BRA 0x20 ;\n" \
+        f"        /*{end + 0x10:04x}*/                   EXIT ;\n"
+    insns = fir_pipe.sass_kernels(text)[NAME]
+    got = fir_pipe.group_loops(insns)
+    assert [(x["lds"], x["sts"], x["insns"]) for x in got] == \
+        [(32, 8, 45)]
+    assert fir_pipe._role(fir_pipe.ROLES["K4b-slab AbsRS"], got[0]) == \
+        "unpack"
+    other = text.replace("STS [R2], R4", "STS [R2+0x4], R4", 1) \
+        .replace("LDS R4, [R2+0x10]", "IADD3 R4, R2, 0x1, RZ", 1)
+    assert fir_pipe.group_loops(fir_pipe.sass_kernels(other)[NAME]) == []
+
+
+def test_feed_options_name_the_schedules():
+    assert fir_pipe.feed_options("words14-slab") == \
+        (False, "words14", {"words14_slab": True})
+    assert fir_pipe.feed_options("words14-gather") == \
+        (False, "words14", {"words14_gather": True})
+    assert fir_pipe.feed_options("time2") == (True, None, {})
+    assert fir_pipe.feed_options("frames") == (False, "frames", {})
+
+
 def test_a_loop_that_reads_no_shared_memory_is_no_group_loop():
     """The int16 feed's copy at an odd stride (global loads, shared
     stores) is a loop of the front warp but not its group loop."""
@@ -122,7 +154,11 @@ def test_reported_kernels_are_instantiated():
         assert len([n for n in names if needle.search(n)]) == 1, label
         warps = 1 if mode == 0 else 2 if mode == 1 or \
             label.endswith("SimpleThreshold") else 3
-        assert len(set(fir_pipe.ROLES[label].values())) == warps, label
+        # K4b-slab's warp 0 runs the unpack pass beside its front
+        roles = set(fir_pipe.ROLES[label].values()) - {"unpack"}
+        assert len(roles) == warps, label
+        assert ("unpack" in fir_pipe.ROLES[label].values()) == \
+            (enc == tpg._SLAB14), label
 
 
 def test_chain_floor_is_the_longest_warp():

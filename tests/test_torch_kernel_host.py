@@ -369,10 +369,12 @@ def test_fir_pipeline_packed_source_matches_plain(host_kernel, name,
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_kernel_variants_match_plain(host_kernel, name):
-    """K4b-gather and K4b-slab on words14 rows, K2b on the int16 state and
-    feed, and with fir_packed K3b on every encoding, against their plain
-    versions; C = 208 leaves a partly empty block (the slab's barrier) and
-    a half warp (the gather's shuffle mask)."""
+    """K4b-gather and K4b-slab on words14 rows (the pipeline), K2b on the
+    int16 state and feed, and with fir_packed K3b on every encoding (its
+    one-thread-per-channel kernels), against their plain versions; C = 208
+    leaves a partly empty block (the pipeline's last warp of one 7-word
+    group and 16 idle lanes; K3b's slab barrier) and a half warp (K3b's
+    shuffle mask on the gather)."""
     cfg = CONFIGS[name]
     k = 2
     for C, T, tc in [(256, 320, 64), (208, 192, 48)]:
@@ -410,6 +412,43 @@ def test_kernel_variants_match_plain(host_kernel, name):
                                   **opts)
                 for g, w in zip(got, want):
                     assert torch.equal(g, w), (C, time2, packed14, opts)
+
+
+@pytest.mark.parametrize("sched", ["gather", "slab"])
+@pytest.mark.parametrize("name", [n for n in CONFIGS if n.startswith("FIR")])
+def test_k3b_words14_kernels_match_plain(host_kernel, name, sched):
+    """K3b on words14 rows through the gather and the slab: ``fir_packed``
+    keeps the one-thread-per-channel kernels (``tpg_kernel``'s warp
+    shuffle, ``tpg_slab_kernel``'s chunk slab), against the plain version,
+    at a partly empty block and a half warp (C = 208) and a chunk with a
+    16-tick tail; at tc = 1024 the chunk slab of 128 channels outgrows a
+    block's shared memory and the slab kernel refuses the launch, where
+    K4b-slab's pipeline, a stage at a time, takes the same chunk."""
+    cfg = CONFIGS[name]
+    k = 2
+    opts = {f"words14_{sched}": True}
+    for C, T, tc in [(208, 192, 48), (256, 320, 64)]:
+        feeds, state = _inputs(cfg, C, T, tc, k)
+        w14 = feeds[3][0]
+        want = tpg.process_window_plain(w14, state, cfg, tc, k, False,
+                                        "words14", fir_packed=True, **opts)
+        got = tpg._launch(host_kernel, w14, state, cfg, tc, k, False,
+                          "words14", 0, None, fir_packed=True, **opts)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (C, tc)
+        assert int(want[1].max()) > k
+    if sched == "slab":
+        feeds, state = _inputs(cfg, 64, 1024, 1024, k)
+        w14 = feeds[3][0]
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tpg._launch(host_kernel, w14, state, cfg, 1024, k, False,
+                        "words14", 0, None, fir_packed=True, **opts)
+        want = tpg.process_window_plain(w14, state, cfg, 1024, k, False,
+                                        "words14", **opts)
+        got = tpg._launch(host_kernel, w14, state, cfg, 1024, k, False,
+                          "words14", 0, None, **opts)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("fir_twopass", [1, 2])
@@ -484,35 +523,91 @@ def test_slot_word_carry_any_k(host_kernel, carry):
                           None, 0, None)
         for g, w in zip(got, want):
             assert torch.equal(g, w), k
-    assert tpg.carry_shared_bytes(cfg, 64, 1000) == 28 * 3 * 128 * 4
+    # the pipeline (K2): 32 channels' staging after its ring of 4 stages of
+    # 3 slabs and its 20 mbarriers
+    assert tpg.carry_shared_bytes(cfg, 64, 1000) == \
+        28 * 3 * 32 * 4 + 3 * 4 * 4096 + 160
     big = torch.zeros((1024, C), dtype=torch.int32)
     with pytest.raises(ValueError, match="SLOT_WORD_CARRY"):
         tpg._launch(host_kernel, big, state, cfg, 1024, 1000, False, None, 0,
                     None)
 
 
-@pytest.mark.parametrize("name", ["AbsRS", "FIR"])
+@pytest.mark.parametrize("name", ["Simple", "AbsRS", "FIR",
+                                  "FIR-peaks-gated"])
 def test_carry_shared_bytes_matches_source(host_lib, name):
     """The wrapper's refusal and the launch's own are one rule:
     ``tpg.carry_shared_bytes`` and ``tpg._SHARED_MAX`` against the C entry
-    built from ``csrc/tpg.cuh``'s constants (record words 3 and 2), below,
-    at and above the register ceiling, with and without the slab."""
+    built from ``csrc/tpg.cuh``'s constants (``fused_shared_bytes``: record
+    words 3 and 2, the pipeline's slabs of each family), below, at and
+    above the register ceiling, on plain rows and on words14 rows with the
+    slab (the pipeline's time2 slab), and for FIR with ``fir_packed`` (K3b:
+    ``tpg_kernel``, and ``tpg_slab_kernel``'s chunk slab)."""
     cfg = CONFIGS[name]
     fn = host_lib.tpg_shared_bytes
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_longlong
     most = ctypes.c_int(0)
+    packed = (False, True) if cfg.algorithm == Algorithm.FIR else (False,)
+    args = (tpg._FAMILY[cfg.algorithm], int(cfg.track_peaks))
     for tc in (2, 31, 32, 200, 256, 512, 2048):
         for k in (1, 3, 4, 5, 17, 155, 156, 1000, 100000):
             for slab in (False, True):
-                want = fn(tpg.record_words(cfg), tc, k, int(slab), 1,
-                          ctypes.byref(most))
-                assert tpg.carry_shared_bytes(cfg, tc, k, slab) == want, \
-                    (tc, k, slab)
+                for fir_packed in packed:
+                    enc = tpg._SLAB14 if slab else tpg._PLAIN
+                    want = fn(tc, k, enc, *args, int(fir_packed), 1,
+                              ctypes.byref(most))
+                    assert tpg.carry_shared_bytes(cfg, tc, k, slab,
+                                                  fir_packed) == want, \
+                        (tc, k, slab, fir_packed)
     assert most.value == tpg._SHARED_MAX
-    # without the carry layout only the slab is left
-    assert fn(3, 256, 1000, 1, 0, None) == 128 * tpg._BLOCK * 4
-    assert fn(3, 256, 1000, 0, 0, None) == 0
+    # without the carry layout the ring (with K4b-slab's time2 slabs) and
+    # its mbarriers are left, or K3b's slab of a chunk
+    slabs = 2 if cfg.algorithm == Algorithm.SIMPLE_THRESHOLD else 3
+    assert fn(256, 1000, tpg._SLAB14, *args, 0, 0, None) == \
+        (slabs + 1) * 4 * 4096 + 160
+    assert fn(256, 1000, tpg._PLAIN, *args, 0, 0, None) == \
+        slabs * 4 * 4096 + 160
+    if cfg.algorithm == Algorithm.FIR:
+        assert fn(256, 1000, tpg._SLAB14, *args, 1, 0, None) == \
+            128 * tpg._BLOCK * 4
+        assert fn(256, 1000, tpg._GATHER14, *args, 1, 0, None) == 0
+
+
+# the fused launch's other encodings: time2 rows (K1), packed words (K4),
+# words14 rows through the gather (K4b-gather), int16 samples (K2b; the
+# csrc/tpg.cuh encoding kPlain16, which fir_packed does not take)
+OTHER_ENCODINGS = {"time2": tpg._TIME2, "packed14": tpg._PACKED14,
+                   "gather14": tpg._GATHER14, "int16": 5}
+
+
+@pytest.mark.parametrize("enc", list(OTHER_ENCODINGS))
+@pytest.mark.parametrize("name", ["Simple", "AbsRS", "FIR",
+                                  "FIR-peaks-gated"])
+def test_carry_shared_bytes_every_encoding(host_lib, name, enc):
+    """``tpg.carry_shared_bytes`` on the encodings that stage no time2 slab
+    equals the C entry's count for that encoding (``fused_shared_bytes``:
+    the pipeline's ring of ``pipe_slabs`` slabs, the slab count the launch
+    itself takes, and its staging; K3b's ``tpg_kernel`` with
+    ``fir_packed``), with and without the carry layout."""
+    cfg = CONFIGS[name]
+    fn = host_lib.tpg_shared_bytes
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_longlong
+    code = OTHER_ENCODINGS[enc]
+    packed = (False, True) if cfg.algorithm == Algorithm.FIR and \
+        enc != "int16" else (False,)
+    args = (tpg._FAMILY[cfg.algorithm], int(cfg.track_peaks))
+    for tc in (2, 32, 200, 2048):
+        for k in (1, 4, 5, 156, 100000):
+            for fir_packed in packed:
+                want = fn(tc, k, code, *args, int(fir_packed), 1, None)
+                assert tpg.carry_shared_bytes(cfg, tc, k, False,
+                                              fir_packed) == want, \
+                    (tc, k, fir_packed)
+    slabs = 2 if cfg.algorithm == Algorithm.SIMPLE_THRESHOLD else 3
+    assert fn(256, 1000, code, *args, 0, 0, None) == \
+        slabs * 4 * 4096 + 160
 
 
 @pytest.mark.parametrize("ilp", [1, 2, 4, 8, 16])

@@ -120,14 +120,24 @@ def test_flag_is_read_at_launch(fir_twopass):
 @pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
 def test_carry_shared_bytes(cfg):
     """The staging holds the slots above the register ceiling, and never
-    more than a chunk can close; a k that needs more than a block's shared
-    memory raises before any launch."""
+    more than a chunk can close, after the pipeline's ring and mbarriers
+    (K4b-slab's time2 slabs in the ring; K3b with ``fir_packed`` has no
+    ring but its 128 channels' columns, after the chunk's slab on the
+    slab); a k that needs more than a block's shared memory raises before
+    any launch."""
     nw = tpg.record_words(cfg)
-    assert tpg.carry_shared_bytes(cfg, 256, 4) == 0
-    assert tpg.carry_shared_bytes(cfg, 256, 6) == 2 * nw * 128 * 4
-    assert tpg.carry_shared_bytes(cfg, 32, 1000) == 12 * nw * 128 * 4
+    slabs = 2 if cfg.algorithm == Algorithm.SIMPLE_THRESHOLD else 3
+    ring = slabs * 4 * 4096 + 160
+    assert tpg.carry_shared_bytes(cfg, 256, 4) == ring
+    assert tpg.carry_shared_bytes(cfg, 256, 6) == ring + 2 * nw * 32 * 4
+    assert tpg.carry_shared_bytes(cfg, 32, 1000) == ring + 12 * nw * 32 * 4
     assert tpg.carry_shared_bytes(cfg, 256, 4, words14_slab=True) == \
-        128 * 128 * 4
+        ring + 4 * 4096
+    if cfg.algorithm == Algorithm.FIR:
+        assert tpg.carry_shared_bytes(cfg, 256, 6, fir_packed=True) == \
+            2 * nw * 128 * 4
+        assert tpg.carry_shared_bytes(cfg, 256, 4, words14_slab=True,
+                                      fir_packed=True) == 128 * 128 * 4
     state = torch.zeros((tpg.KSTATE, 64), dtype=torch.int32)
     feed = torch.zeros((2048, 64), dtype=torch.int32)
     fn = _Recorder()

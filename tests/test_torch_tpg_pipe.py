@@ -1,7 +1,10 @@
 """The threshold families' warp-specialised pipeline (``csrc/tpg.cuh``,
 ``pipe_kernel`` in its kPipeThreshold mode: K1 on time2 rows, K2 on plain
 samples, K4 on frame words and words14 rows; K2b, every family on the
-int16 state, in that mode and, for FIR, in K3's), built for the host
+int16 state, in that mode and, for FIR, in K3's; K4b-gather and K4b-slab,
+every family on words14 rows through the gather and the slab, in those
+modes, the slab also at a chunk of one and a half stages and at a chunk of
+1024 ticks), built for the host
 (``tests/torch_host_lib.py``)
 and called through the wrapper's own marshalling (``ops/tpg._launch``),
 held directly against the JAX package's
@@ -9,12 +12,13 @@ held directly against the JAX package's
 inputs, over two consecutive windows whose split falls inside a pulse
 (state carried through both packages): slots, nclose (drops included) and
 the carried state, bit for bit (tolerance 0: an integer pipeline), with
-the direct store and, on one case of K1 and of K2b, the ``SLOT_WORD_CARRY``
-emission layout.  The
+the direct store and, on one case of K1, of K2b and of each K4b schedule,
+the ``SLOT_WORD_CARRY`` emission layout.  The
 JAX fused words14 kernel keeps state and slots in the words14 lane
 positions, the port in canonical channel order; both are compared in
 canonical order."""
 
+import collections
 import ctypes
 
 import jax.numpy as jnp
@@ -28,7 +32,7 @@ from fdreadoutlibs_tpu.ops import pallas_tpg as jtpg
 from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
 from fdreadoutlibs_tpu.ops.reference import process_window_reference
 from fdreadoutlibs_tpu_torch.ops import tpg
-from fdreadoutlibs_tpu_torch.ops.ingest import pack_words14
+from fdreadoutlibs_tpu_torch.ops.ingest import decode_slots, pack_words14
 from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
                                              time2_words, tpg_stream)
 from test_torch_tpg import jax_outputs_to_port
@@ -74,6 +78,26 @@ K2B_CASES = {
 # carry layout
 K1_RUNS = [(n, False) for n in K1_CASES] + [("AbsRS", True)]
 K2B_RUNS = [(n, False) for n in K2B_CASES] + [("FIR", True)]
+# K4b on words14 rows (128 channels: 8 word groups of one words14 row)
+K4B_CASES = {
+    "SimpleThreshold": TPGConfig(algorithm=Algorithm.SIMPLE_THRESHOLD,
+                                 threshold=120),
+    "AbsRS": TPGConfig.from_raw("AbsRS", threshold=150),
+    "AbsRS-rs_float": TPGConfig.from_raw("AbsRS", threshold=150,
+                                         rs_float=True),
+    "StandardRS": TPGConfig(algorithm=Algorithm.STANDARD_RS, threshold=150),
+    "FIR": TPGConfig.from_raw("FIR", threshold=5),
+}
+# (schedule, case, SLOT_WORD_CARRY, window ticks, tc): every case of both
+# schedules with the direct store at TC, one of each with the carry layout,
+# and the slab at tc = 48 (a 32-tick stage, then a ragged 16-tick one) and
+# at tc = 1024 (above the 896 ticks a chunk-wide slab of 128 channels could
+# hold in a block's shared memory)
+K4B_RUNS = [(sched, n, False, T // 2, TC) for sched in ("gather", "slab")
+            for n in K4B_CASES] + \
+    [("gather", "AbsRS", True, T // 2, TC), ("slab", "FIR", True, T // 2, TC),
+     ("slab", "AbsRS", False, 144, 48), ("slab", "StandardRS", True, 144, 48),
+     ("slab", "AbsRS", False, 1024, 1024)]
 
 
 @pytest.fixture(scope="module")
@@ -84,17 +108,55 @@ def host_kernel():
     return fn
 
 
-def _seeded(C, seed, fir=False):
-    """The test stream (the FIR family's with ``fir``), and a pulse on
-    channel 2 (memoryless for the RS families) that ends on the first
-    window's last tick: the second window's first tick closes it from the
-    carried state alone."""
+def _seeded(C, seed, fir=False, n=T // 2, tc=TC):
+    """The test stream of two windows of n ticks in chunks of tc (the FIR
+    family's with ``fir``), and a pulse on channel 2 (memoryless for the RS
+    families) that ends on the first window's last tick: the second
+    window's first tick closes it from the carried state alone."""
     if fir:
-        adcs, rmf = fir_stream(T, C, TC, K, seed), 0
+        adcs, rmf = fir_stream(2 * n, C, tc, K, seed), 0
     else:
-        adcs, rmf = tpg_stream(T, C, TC, K, seed=seed)
-    adcs[T // 2 - 4:T // 2, 2] += 2000
+        adcs, rmf = tpg_stream(2 * n, C, tc, K, seed=seed)
+    adcs[n - 4:n, 2] += 2000
     return adcs, seed_chanstate(init_chanstate(C), adcs[0], rmf)
+
+
+def _rs_float_channels(cfg, win, st, state, jstate, slots, nclose, tc,
+                       share=0.9):
+    """For rs_float, where XLA on the CPU contracts the interpret-mode
+    kernel's 0.8 * rs + s into one FMA, which the JAX package's own oracle
+    does not (ROADMAP.md section 3): the pipeline equals the oracle on every
+    channel (its state; nclose, the oracle's closes counted per chunk and
+    channel; the slots, decoded as ``ingest.decode_slots`` does, the first
+    K of those closes), and the channels where its state equals the Pallas
+    kernel's (more than ``share`` of them) are compared with that kernel.
+    Returns (those channels, the oracle's state after the window); every
+    channel for the other configurations."""
+    C = state.shape[1]
+    if not cfg.rs_float:
+        return np.arange(C), st
+    hits, st = process_window_reference(win, st, cfg)
+    got = tpg.unpack_state(state)
+    for key in jtpg._STATE_KEYS:
+        np.testing.assert_array_equal(got[key], np.asarray(st[key]),
+                                      err_msg=key)
+    chunk = hits["end_tick"] // tc
+    want_n = np.zeros(tuple(nclose.shape), dtype=np.int32)
+    np.add.at(want_n, (chunk, hits["channel"]), 1)
+    np.testing.assert_array_equal(nclose.numpy(), want_n)
+    # hits are in (end_tick, channel) order: a chunk's closes of a channel
+    # come in tick order, and its K slots keep the first K
+    seen = collections.Counter()
+    kept = np.zeros(len(hits), dtype=bool)
+    for i, key in enumerate(zip(chunk.tolist(), hits["channel"].tolist())):
+        kept[i] = seen[key] < slots.shape[1]
+        seen[key] += 1
+    decoded, dropped = decode_slots(slots, nclose, C)
+    np.testing.assert_array_equal(decoded, hits[kept])
+    assert dropped == int((~kept).sum())
+    ok = np.nonzero((state == jstate).all(dim=0).numpy())[0]
+    assert len(ok) > int(C * share)
+    return ok, st
 
 
 def _windows_match_pallas(host_kernel, cfg, C, adcs, st, time2=False,
@@ -102,11 +164,7 @@ def _windows_match_pallas(host_kernel, cfg, C, adcs, st, time2=False,
     """The two windows of ``adcs`` through the Pallas kernel (interpret
     mode) and the host-built pipeline, state carried through both: plain
     samples, time2 words (``time2``) or int16 samples and state (``dtype``
-    np.int16).  For rs_float, XLA on the CPU contracts the interpret-mode
-    kernel's 0.8 * rs + s into one FMA, which the JAX package's own oracle
-    does not (ROADMAP.md section 3): there the pipeline equals the oracle's
-    state on every channel and the Pallas kernel on every channel where
-    that kernel agrees with the oracle."""
+    np.int16).  For rs_float, as :func:`_rs_float_channels` says."""
     stack = jtpg.pack_state(st, C, dtype=dtype)
     state = tpg.state_from_jax(np.asarray(stack), C)
     closes = 0
@@ -124,15 +182,8 @@ def _windows_match_pallas(host_kernel, cfg, C, adcs, st, time2=False,
             cfg, TC, K, time2, None, 0, None)
         js, jn = jax_outputs_to_port(js, jn, C)
         jstate = tpg.state_from_jax(np.asarray(stack), C)
-        ok = np.arange(C)
-        if cfg.rs_float:
-            _, st = process_window_reference(win, st, cfg)
-            got = tpg.unpack_state(state)
-            for key in jtpg._STATE_KEYS:
-                np.testing.assert_array_equal(got[key], np.asarray(st[key]),
-                                              err_msg=key)
-            ok = np.nonzero((state == jstate).all(dim=0).numpy())[0]
-            assert len(ok) > C * 9 // 10
+        ok, st = _rs_float_channels(cfg, win, st, state, jstate, slots,
+                                    nclose, TC)
         np.testing.assert_array_equal(slots.numpy()[..., ok], js[..., ok])
         np.testing.assert_array_equal(nclose.numpy()[:, ok], jn[:, ok])
         np.testing.assert_array_equal(state.numpy()[:, ok],
@@ -212,3 +263,55 @@ def test_k4_pipeline_matches_pallas(host_kernel, name):
             assert torch.equal(states[layout], jstate), layout
         closes = max(closes, int(jn.max()))
     assert closes > K
+
+
+@pytest.mark.parametrize(
+    "sched,name,carry,n,tc", K4B_RUNS,
+    ids=[f"{sc}-{nm}" + ("-carry" if c else "") + (f"-tc{tc}" if tc != TC
+                                                  else "")
+         for sc, nm, c, _, tc in K4B_RUNS])
+def test_k4b_pipeline_matches_pallas(host_kernel, sched, name, carry, n, tc,
+                                     monkeypatch):
+    """K4b-gather and K4b-slab: the pipeline on words14 rows (the gather:
+    K4's decode of the staged rows; the slab: warp 0 unpacks each staged
+    stage into a time2 slab and runs K1's front on it) against the Pallas
+    kernel's words14 schedules on the same rows (``words14_gather=True``;
+    ``words14_slab=True`` with unroll 2), two windows of n ticks with the
+    state carried; rs_float as :func:`_rs_float_channels` says (the
+    contraction depends on the interpret-mode kernel's unrolling: the
+    gather's, unroll 1, meets it on 16 of these 128 channels, so there the
+    Pallas kernel is held on more than three quarters of them, and the
+    oracle's slots, nclose and state on all of them)."""
+    monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", carry)
+    cfg = K4B_CASES[name]
+    C = 128
+    adcs, st = _seeded(C, seed=C + 23, fir=cfg.algorithm == Algorithm.FIR,
+                       n=n, tc=tc)
+    pos = jtpg.words14_positions(C)
+    stack = jtpg.pack_state(st, C, positions=pos)
+    state = tpg.state_from_jax(np.asarray(stack), C, positions=pos)
+    opts = {f"words14_{sched}": True}
+    closes = 0
+    for w in range(2):
+        win = adcs[w * n:(w + 1) * n]
+        words = frame_words(win)
+        js, jn, stack = jtpg.process_window_pallas(
+            jnp.asarray(native.relayout_words14(words)), stack, cfg, tc=tc,
+            k_slots=K, interpret=True, words14=True,
+            unroll=2 if sched == "slab" else 1, **opts)
+        slots, nclose, state = tpg._launch(
+            host_kernel, pack_words14(torch.from_numpy(words.view(np.int32))),
+            state, cfg, tc, K, False, "words14", 0, None, **opts)
+        js, jn = jax_outputs_to_port(js, jn, int(pos.max()) + 1)
+        js, jn = js[..., pos], jn[:, pos]
+        jstate = tpg.state_from_jax(np.asarray(stack), C, positions=pos)
+        ok, st = _rs_float_channels(cfg, win, st, state, jstate, slots,
+                                    nclose, tc,
+                                    0.75 if sched == "gather" else 0.9)
+        np.testing.assert_array_equal(slots.numpy()[..., ok], js[..., ok])
+        np.testing.assert_array_equal(nclose.numpy()[:, ok], jn[:, ok])
+        np.testing.assert_array_equal(state.numpy()[:, ok],
+                                      jstate.numpy()[:, ok])
+        assert int((js[:, :, -1] != 0).sum()) > 0
+        closes = max(closes, int(jn.max()))
+    assert closes > K                              # drops exercised

@@ -110,3 +110,28 @@ def test_schedules_in_launch_accounting():
     assert set(tpg.KERNELS) >= {"K2b", "K3b", "K4b-slab", "K4b-gather"}
     tpg.reset_launches()
     assert set(tpg.process_window.kernel_launches) == set(tpg.KERNELS)
+
+
+def test_fir_packed_counts_as_k3b():
+    """With fir_packed in effect the launch runs K3b's code on any feed
+    (``tpg_kernel``, ``tpg_slab_kernel`` on the slab): ``kernel_of`` names
+    K3b as the function, and ``kernels_of`` keeps the datapath beside it;
+    without it, or where it is off (not FIR), the words14 schedules are
+    K4b's own."""
+    fir = CONFIGS["FIR"]
+    feeds = [(True, None, {}), (False, None, {}), (False, "frames", {}),
+             (False, "words14", {}),
+             (False, "words14", {"words14_gather": True}),
+             (False, "words14", {"words14_slab": True})]
+    for time2, packed14, opts in feeds:
+        assert tpg.kernel_of(fir, time2, packed14, fir_packed=True,
+                             **opts) == "K3b", (time2, packed14, opts)
+        assert tpg.kernels_of(fir, time2, packed14, fir_packed=True,
+                              **opts)[-1] == "K3b"
+    assert tpg.kernels_of(fir, False, "words14", fir_packed=True,
+                          words14_slab=True) == ("K4b-slab", "K3b")
+    assert tpg.kernel_of(fir, False, "words14", words14_slab=True) == \
+        "K4b-slab"
+    assert tpg.kernel_of(fir, False, "words14", words14_gather=True) == \
+        "K4b-gather"
+    assert tpg.kernel_of(fir, False, "frames") == "K4"
