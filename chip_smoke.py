@@ -10,11 +10,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 2. build   — compiles the kernel library's translation units
    (``fdreadoutlibs_tpu_torch/csrc/tpg*.cu``, one ``nvcc`` each, all at
    once) and summarizes ``ptxas -v`` (registers, stack, spills; the FIR
-   kernels side by side: the pipeline's K3 on plain, time2, packed and
-   words14 rows (the gather and the slab), K2b's FIR on int16 rows, K5 and
-   staged arm, and K3b; every instantiation of the threshold families'
+   kernels side by side: the pipeline's K3 and K3b on plain, time2, packed
+   and words14 rows (the gather and the slab), K2b's FIR on int16 rows, K5
+   and staged arm; every instantiation of the threshold families'
    pipeline, K1, K2, K4, K4b-gather, K4b-slab and K2b with both emission
-   layouts and their staged arms; it fails if a K4b instantiation
+   layouts and their staged arms; it fails if a K4b or K3b instantiation
    spills);
 3. kernel  — the hand-written kernel against its plain PyTorch version on
    the card at T=8192 ticks x 2560 channels (tc=256, K=4): K1 (time2
@@ -95,16 +95,19 @@ if they do not load, so no host stage is timed on the numpy fallback.
 Phase 3 also holds K5 (fir_twopass 1 and 2, peaks off and on, plain and
 time2 datapaths) bit-equal to K3 and to the plain result K3 was held to on
 the same inputs, and to K5's own plain version once per schedule, and
-times both in the same call (every kernel but K3b is the pipeline of
+times both in the same call (every kernel is the pipeline of
 ``csrc/tpg.cuh``; phase 8 reads each of its warps' group loops in the
 machine code, K4b-slab's unpack pass too, and gives the chain floor beside
 the time).  It then holds
 the variants of the fused tick on the same inputs, each timed beside the
-kernel it varies and held once to its own plain version: K3b
-(``fir_packed``) on K3's plain (peaks off and on), time2 and words14 feeds,
-equal to K3; K2b on the four families' ADCs as int16, equal to K2's (K3's)
+kernel it varies: K3b (``fir_packed``) on K3's plain (peaks off and on)
+and time2 feeds and on K4's frame words and words14 rows (K4's decode, the
+gather and the slab, the slab also at tc = 1024), each equal to K3's mode
+on the same feed and to its own plain version, timed in turns with K3's
+mode; K2b on the four families' ADCs as int16, equal to K2's (K3's)
 plain result; K4b-slab (four families) and K4b-gather (AbsRS, FIR) on K4's
-words14 rows, equal to K4's plain result.
+words14 rows, equal to K4's plain result; each held once to its own plain
+version.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels (each with the launches of its kernel function on the main
@@ -295,18 +298,15 @@ THRESHOLD_KERNEL = {"0": "K2", "1": "K1", "2": "K4", "3": "K4b-gather",
 # a kernel's name: its template, its channel type and arguments, and the
 # emission layout (the last template argument)
 _PIPE = re.compile(r"pipe_kernelILi(\d)ELi(\d)EN\w*?\d+(FirChannel|"
-                   r"ThresholdChannel)I(\w+?)EELb(\d)EEEv")
-_FUSED = re.compile(r"tpg_(?:slab_)?kernelINS_(?:10FirChannel|"
-                    r"16FirPackedChannel)ILb(\d)ELb(\d)ELb(\d)E"
-                    r"(?:Lb(\d)E)?")
+                   r"FirPackedChannel|ThresholdChannel)I(\w+?)EELb(\d)EEEv")
 _CARRY = re.compile(r"Lb(\d)EEEvN3tpg6ParamsE$")
 _THRESHOLDS = {"0": "SimpleThreshold", "1": "AbsRS", "2": "StandardRS"}
 
 
 def pipe_name(name: str) -> str | None:
     """A short name of a pipeline kernel ("K2 AbsRS plain gated floor
-    rs_float carry", "K2b AbsRS int16 floor", "K3 packed14 peaks", ...), or
-    None for another kernel."""
+    rs_float carry", "K2b AbsRS int16 floor", "K3 packed14 peaks", "K3b
+    slab14 peaks carry", ...), or None for another kernel."""
     m = _PIPE.search(name)
     if m is None:
         return None
@@ -321,7 +321,9 @@ def pipe_name(name: str) -> str | None:
         words += [w for w, v in (("gated", gated), ("floor", floor),
                                  ("rs_float", rs_float)) if v == "1"]
     else:
-        gated, peaks, avx, _ = (v for _, v in flags)
+        if channel == "FirPackedChannel":
+            words[0] = "K3b"
+        gated, peaks, avx = (v for _, v in flags[:3])
         words += [w for w, v in (("gated", gated), ("peaks", peaks),
                                  ("naive", "0" if avx == "1" else "1"))
                   if v == "1"]
@@ -332,25 +334,22 @@ def pipe_name(name: str) -> str | None:
 
 
 def fir_registers(kernels: dict) -> dict:
-    """The FIR kernels: the pipeline's (K3 on plain, time2, packed and
-    words14 rows through the gather and the slab, K2b's FIR on int16 rows
-    in K3's mode, K5 on every encoding, the staged arm; direct store and
-    carry), and K3b's fused tick: {kernel: {"peaks" or "no peaks": (min
-    regs, max regs, max spill B)}}."""
+    """The FIR kernels, all the pipeline's (K3 and K3b on plain, time2,
+    packed and words14 rows through the gather and the slab, K2b's FIR on
+    int16 rows in K3's mode, K5 on every encoding, the staged arm; direct
+    store and carry): {kernel: {"peaks" or "no peaks": (min regs, max regs,
+    max spill B)}}."""
     out = {}
     for name, (regs, spill) in kernels.items():
-        m, mp = _FUSED.search(name), _PIPE.search(name)
-        if mp is not None and mp.group(3) == "FirChannel":
-            enc, mode, _, args, carry = mp.groups()
-            kern = ("K2b (K3's mode)" if enc == "5" else PIPE_MODES[mode]) \
-                + (f" {ENCODINGS[enc]}" if enc in ("2", "3", "4") else "") + \
-                (" carry" if carry == "1" else "")
-            peaks = re.findall(r"Lb(\d)E", args)[1]
-        elif m is not None and "FirPackedChannel" in name and \
-                m.group(4) != "1" and _CARRY.search(name).group(1) == "0":
-            kern, peaks = "K3b", m.group(2)
-        else:
+        mp = _PIPE.search(name)
+        if mp is None or mp.group(3) == "ThresholdChannel":
             continue
+        enc, mode, channel, args, carry = mp.groups()
+        kern = ("K2b (K3's mode)" if enc == "5" else
+                "K3b" if channel == "FirPackedChannel" else PIPE_MODES[mode]) \
+            + (f" {ENCODINGS[enc]}" if enc in ("2", "3", "4") else "") + \
+            (" carry" if carry == "1" else "")
+        peaks = re.findall(r"Lb(\d)E", args)[1]
         key = "peaks" if peaks == "1" else "no peaks"
         lo, hi, sp = out.setdefault(kern, {}).get(key, (999, 0, 0))
         out[kern][key] = (min(lo, regs), max(hi, regs), max(sp, spill))
@@ -657,37 +656,70 @@ def check_variant(kern, label, run, wants, plain_fn, base, work, flush,
            case=(run, want) if plain_ms else None)
 
 
+def k3b_cases(k3, k4, flush, record):
+    """Phase 3, K3b (``fir_packed``: K3's mode of the pipeline with the
+    packed front and back) on every feed K3's mode takes at APA width:
+    K3's plain rows (peaks off and on) and time2 rows, K4's frame words and
+    words14 rows (K4's decode, the gather and the slab), and the slab again
+    at tc = 1024, a chunk whose time2 words of 128 channels would not fit a
+    block's shared memory.  Each case is bit-equal to K3's mode on the same
+    feed and options and to its own plain version, and is timed in turns
+    with K3's mode (K3b, K3, K3b, K3; 10 launches each)."""
+    _, state, cfg, *_ = k3["FIR plain"]
+    w14 = k4["FIR words14"][0]
+    words14 = dict(time_packed=False, packed14="words14")
+    cases = [(src, feed, st, c, TC, dict(time_packed=t2))
+             for src, (feed, st, c, t2, *_) in k3.items()] + [
+        ("FIR frames", k4["FIR frames"][0], state, cfg, TC,
+         dict(time_packed=False, packed14="frames")),
+        ("FIR words14", w14, state, cfg, TC, words14),
+        ("FIR words14 gather", w14, state, cfg, TC,
+         dict(words14, words14_gather=True)),
+        ("FIR words14 slab", w14, state, cfg, TC,
+         dict(words14, words14_slab=True)),
+        ("FIR words14 slab tc=1024", w14, state, cfg, 1024,
+         dict(words14, words14_slab=True))]
+    for src, feed, st, c, tc, kw in cases:
+        label = f"{src} fir_packed"
+
+        def run(feed=feed, st=st, c=c, tc=tc, kw=kw):
+            return tpg.launch_kernel(feed, st, c, tc, K, fir_packed=True,
+                                     **kw)
+
+        def k3_run(feed=feed, st=st, c=c, tc=tc, kw=kw):
+            return tpg.launch_kernel(feed, st, c, tc, K, **kw)
+        got, want_k3 = run(), k3_run()
+        t0 = time.perf_counter()
+        want = tpg.process_window_plain(feed, st, c, tc, K, fir_packed=True,
+                                        **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(check_equal(f"{label} vs K3's mode", got, want_k3),
+                  check_equal(label, got, want))
+        info = check_strong(label, got)
+        turns = [time_kernel(fn, 10, flush) for fn in (run, k3_run) * 2]
+        ms, k3_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+        print(f"  K3b {label}: bit-equal to K3's mode on the same feed and "
+              f"to its plain version ({info}); K3b {ms:.4f} ms/batch, K3 "
+              f"{k3_ms:.4f} ms/batch in turns in this call (x"
+              f"{ms / k3_ms:.4f}), plain {plain_ms:.1f} ms/batch",
+              flush=True)
+        decode = "packed14" if "packed14" in kw else \
+            "time2" if kw["time_packed"] else "plain"
+        record("K3b", label, err, ms, plain_ms,
+               kernel_work(feed, c, decode, T_APA, C_APA),
+               base=("K3", k3_ms), case=(run, want))
+
+
 def variant_kernels(dev, plain, case_ms, k3, k4, flush, record, reported):
     """Phase 3, the variants of _tpg_kernel on the inputs above: K3b (the
-    SWAR carry) on K3's feeds, held to K3's result; K2b on the same ADCs
-    as int16, held to K2's (K3's) plain result (14-bit streams stay in
+    SWAR carry) on K3's and K4's feeds (``k3b_cases``); K2b on the same
+    ADCs as int16, held to K2's (K3's) plain result (14-bit streams stay in
     int16 range); K4b-slab (four families) and K4b-gather (AbsRS, FIR) on
     K4's words14 rows, held to the plain result K4 was held to.  Each is
     held to its own plain version once and timed beside the kernel it
     varies."""
-    for src in ("FIR plain", "FIR plain peaks", "FIR time2"):
-        feed, state, cfg, time2, want_k3, k3_ms, _ = k3[src]
-        check_variant(
-            "K3b", f"{src} fir_packed",
-            lambda feed=feed, state=state, cfg=cfg, time2=time2:
-                tpg.launch_kernel(feed, state, cfg, TC, K, time2,
-                                  fir_packed=True),
-            {"K3": want_k3},
-            lambda feed=feed, state=state, cfg=cfg, time2=time2:
-                tpg.process_window_plain(feed, state, cfg, TC, K, time2,
-                                         fir_packed=True),
-            ("K3", k3_ms),
-            kernel_work(feed, cfg, "time2" if time2 else "plain", T_APA,
-                        C_APA), flush, record, reported)
-    feed, k4_ms = k4["FIR words14"]
-    a, cfg, state, want = plain["FIR plain"]
-    check_variant(
-        "K3b", "FIR words14 fir_packed",
-        lambda: tpg.launch_kernel(feed, state, cfg, TC, K, False, "words14",
-                                  fir_packed=True),
-        {"K3 plain": want}, None, ("K4 words14", k4_ms),
-        kernel_work(feed, cfg, "packed14", T_APA, C_APA), flush, record,
-        reported)
+    k3b_cases(k3, k4, flush, record)
     for fam in ("SimpleThreshold", "AbsRS", "StandardRS", "FIR"):
         a, cfg, state, want = plain[f"{fam} plain"]
         feed16 = torch.from_numpy(a.astype(np.int16)).to(dev)
@@ -1415,7 +1447,7 @@ def pipeline_rows(kernels: dict, summary: dict, mhz: float) -> dict:
     longest chain of register dependences per tick, and the time that chain
     alone takes at the dependent-op latency P1 measured (the chain floor),
     for every instantiation the probe reports (``fir_pipe.REPORTED``).
-    Returns the extra keys of the K1-K5, K2b and K4b rows, with their
+    Returns the extra keys of the K1-K5, K2b, K3b and K4b rows, with their
     cycles per tick per thread (``roofline.summarize``)."""
     pipe = fir_pipe.pipe_sass(_build.sass("tpg"))
     floors = fir_pipe.chain_floor_ms(pipe, summary["tpg_cycles_per_dep_op"],
@@ -1428,8 +1460,8 @@ def pipeline_rows(kernels: dict, summary: dict, mhz: float) -> dict:
                           for role, r in roles.items()}))
     out = {}
     for k, label in (("K1", "K1 AbsRS"), ("K2", "K2 AbsRS"), ("K3", "K3"),
-                     ("K4", "K4 AbsRS"), ("K5", "K5 twopass 2"),
-                     ("K2b", "K2b AbsRS"),
+                     ("K3b", "K3b"), ("K4", "K4 AbsRS"),
+                     ("K5", "K5 twopass 2"), ("K2b", "K2b AbsRS"),
                      ("K4b-slab", "K4b-slab AbsRS"),
                      ("K4b-gather", "K4b-gather AbsRS")):
         r = summary["kernels"][f"{k} ({kernels[k]['timed']})"]
@@ -1677,9 +1709,9 @@ def main() -> int:
             _build.load(lib_name)
         if "tpg" in _build.build_log:
             regs = ptxas_kernels(_build.build_log["tpg"])
-            print("  ptxas FIR kernels: the pipeline (K3 on plain, time2, "
-                  "packed, gather14 and slab14 rows, K2b's FIR, K5, the "
-                  "staged arm), K3b (registers min, max, spill stores B):",
+            print("  ptxas FIR kernels, the pipeline (K3 and K3b on plain, "
+                  "time2, packed, gather14 and slab14 rows, K2b's FIR, K5, "
+                  "the staged arm; registers min, max, spill stores B):",
                   json.dumps(fir_registers(regs)))
             thr_regs = threshold_registers(regs)
             print("  ptxas threshold pipeline, every instantiation (K1, K2, "
@@ -1687,7 +1719,8 @@ def main() -> int:
                   "staged arms; registers, spill stores B):",
                   json.dumps(thr_regs))
             k4b = {n: v for n, v in regs.items()
-                   if re.search(r"pipe_kernelILi[34]E", n)}
+                   if re.search(r"pipe_kernelILi[34]E", n)
+                   and "FirPackedChannel" not in n}
             print(f"  ptxas K4b (pipe_kernel on gather14 and slab14 rows): "
                   f"{len(k4b)} instantiations, registers "
                   f"{min(r for r, _ in k4b.values())}-"
@@ -1696,6 +1729,17 @@ def main() -> int:
             if any(sp for _, sp in k4b.values()):
                 raise AssertionError("K4b instantiations spill: " + json.dumps(
                     {pipe_name(n): v for n, v in k4b.items() if v[1]}))
+            k3b = {n: v for n, v in regs.items() if "FirPackedChannel" in n}
+            if not k3b or any(pipe_name(n) is None for n in k3b):
+                raise AssertionError("K3b is not (only) pipe_kernel: "
+                                     + json.dumps(sorted(k3b)))
+            k3b = {pipe_name(n): v for n, v in k3b.items()}
+            print(f"  ptxas K3b (pipe_kernel, K3's mode with the packed "
+                  f"front and back): {len(k3b)} instantiations (registers, "
+                  "spill stores B):", json.dumps(dict(sorted(k3b.items()))))
+            if any(sp for _, sp in k3b.values()):
+                raise AssertionError("K3b instantiations spill: " + json.dumps(
+                    {n: v for n, v in k3b.items() if v[1]}))
             pipe_spills = {pipe_name(n): v[1] for n, v in regs.items()
                            if pipe_name(n) is not None}
             print(f"  ptxas pipeline: {len(pipe_spills)} instantiations, "

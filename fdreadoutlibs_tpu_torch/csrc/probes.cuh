@@ -43,8 +43,7 @@
 
 namespace probes {
 
-// Threads per block of the kernels that take one thread per channel: the
-// TPG kernels' (csrc/tpg.cuh::kBlock).
+// Threads per block of the kernels that take one thread per channel.
 constexpr int kBlock = 128;
 
 __device__ __forceinline__ int global_thread() {

@@ -18,9 +18,8 @@
 //   packed_minmax packed_simd with the clip as __vmaxs2(__vmins2(d, 1), -1)
 //                on the per-half difference (P2 records what the per-half
 //                minimum and maximum become on this card).
-// One launch walks the whole window (as csrc/tpg.cuh::tpg_kernel walks its
-// chunks), 16 ticks at a time: a group's loads go out before its chain so
-// their latency overlaps it.  m and acc are updated in place.
+// One launch walks the whole window, 16 ticks at a time: a group's loads
+// go out before its chain so their latency overlaps it.  m and acc are updated in place.
 //
 // What bounds it: the chain's latency times the ticks.  2560 channels are 20
 // blocks of 128 threads on 132 SMs (10 blocks when packed), so packing

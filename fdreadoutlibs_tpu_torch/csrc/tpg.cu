@@ -23,8 +23,7 @@ bool make_params(Params& p, const void* feed, int feed_stride, int encoding,
       packed ? (n_channels % 16 || groups_per_row <= 0 || group_outer < 0 ||
                 group_inner < 0 || word_stride <= 0 || feed_stride <= 0)
              : feed_stride < n_channels;
-  // K4b-slab unpacks whole groups of ticks (K3b's slab kernel refuses a
-  // chunk whose slab does not fit a block's shared memory at its launch)
+  // K4b-slab unpacks whole groups of ticks
   const bool bad_slab = encoding == kSlab14 && ticks_per_chunk % kGroup;
   if (n_channels <= 0 || n_chunks <= 0 || ticks_per_chunk <= 0 ||
       k_slots <= 0 || bad_layout || bad_slab ||
@@ -73,8 +72,8 @@ bool make_params(Params& p, const void* feed, int feed_stride, int encoding,
 // its end (ops/tpg.py::SLOT_WORD_CARRY; the launch is refused when that
 // staging does not fit a block's shared memory).
 //
-// tpg_launch: K1-K4 and K2b, K3b, K4b, the fused tick of every family
-// (all but K3b the pipeline of tpg.cuh).
+// tpg_launch: K1-K4 and K2b, K3b, K4b, the fused tick of every family,
+// each a mode of the pipeline of tpg.cuh.
 extern "C" int tpg_launch(const void* feed, int feed_stride, int encoding,
                           int groups_per_row, int group_outer,
                           int group_inner, int word_stride, int n_chunks,
@@ -239,18 +238,18 @@ extern "C" int tpg_threshold_staged_launch(
 
 // The shared memory one block of tpg_launch's kernel takes for these
 // arguments, in bytes, as the launch counts it (tpg.cuh::
-// fused_shared_bytes: the pipeline, or K3b's kernels with fir_packed), and
-// through `max_bytes` the most a launch may take before it is refused.  No
-// launch.
+// fused_shared_bytes: the pipeline's ring, its carry staging and its
+// mbarriers; fir_packed takes K3's), and through `max_bytes` the most a
+// launch may take before it is refused.  No launch.
 extern "C" long long tpg_shared_bytes(int ticks_per_chunk, int k_slots,
                                       int encoding, int family,
-                                      int track_peaks, int fir_packed,
-                                      int carry, int* max_bytes) {
+                                      int track_peaks, int carry,
+                                      int* max_bytes) {
   Params p{};
   p.ticks_per_chunk = ticks_per_chunk;
   p.k_slots = k_slots;
-  if (max_bytes != nullptr) *max_bytes = kMaxSlabBytes;
-  const Variant v{family, false, false, track_peaks != 0, false,
-                  fir_packed != 0, false};
+  if (max_bytes != nullptr) *max_bytes = kMaxSharedBytes;
+  const Variant v{family, false, false, track_peaks != 0, false, false,
+                  false};
   return fused_shared_bytes(p, v, encoding, carry != 0);
 }

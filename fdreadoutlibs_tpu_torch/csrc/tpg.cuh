@@ -23,9 +23,9 @@
 //       (kPipeThreshold; kPipeK3 for FIR) with its roles on the int16
 //       arithmetic and its loader staging int16 samples;
 //   K3b the FIR family with the SWAR carry (fir_packed, :466-501, :522-525,
-//       :547-548, :561-574; fir.py:278-332): the one-thread-per-channel
-//       tick (tpg_kernel; tpg_slab_kernel on words14 rows with the slab),
-//       the only kernel left outside the pipeline;
+//       :547-548, :561-574; fir.py:278-332): K3's pipeline (kPipeK3) with
+//       a packed front and a packed back (FirPackedChannel), on every
+//       encoding K3 takes but int16;
 //   K4b the words14 unpack as a gather (_unpack14_rows_gather :268-305,
 //       words14_gather; also in K5) and as a slab of time2 words before the
 //       time2 tick (_unpack14_slab :308-329 and :445-463, words14_slab):
@@ -45,36 +45,19 @@
 // process_window_twopass_plain) run those very functions on torch tensors,
 // and the two are compared bit for bit.
 //
-// Design (the fused tick of tpg_kernel and tpg_slab_kernel: K3b alone; the
-// pipeline has its own note below).  One thread owns one channel; consecutive threads
-// take consecutive channels, so every feed load and slot store of a warp is
-// coalesced.  The grid is ceil(C/128) blocks of 128 threads.  Inside a thread a
-// serial loop runs over chunks and, within a chunk, over groups of kGroup = 16
-// ticks with the whole live ChanState in registers: the group's feed values (8
-// time2 words, 16 samples, or 16 pairs of packed words) are loaded before its
-// ticks so their latency overlaps the chain.  The ticks of a group are expanded
-// at compile time (std::integer_sequence), so the FIR ring of the previous 8
-// samples is 8 registers addressed by constant indices: tick u of a group reads
-// ring[(u + j) % 8] oldest-first and overwrites ring[u % 8] with its sample —
-// nothing moves per tick, as the Pallas kernel's tuple rotation. kGroup is a
-// multiple of 8, so the ring is back in canonical order after every full group;
-// a chunk's ragged tail group (tc % 16 ticks) is guarded per tick and followed
-// by one explicit rotation.  A close writes its record (2 or 3 words:
-// [charge<<16|tover, (peak<<16|ptime,) end+1]) with direct stores to
-// slots[chunk][nclose][w][c] while nclose < K; nclose counts every close (drops
-// included), is stored at each chunk end and restarts at 0.  The slot buffer
-// must arrive zeroed (an empty slot is a zero end word).  State is read once
-// and written back once, in place; rows outside the family's live set pass
-// through.
-//
-// What bounds it on this card: the per-tick dependency chain (RS: two
-// frugal updates, the division and the hit chain; FIR: the IQR and pedestal
-// frugal updates, the 8-tap filter, the threshold product and the hit
-// chain) at 2 B (time2, int16), 4 B (plain) or 1.75 B (packed) read per
-// sample.  A few thousand channels fill only a few dozen of the 132 SMs, so
-// the time of one launch is the chain's latency times the ticks; later work
-// acts on that (more channels per launch, fewer threads per block, two
-// ticks of ILP).
+// Outputs, every kernel.  A close writes its record (2 or 3 words:
+// [charge<<16|tover, (peak<<16|ptime,) end+1]) into
+// slots[chunk][nclose][w][c] while nclose < K; nclose counts every close
+// (drops included), is stored at each chunk end and restarts at 0.  The slot
+// buffer must arrive zeroed (an empty slot is a zero end word).  State is
+// read once and written back once, in place; rows outside the family's live
+// set pass through.  The FIR ring of the previous 8 samples is 8 registers
+// addressed by constant indices: tick u of a group of kGroup = 16 ticks
+// (expanded at compile time) reads ring[(u + j) % 8] oldest-first and
+// overwrites ring[u % 8] with its sample, so nothing moves per tick, as the
+// Pallas kernel's tuple rotation; kGroup is a multiple of 8, so the ring is
+// back in canonical order after every full group, and a ragged tail of n
+// ticks is followed by one rotation (realign_ring).
 //
 // K4's layouts.  Channel c = 16g + r is class r of 7-word group g: its
 // sample is bits [14r % 32, +14) of words j = 14r/32 and j + 1, extracted
@@ -89,19 +72,14 @@
 // consecutive words per tick; the words14 layout spreads them over 7 rows.
 //
 // K4b-gather (kGather14): a warp's 32 channels are two whole groups, 14
-// words per tick, read once per warp: in the pipeline the loader stages
-// them and every lane takes its two words from the staged row (PipeFeed);
-// in K3b's tpg_kernel lanes 0-13 load them, one word each, and every lane
-// takes its low and high word with __shfl_sync — the gather of
-// _unpack14_rows_gather as a warp shuffle; the funnel shift is K4's.
+// words per tick, read once per warp: the pipeline's loader stages them and
+// every lane takes its two words from the staged row (PipeFeed); the funnel
+// shift is K4's.
 //
 // K4b-slab (kSlab14): the pipeline's loader stages the words14 rows as
 // K4's does; warp 0 unpacks each staged stage in one pass into a time2 slab
-// of the ring (16 rows x 32 words) and runs K1's front on it, so shared
-// memory does not grow with tc.  K3b's tpg_slab_kernel instead unpacks a
-// whole chunk of its 128 channels into a time2 slab, tc/2 rows x 128 words
-// (64 KB at tc = 256, dynamic shared memory above 48 KB), and after a
-// barrier each thread runs the time2 tick loop on its column.  tc % 16 == 0.
+// of the ring (16 rows x 32 words) and runs K1's front (K3's for FIR) on
+// it, so shared memory does not grow with tc.  tc % 16 == 0.
 //
 // K2b (kI16 channel types, encoding kPlain16): the I16Fx arithmetic.  CUDA
 // promotes short to int, so every op that I16Fx does in int16 and that can
@@ -110,10 +88,13 @@
 // int16_t, slots and nclose int32; the pipeline's slabs hold the values
 // sign-extended to int32.
 //
-// K3b (FirPackedChannel): the IQR quantiles and accumulators ride as two
-// words of biased 16-bit halves and charge/tover/prev_was_over as one, so
-// the loop carries 3 registers where K3 carries 7; the frugal updates run in
-// the biased domain (acc_bias = 1 << 15).  State in and out stays canonical.
+// K3b (FirPackedChannel): K3's two warps, each carrying its part of the
+// SWAR carry.  Warp 0's front (FirPackedFront) holds the IQR quantiles and
+// their accumulators as two words of biased 16-bit halves, and runs the two
+// quantile chains in the biased domain (acc_bias = 1 << 15); warp 1's back
+// (FirPackedBack) holds charge, prev_was_over and tover as one word and
+// takes charge and tover out of it each tick.  State in and out stays
+// canonical: each warp packs its rows at load and unpacks them at store.
 //
 // SLOT_WORD_CARRY (CarrySlots, the units csrc/tpg_carry_*.cu; replaces the
 // trace-time layout pallas_tpg.py:67, :506-516, :575-581 and _emit_records
@@ -157,7 +138,6 @@
 
 namespace tpg {
 
-constexpr int kBlock = 128;
 constexpr int kGroup = 16;   // ticks per unrolled group; a multiple of kTaps
 constexpr int kTaps = 8;
 
@@ -180,9 +160,8 @@ enum Family : int {
 };
 
 // The shared memory a block may use (227 KB): the bound of every launch's
-// dynamic shared memory, K3b's time2 slab of one chunk (tpg_slab_kernel,
-// tc/2 rows of kBlock words) among them.
-constexpr int kMaxSlabBytes = 232448;
+// dynamic shared memory and mbarriers.
+constexpr int kMaxSharedBytes = 232448;
 
 struct Params {
   const void* feed;      // time2 words, samples or packed 14-bit words
@@ -392,20 +371,10 @@ __host__ __device__ inline int carry_limit(const Params& p) {
 // one column for each of its `lanes` channels.
 __host__ __device__ constexpr long long carry_stage_words(int limit,
                                                           int n_words,
-                                                          int lanes = kBlock) {
+                                                          int lanes) {
   return static_cast<long long>(limit > kCarrySlots ? limit - kCarrySlots
                                                     : 0) *
          n_words * lanes;
-}
-
-// Dynamic shared memory of one block of tpg_kernel and tpg_slab_kernel (K3b)
-// in bytes: tpg_slab_kernel's time2 slab of one chunk, then the carry
-// layout's staging.  A launch that needs more than kMaxSlabBytes is refused
-// (fused_shared_bytes below gives the rule of every fused launch).
-inline long long block_shared_bytes(const Params& p, int n_words, bool slab,
-                                    bool carry) {
-  return 4LL * ((slab ? p.ticks_per_chunk / 2 * kBlock : 0) +
-                (carry ? carry_stage_words(carry_limit(p), n_words) : 0));
 }
 
 // SLOT_WORD_CARRY: the chunk's records as kCarrySlots x kWords registers,
@@ -414,7 +383,7 @@ inline long long block_shared_bytes(const Params& p, int n_words, bool slab,
 // staging in shared memory (word j of slot kCarrySlots + i at
 // stage[(i * kWords + j) * kStride], kStride the block's channels); all
 // stored once at the chunk's end.
-template <int kWords, int kStride = kBlock>
+template <int kWords, int kStride>
 struct CarrySlots {
   int32_t* base;
   int32_t* stage;
@@ -912,43 +881,75 @@ __device__ __forceinline__ int pack_halves(int lo, int hi) {
                           (static_cast<uint32_t>(hi) << 16));
 }
 
-// fir.py::tpg_tick_fir with the packed SWAR carry (K3b, fir_packed): the
-// loop carries qpair = (q25 + B) | (q75 + B) << 16, apair the same for the
-// accumulators and ct = charge << 16 | prev_was_over << 15 | tover, packed
-// from the canonical rows at load and unpacked at store
-// (pallas_tpg.py:491-501, :561-574).  The hit chain is K3's, on the
-// charge and tover taken out of ct each tick.
-template <bool kPeakGated, bool kTrackPeaks, bool kAvx>
-struct FirPackedChannel {
-  using State = int32_t;
-  static constexpr int kWords = kTrackPeaks ? 3 : 2;
-  int ped, acc;
-  int qpair, apair, ct;
-  FirHit<kPeakGated, kTrackPeaks> hit;   // peaks carried; charge/tover not
-  int ring[kTaps];
-  int nclose;
+// K3b's warp 0 (fir_packed): FirFront's chains with the packed SWAR carry,
+// qpair = (q25 + B) | (q75 + B) << 16 and apair the same for the
+// accumulators, packed from the canonical rows at load and unpacked at store
+// (pallas_tpg.py:491-501, :561-574): both quantile chains run in the biased
+// domain, each gated on the pre-update median, then the pedestal's.
+struct FirPackedFront {
+  int ped, acc, qpair, apair;
 
-  __device__ __forceinline__ void load(const State* st, size_t C) {
+  template <class S>
+  __device__ __forceinline__ void load(const S* st, size_t C) {
     ped = st[kPedestals * C];
     acc = st[kAccum * C];
     qpair = pack_halves((st[kQuantile25 * C] + kBias) & 0xFFFF,
                         st[kQuantile75 * C] + kBias);
     apair = pack_halves((st[kAccum25 * C] + kBias) & 0xFFFF,
                         st[kAccum75 * C] + kBias);
-    ct = pack16(st[kHitCharge * C], st[kHitTover * C] & 0x7FFF) |
-         (st[kPrevWasOver * C] != 0 ? 0x8000 : 0);
-    hit.load(st, C);
-#pragma unroll
-    for (int j = 0; j < kTaps; ++j) ring[j] = st[(kFirRow0 + j) * C];
   }
 
-  __device__ __forceinline__ void store(State* st, size_t C) const {
+  template <class S>
+  __device__ __forceinline__ void store(S* st, size_t C) const {
     put(st, kPedestals, C, ped);
     put(st, kAccum, C, acc);
     put(st, kQuantile25, C, (qpair & 0xFFFF) - kBias);
     put(st, kQuantile75, C, ((qpair >> 16) & 0xFFFF) - kBias);
     put(st, kAccum25, C, (apair & 0xFFFF) - kBias);
     put(st, kAccum75, C, ((apair >> 16) & 0xFFFF) - kBias);
+  }
+
+  __device__ __forceinline__ int step(int s_raw, const Params& p,
+                                      int& sigma) {
+    const int limit = p.accumulator_limit;
+    const int sb = s_raw + kBias;
+    int q25 = qpair & 0xFFFF, a25 = apair & 0xFFFF;
+    int q75 = (qpair >> 16) & 0xFFFF, a75 = (apair >> 16) & 0xFFFF;
+    frugal_biased(q25, a25, sb, s_raw < ped, limit);
+    frugal_biased(q75, a75, sb, s_raw > ped, limit);
+    qpair = pack_halves(q25, q75);
+    apair = pack_halves(a25, a75);
+    sigma = q75 - q25;
+    frugal<false>(ped, acc, s_raw, limit);
+    const int s = s_raw - ped;
+    return s < p.adc_max ? s : p.adc_max;
+  }
+};
+
+// K3b's warp 1 (fir_packed): FirBack with ct = charge << 16 |
+// prev_was_over << 15 | tover in place of the hit's charge and tover and
+// of prev_was_over, packed at load and unpacked at store; each tick takes
+// charge and tover out of ct for K3's hit chain and packs them back with
+// the new over flag.
+template <bool kPeakGated, bool kTrackPeaks, bool kAvx>
+struct FirPackedBack {
+  static constexpr int kWords = kTrackPeaks ? 3 : 2;
+  FirHit<kPeakGated, kTrackPeaks> hit;   // peaks carried; charge/tover not
+  int ct;
+  int ring[kTaps];   // previous samples; oldest at ring[u % 8] for tick u
+  int nclose;
+
+  template <class S>
+  __device__ __forceinline__ void load(const S* st, size_t C) {
+    hit.load(st, C);
+    ct = pack16(st[kHitCharge * C], st[kHitTover * C] & 0x7FFF) |
+         (st[kPrevWasOver * C] != 0 ? 0x8000 : 0);
+#pragma unroll
+    for (int j = 0; j < kTaps; ++j) ring[j] = st[(kFirRow0 + j) * C];
+  }
+
+  template <class S>
+  __device__ __forceinline__ void store(S* st, size_t C) const {
     FirHit<kPeakGated, kTrackPeaks> h = hit;
     h.charge = ct >> 16;
     h.tover = ct & 0x7FFF;
@@ -961,22 +962,9 @@ struct FirPackedChannel {
   __device__ __forceinline__ void realign(int n) { realign_ring(ring, n); }
 
   template <int kU, class Slots>
-  __device__ __forceinline__ void tick(int s_raw, int end_word, Slots slots,
-                                       const Params& p) {
-    const int limit = p.accumulator_limit;
-    // the two quantile chains in the biased domain, gated on the
-    // pre-update median
-    const int sb = s_raw + kBias;
-    int q25 = qpair & 0xFFFF, a25 = apair & 0xFFFF;
-    int q75 = (qpair >> 16) & 0xFFFF, a75 = (apair >> 16) & 0xFFFF;
-    frugal_biased(q25, a25, sb, s_raw < ped, limit);
-    frugal_biased(q75, a75, sb, s_raw > ped, limit);
-    qpair = pack_halves(q25, q75);
-    apair = pack_halves(a25, a75);
-    const int sigma = q75 - q25;
-    frugal<false>(ped, acc, s_raw, limit);
-    int s = s_raw - ped;
-    s = s < p.adc_max ? s : p.adc_max;
+  __device__ __forceinline__ void tick(int s, int sigma, int end_word,
+                                       Slots slots, const Params& p,
+                                       bool live) {
     const int filt = fir_filter<kU>(ring, p);
     ring[kU % kTaps] = s;
     const bool over = fir_over<kAvx>(filt, sigma, p);
@@ -987,351 +975,27 @@ struct FirPackedChannel {
     hit.step(over, fir_to_add(over, filt, p), filt, closed, w0, w1);
     // where(closed, 0, w0) | where(over, 0x8000, 0)
     ct = pack16(hit.charge, hit.tover) | (over ? 0x8000 : 0);
-    if (closed) slot_emit<kWords>(slots, nclose, p, w0, w1, end_word);
+    if (closed && live) slot_emit<kWords>(slots, nclose, p, w0, w1, end_word);
   }
 };
 
-// Feed values one group holds per thread: time2 words (two ticks each; the
-// slab holds time2 words too), plain samples, or the samples extracted from
-// packed 14-bit words.
-template <int kEnc>
-constexpr bool kPairs = kEnc == kTime2 || kEnc == kSlab14;
-
-template <int kEnc>
-constexpr int kRowsPerGroup = kPairs<kEnc> ? kGroup / 2 : kGroup;
-
-template <int kEnc>
-constexpr int kRowTicks = kPairs<kEnc> ? 2 : 1;
+// fir.py::tpg_tick_fir with the packed SWAR carry (K3b, fir_packed): the
+// channel type the pipeline's K3 mode reads (PipeOf) for its packed front
+// and back, on an int32 state.
+template <bool kPeakGated, bool kTrackPeaks, bool kAvx>
+struct FirPackedChannel {
+  using State = int32_t;
+  static constexpr int kWords =
+      FirPackedBack<kPeakGated, kTrackPeaks, kAvx>::kWords;
+};
 
 template <int kEnc>
 using FeedT = std::conditional_t<kEnc == kPlain16, int16_t, int32_t>;
-
-// A thread's read position in the feed.  `fp` points at the current
-// group's first tick; tick (or time2 row) u of the group sits at
-// fp + u * stride.  Packed 14-bit words: the thread's channel c = 16g + r
-// reads words j = 14r/32 and j + 1 of its 7-word group g (`lo`, `hi`
-// offsets from fp) and extracts bits [14r % 32, +14) of the pair.  The
-// gather (kGather14): `lo` is the word this lane loads for its warp (when
-// `loads`), and the lane's own words come from lanes src_lo and src_hi of
-// the warp's live lanes `mask`.
-template <int kEnc>
-struct Cursor {
-  const FeedT<kEnc>* fp;
-  size_t stride;
-  size_t col;      // the channel's column, or its packed word group's base
-  size_t lo, hi;
-  unsigned sh;
-  unsigned mask;
-  int src_lo, src_hi;
-  bool loads;
-};
 
 // The offset of 7-word group g's first word in a packed feed.
 __device__ __forceinline__ size_t group_base(const Params& p, int g) {
   return static_cast<size_t>(g / p.groups_per_row) * p.group_outer +
          static_cast<size_t>(g % p.groups_per_row) * p.group_inner;
-}
-
-// The read position of channel c.  Packed 14-bit words: channel c = 16g + r
-// sits in 7-word group g at (g / gpr) * outer + (g % gpr) * inner.
-template <int kEnc>
-__device__ __forceinline__ Cursor<kEnc> make_cursor(const Params& p, int c) {
-  Cursor<kEnc> cur{};
-  cur.stride = static_cast<size_t>(p.feed_stride);
-  cur.col = static_cast<size_t>(c);
-  if constexpr (kEnc == kPacked14 || kEnc == kGather14) {
-    const int g = c / 16, r = c % 16;
-    const int j = 14 * r / 32;
-    // class 15 ends on its group's last bit: word j + 1 = 7 lies past the
-    // group, and none of its bits are kept, so read word 6 twice
-    const int jh = j < 6 ? j + 1 : 6;
-    cur.sh = static_cast<unsigned>(14 * r % 32);
-    if constexpr (kEnc == kPacked14) {
-      cur.col = group_base(p, g);
-      cur.lo = static_cast<size_t>(j) * p.word_stride;
-      cur.hi = static_cast<size_t>(jh) * p.word_stride;
-    } else {
-      // a warp is 32 aligned channels, groups g0 and g0 + 1; lane k < 14
-      // loads word k % 7 of group g0 + k / 7, where that group is live
-      const int lane = c & 31;
-      const int live = p.n_channels - (c - lane);
-      cur.mask = live >= 32 ? 0xFFFFFFFFu : (1u << live) - 1u;
-      const int g0 = (c - lane) / 16;
-      cur.col = 0;
-      cur.loads = lane < 14 && (g0 + lane / 7) * 16 < p.n_channels;
-      cur.lo = cur.loads ? group_base(p, g0 + lane / 7) +
-                               static_cast<size_t>(lane % 7) * p.word_stride
-                         : 0;
-      cur.src_lo = (g - g0) * 7 + j;
-      cur.src_hi = (g - g0) * 7 + jh;
-    }
-  }
-  return cur;
-}
-
-// Point the cursor at window tick t0 (a chunk's first sample).
-template <int kEnc>
-__device__ __forceinline__ void seek(Cursor<kEnc>& cur, const Params& p,
-                                     int t0) {
-  cur.fp = static_cast<const FeedT<kEnc>*>(p.feed) +
-           static_cast<size_t>(t0 / kRowTicks<kEnc>) * cur.stride + cur.col;
-}
-
-// Tick kU of a group from its loaded feed values.
-template <int kEnc, int kU>
-__device__ __forceinline__ int sample(const int (&w)[kRowsPerGroup<kEnc>]) {
-  if constexpr (kPairs<kEnc>) {
-    return kU % 2 == 0 ? wrap_i16(w[kU / 2]) : (w[kU / 2] >> 16);
-  } else {
-    return w[kU];
-  }
-}
-
-// Load one group's feed values (kGuard: only the first n ticks, a chunk's
-// ragged tail) and step the cursor to the next group.  Every load of the
-// group goes out before its ticks, so their latency overlaps the chain.
-// The slab lives in shared memory: plain loads, no __ldg.
-template <int kEnc, bool kGuard>
-__device__ __forceinline__ void load_group(int (&w)[kRowsPerGroup<kEnc>],
-                                           Cursor<kEnc>& cur, int n) {
-  if constexpr (kEnc == kPacked14) {
-    unsigned lo[kGroup], hi[kGroup];
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u) {
-      const int32_t* row = cur.fp + static_cast<size_t>(u) * cur.stride;
-      const bool live = !kGuard || u < n;
-      lo[u] = live ? static_cast<unsigned>(__ldg(row + cur.lo)) : 0u;
-      hi[u] = live ? static_cast<unsigned>(__ldg(row + cur.hi)) : 0u;
-    }
-    // the funnel shift takes the shift mod 32, so sh = 0 needs no case
-    // (lo >> sh | hi << (32 - sh) would shift by 32 there)
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u)
-      w[u] = static_cast<int>(__funnelshift_r(lo[u], hi[u], cur.sh) & 0x3FFFu);
-  } else if constexpr (kEnc == kGather14) {
-    unsigned word[kGroup];
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u)
-      word[u] = cur.loads && (!kGuard || u < n)
-                    ? static_cast<unsigned>(__ldg(
-                          cur.fp + static_cast<size_t>(u) * cur.stride +
-                          cur.lo))
-                    : 0u;
-    // every live lane of the warp takes part in each shuffle (n is the
-    // same for the whole warp)
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u) {
-      w[u] = 0;
-      if (!kGuard || u < n) {
-        const unsigned lo = __shfl_sync(cur.mask, word[u], cur.src_lo);
-        const unsigned hi = __shfl_sync(cur.mask, word[u], cur.src_hi);
-        w[u] = static_cast<int>(__funnelshift_r(lo, hi, cur.sh) & 0x3FFFu);
-      }
-    }
-  } else if constexpr (kEnc == kSlab14) {
-#pragma unroll
-    for (int r = 0; r < kRowsPerGroup<kEnc>; ++r)
-      w[r] = (!kGuard || r * 2 < n) ? cur.fp[static_cast<size_t>(r) *
-                                             cur.stride]
-                                    : 0;
-  } else {
-#pragma unroll
-    for (int r = 0; r < kRowsPerGroup<kEnc>; ++r)
-      w[r] = (!kGuard || r * kRowTicks<kEnc> < n)
-                 ? static_cast<int>(
-                       __ldg(cur.fp + static_cast<size_t>(r) * cur.stride))
-                 : 0;
-  }
-  cur.fp += static_cast<size_t>(kRowsPerGroup<kEnc>) * cur.stride;
-}
-
-// The ticks of one group, expanded at compile time; kGuard runs only the
-// first n (a chunk's ragged tail).
-template <int kEnc, bool kGuard, class Ch, class Slots, int... kU>
-__device__ __forceinline__ void run_ticks(
-    Ch& ch, const int (&w)[kRowsPerGroup<kEnc>], int n, int tick0,
-    Slots slots, const Params& p, std::integer_sequence<int, kU...>) {
-  ((!kGuard || kU < n
-        ? ch.template tick<kU>(sample<kEnc, kU>(w), tick0 + kU + 1, slots, p)
-        : void()),
-   ...);
-}
-
-template <int kEnc, bool kGuard, class Ch, class Slots>
-__device__ __forceinline__ void run_group(Ch& ch, Cursor<kEnc>& cur, int n,
-                                          int tick0, Slots slots,
-                                          const Params& p) {
-  int w[kRowsPerGroup<kEnc>];
-  load_group<kEnc, kGuard>(w, cur, n);
-  run_ticks<kEnc, kGuard>(ch, w, n, tick0, slots, p,
-                          std::make_integer_sequence<int, kGroup>{});
-}
-
-// The groups of one chunk from its cursor (at the chunk's first tick), the
-// ragged tail guarded.
-template <int kEnc, class Ch, class Slots>
-__device__ __forceinline__ void run_groups(Ch& ch, Cursor<kEnc>& cur,
-                                           const Params& p, int t0,
-                                           Slots slots) {
-  const int tc = p.ticks_per_chunk;
-  int g = 0;
-  for (; g + kGroup <= tc; g += kGroup)
-    run_group<kEnc, false>(ch, cur, kGroup, t0 + g, slots, p);
-  if (g < tc) {
-    run_group<kEnc, true>(ch, cur, tc - g, t0 + g, slots, p);
-    ch.realign(tc - g);
-  }
-}
-
-// One chunk of a channel's chain; `stage` is the thread's column of the
-// carry layout's staging (unused by the direct store).
-template <int kEnc, bool kCarry, class Ch>
-__device__ __forceinline__ void run_chunk(Ch& ch, Cursor<kEnc>& cur,
-                                          const Params& p, int chunk, int c,
-                                          int32_t* stage) {
-  const size_t C = static_cast<size_t>(p.n_channels);
-  const int t0 = chunk * p.ticks_per_chunk;   // the chunk's first window tick
-  ch.nclose = 0;
-  int32_t* slot_base =
-      p.slots + static_cast<size_t>(chunk) * p.k_slots * Ch::kWords * C + c;
-  if constexpr (kCarry) {
-    CarrySlots<Ch::kWords> carry;
-    carry.begin(slot_base, stage, p);
-    run_groups<kEnc>(ch, cur, p, t0, &carry);
-    carry.flush(ch.nclose, p);
-  } else {
-    run_groups<kEnc>(ch, cur, p, t0, slot_base);
-  }
-  p.nclose[static_cast<size_t>(chunk) * C + c] = ch.nclose;
-}
-
-// The thread's column of the block's dynamic shared memory from word
-// `offset` on (the carry layout's staging), or nothing for the direct store.
-template <bool kCarry>
-__device__ __forceinline__ int32_t* carry_stage(int offset) {
-  if constexpr (kCarry) {
-    TPG_DYNAMIC_SHARED(int32_t, shared_words);
-    return shared_words + offset + threadIdx.x;
-  } else {
-    return nullptr;
-  }
-}
-
-template <class Ch, int kEnc, bool kCarry = false>
-__global__ void __launch_bounds__(kBlock) tpg_kernel(Params p) {
-  const int c = blockIdx.x * kBlock + threadIdx.x;
-  if (c >= p.n_channels) return;
-  const size_t C = static_cast<size_t>(p.n_channels);
-  typename Ch::State* st = static_cast<typename Ch::State*>(p.state) + c;
-  Ch ch;
-  ch.load(st, C);
-  Cursor<kEnc> cur = make_cursor<kEnc>(p, c);
-  int32_t* const stage = carry_stage<kCarry>(0);
-  for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
-    seek<kEnc>(cur, p, chunk * p.ticks_per_chunk);
-    run_chunk<kEnc, kCarry>(ch, cur, p, chunk, c, stage);
-  }
-  ch.store(st, C);
-}
-
-// K3b on words14 rows with K4b-slab's schedule.  Per chunk: every thread
-// unpacks its channel's 14-bit samples (K4's loads and funnel shifts, 16
-// ticks at a time, none of them on the chain) into the block's time2 slab in
-// shared memory, tick pair j of thread x at slab[j * 128 + x]; after a
-// barrier the thread runs the time2 tick loop on its column.  Threads past
-// the last channel stay for the barriers.
-template <class Ch, bool kCarry = false>
-__global__ void __launch_bounds__(kBlock) tpg_slab_kernel(Params p) {
-  // (tc / 2) x kBlock time2 words, then the carry layout's staging
-  TPG_DYNAMIC_SHARED(int32_t, slab);
-  const int c = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = c < p.n_channels;
-  const size_t C = static_cast<size_t>(p.n_channels);
-  const int tc = p.ticks_per_chunk;
-  typename Ch::State* st = static_cast<typename Ch::State*>(p.state) + c;
-  Ch ch;
-  if (live) ch.load(st, C);
-  Cursor<kPacked14> src = make_cursor<kPacked14>(p, live ? c : 0);
-  int32_t* const stage =
-      kCarry ? slab + static_cast<size_t>(tc / 2) * kBlock + threadIdx.x
-             : nullptr;
-  for (int chunk = 0; chunk < p.n_chunks; ++chunk) {
-    __syncthreads();   // the slab's previous chunk has been read
-    if (live) {
-      seek<kPacked14>(src, p, chunk * tc);
-      for (int g = 0; g < tc; g += kGroup) {
-        int v[kGroup];
-        load_group<kPacked14, false>(v, src, kGroup);
-#pragma unroll
-        for (int u = 0; u < kGroup / 2; ++u)
-          slab[static_cast<size_t>(g / 2 + u) * kBlock + threadIdx.x] =
-              pack16(v[2 * u + 1], v[2 * u] & 0xFFFF);
-      }
-    }
-    __syncthreads();
-    if (live) {
-      Cursor<kSlab14> cur{};
-      cur.fp = slab + threadIdx.x;
-      cur.stride = kBlock;
-      run_chunk<kSlab14, kCarry>(ch, cur, p, chunk, c, stage);
-    }
-  }
-  if (live) ch.store(st, C);
-}
-
-template <class Ch, int kEnc, bool kCarry = false>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int blocks = (p.n_channels + kBlock - 1) / kBlock;
-  // dynamic shared memory: the slab, then the carry layout's staging
-  const long long smem_ll =
-      block_shared_bytes(p, Ch::kWords, kEnc == kSlab14, kCarry);
-  if (smem_ll > kMaxSlabBytes) return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(smem_ll);
-  if constexpr (kEnc == kSlab14) {
-#ifdef TPG_HOST_EMULATION
-    // host build for the CPU tests (tests/cuda_host/cuda_runtime.h): a
-    // block's threads run as host threads that meet at a real barrier
-    (void)stream;
-    for (blockIdx.x = 0; blockIdx.x < static_cast<unsigned>(blocks);
-         ++blockIdx.x)
-      host_run_block(kBlock, [&] { tpg_slab_kernel<Ch, kCarry>(p); }, smem);
-#else
-    cudaError_t err = cudaFuncSetAttribute(
-        tpg_slab_kernel<Ch, kCarry>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    tpg_slab_kernel<Ch, kCarry><<<blocks, kBlock, smem, stream>>>(p);
-#endif
-  } else {
-#ifdef TPG_HOST_EMULATION
-    // host build: the grid runs serially, one thread after another (the
-    // carry layout's staging shared by a block's threads in turn); the
-    // gather's warp shuffles need a block's threads at once
-    (void)stream;
-    for (blockIdx.x = 0; blockIdx.x < static_cast<unsigned>(blocks);
-         ++blockIdx.x) {
-      if (kEnc == kGather14) {
-        host_run_block(kBlock, [&] { tpg_kernel<Ch, kEnc, kCarry>(p); },
-                       smem);
-      } else {
-        std::vector<unsigned char> shared(smem);
-        host_block_shared = &shared;
-        for (threadIdx.x = 0; threadIdx.x < kBlock; ++threadIdx.x)
-          tpg_kernel<Ch, kEnc, kCarry>(p);
-        host_block_shared = nullptr;
-      }
-    }
-#else
-    if (kCarry && smem > 0) {
-      cudaError_t err = cudaFuncSetAttribute(
-          tpg_kernel<Ch, kEnc, kCarry>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-    }
-    tpg_kernel<Ch, kEnc, kCarry><<<blocks, kBlock, smem, stream>>>(p);
-#endif
-  }
-  return cudaGetLastError();
 }
 
 // ---- The warp-specialised pipeline: K1-K5, K2b and K4b ---------------------
@@ -1348,8 +1012,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // state rows) and on words14 rows through the gather (K4b-gather,
 // _unpack14_rows_gather :268-305) and the slab (K4b-slab, _unpack14_slab
 // :308-329, the schedule :445-463: warp 0 unpacks each stage into a time2
-// slab of the ring before its front reads it).  Same outputs as FirChannel
-// and ThresholdChannel run one thread per channel, bit for bit.
+// slab of the ring before its front reads it); and for FIR with the SWAR
+// carry, the same on every encoding but int16 (K3b, fir_packed :466-501,
+// :561-574: kPipeK3 with FirPackedChannel's front and back).  Same outputs
+// as the plain versions, bit for bit.
 //
 // A tick is a few chains that need little of each other.  FIR: (a) the
 // pedestal and IQR frugal chains (FirFront), which need only the raw sample
@@ -1431,7 +1097,9 @@ enum PipeMode : int {
   kPipeThreshold = 4   // loader + front; running sum (RS families); hit
 };
 
-// What the pipeline reads of a channel type: its family and options.
+// What the pipeline reads of a channel type: its family and options, and
+// for FIR the chains of K3's two warps (Front: warp 0's, Back: warp 1's;
+// void for the threshold families, whose roles are their own).
 template <class Ch>
 struct PipeOf;
 
@@ -1440,6 +1108,17 @@ struct PipeOf<FirChannel<kG, kP, kA, kI>> {
   static constexpr int kFamily = kFIR;
   static constexpr bool kGated = kG, kPeaks = kP, kAvx = kA;
   static constexpr bool kFloor = true, kRsFloat = false, kI16 = kI;
+  using Front = FirFront<kI>;
+  using Back = FirBack<kG, kP, kA>;
+};
+
+template <bool kG, bool kP, bool kA>
+struct PipeOf<FirPackedChannel<kG, kP, kA>> {
+  static constexpr int kFamily = kFIR;
+  static constexpr bool kGated = kG, kPeaks = kP, kAvx = kA;
+  static constexpr bool kFloor = true, kRsFloat = false, kI16 = false;
+  using Front = FirPackedFront;
+  using Back = FirPackedBack<kG, kP, kA>;
 };
 
 template <int kF, bool kG, bool kFl, bool kI, bool kR>
@@ -1447,6 +1126,8 @@ struct PipeOf<ThresholdChannel<kF, kG, kFl, kI, kR>> {
   static constexpr int kFamily = kF;
   static constexpr bool kGated = kG, kPeaks = true, kAvx = false;
   static constexpr bool kFloor = kFl, kRsFloat = kR, kI16 = kI;
+  using Front = void;
+  using Back = void;
 };
 
 // The threshold pipeline's RS warp (AbsRS, StandardRS).
@@ -1495,16 +1176,13 @@ inline long long pipe_shared_bytes(const Params& p, int slabs, int n_words,
 }
 
 // Shared memory of one block of the fused tick's launch (dispatch_fused) in
-// bytes, as that launch counts it against kMaxSlabBytes: K3b's tpg_kernel
-// and tpg_slab_kernel (block_shared_bytes), else the pipeline's ring, its
-// carry staging and its mbarriers (ops/tpg.py::carry_shared_bytes restates
-// this for its own refusal; tpg_shared_bytes in tpg.cu gives the tests
-// both).
+// bytes, as that launch counts it against kMaxSharedBytes: the pipeline's
+// ring, its carry staging and its mbarriers (K3b's ring is K3's).  The C
+// entry tpg_shared_bytes (tpg.cu) gives it to ops/tpg.py::
+// carry_shared_bytes for the wrapper's own refusal.
 inline long long fused_shared_bytes(const Params& p, const Variant& v,
                                     int enc, bool carry) {
   const int n_words = v.family == kFIR && !v.track_peaks ? 2 : 3;
-  if (v.fir_packed)
-    return block_shared_bytes(p, n_words, enc == kSlab14, carry);
   const int mode = v.family == kFIR ? kPipeK3 : kPipeThreshold;
   return pipe_shared_bytes(p, pipe_slabs(enc, mode, v.family, v.track_peaks),
                            n_words, carry) +
@@ -1655,9 +1333,8 @@ struct PipeFeed {
   // copies the next round into the slab
   static constexpr bool kShared = kPacked || kEnc == kPlain16;
   // ticks per staged feed row: two in a time2 word; one tick's words per
-  // row of packed words, K4b-slab's included (the pipeline stages its raw
-  // rows, where K3b's tpg_slab_kernel reads kRowTicks<kSlab14> = 2 ticks
-  // per time2 word)
+  // row of packed words, K4b-slab's included (the loader stages its raw
+  // rows; the unpack pass makes the time2 slab)
   static constexpr int kFeedRowTicks = kEnc == kTime2 ? 2 : 1;
   const FeedT<kEnc>* src;   // the lane's word of tick 0, or null: no copies
   size_t stride;
@@ -1796,10 +1473,11 @@ struct PipeFeed {
 };
 
 // Warp 0's chain, FIR: (a) over a stage, s and sigma into the lane's
-// columns (kI16: the int16 state's arithmetic).
-template <int kEnc, bool kI16>
+// columns: Front is FirFront (kI16: the int16 state's arithmetic) or K3b's
+// FirPackedFront.
+template <int kEnc, class Front>
 struct PipeFront {
-  FirFront<kI16> front;
+  Front front;
   PipeFeed<kEnc> feed;
   const int32_t* in;   // the stage's feed slab
   int32_t* s;
@@ -1875,11 +1553,12 @@ struct PipeThresholdFront {
 };
 
 // K3's warp 1: (b) and (c) on a stage's s and sigma, the closes into the
-// chunk's slots: its direct-store base, or its CarrySlots (kCarry).
-template <bool kGated, bool kPeaks, bool kAvx, bool kCarry>
+// chunk's slots: its direct-store base, or its CarrySlots (kCarry).  Back
+// is FirBack or K3b's FirPackedBack.
+template <class Back, bool kCarry>
 struct PipeBack {
-  FirBack<kGated, kPeaks, kAvx> back;
-  CarrySlots<(kPeaks ? 3 : 2), kPipeLanes> carry;
+  Back back;
+  CarrySlots<Back::kWords, kPipeLanes> carry;
   int32_t* base;
   const int32_t* s;
   const int32_t* sigma;
@@ -2097,7 +1776,8 @@ struct PipeWhole {
 };
 
 // The pipeline of mode kMode for channel type Ch (FirChannel for the FIR
-// modes, either for the staged arm, ThresholdChannel for kPipeThreshold)
+// modes, FirPackedChannel too for kPipeK3, FirChannel or ThresholdChannel
+// for the staged arm, ThresholdChannel for kPipeThreshold)
 // on the channel type's state (int32, or int16 for K2b: kPipeThreshold,
 // kPipeK3 and the threshold staged arm), with the direct store or the
 // carry layout (kCarry: K3 and kPipeThreshold).
@@ -2176,7 +1856,8 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
       }
       if (live) w.ch.store(st, C);
     } else {
-      std::conditional_t<Of::kFamily == kFIR, PipeFront<kEnc, Of::kI16>,
+      std::conditional_t<Of::kFamily == kFIR,
+                         PipeFront<kEnc, typename Of::Front>,
                          PipeThresholdFront<kEnc, Of::kI16>>
           a{};
       // K4b-slab's time2 slab, the stage's last
@@ -2215,7 +1896,7 @@ __global__ void __launch_bounds__(kPipeWarps<kMode, Ch> * kPipeLanes, 1)
       if (live) a.store(st, C);
     }
   } else if constexpr (kMode == kPipeK3) {
-    PipeBack<Of::kGated, Of::kPeaks, Of::kAvx, kCarry> b{};
+    PipeBack<typename Of::Back, kCarry> b{};
     b.live = live;
     b.p = &p;
     if (live) b.back.load(st, C);
@@ -2366,7 +2047,7 @@ cudaError_t launch_pipe(const Params& p, cudaStream_t stream) {
   const int blocks = (p.n_channels + kPipeLanes - 1) / kPipeLanes;
   const long long smem_ll =
       pipe_shared_bytes(p, kPipeSlabs<kEnc, kMode, Ch>, Ch::kWords, kCarry);
-  if (smem_ll + kPipeBars * kMbarrierBytes > kMaxSlabBytes)
+  if (smem_ll + kPipeBars * kMbarrierBytes > kMaxSharedBytes)
     return cudaErrorInvalidValue;
   const int smem = static_cast<int>(smem_ll);
 #ifdef TPG_HOST_EMULATION
@@ -2438,7 +2119,7 @@ cudaError_t pick_threshold(const Variant& v, F&& f) {
 // time2, packed, words14 (gather, slab) and int16 rows, the threshold
 // families on time2 rows (K1), plain samples (K2), packed words (K4),
 // int16 samples (K2b) and words14 rows through the gather and the slab
-// (K4b); tpg_kernel and tpg_slab_kernel run K3b (fir_packed) alone.
+// (K4b); K3b (fir_packed) is K3's mode with the packed front and back.
 template <int kEnc, bool kCarry = false>
 cudaError_t dispatch_fused(const Params& p, const Variant& v,
                            cudaStream_t s) {
@@ -2457,8 +2138,10 @@ cudaError_t dispatch_fused(const Params& p, const Variant& v,
         constexpr bool kAvx = decltype(av)::value;
         if constexpr (!kI16) {
           if (v.fir_packed)
-            return launch<FirPackedChannel<kPeaks && kGated, kPeaks, kAvx>,
-                          kEnc, kCarry>(p, s);
+            return launch_pipe<kEnc, kPipeK3,
+                               FirPackedChannel<kPeaks && kGated, kPeaks,
+                                                kAvx>,
+                               kCarry>(p, s);
         }
         return launch_pipe<kEnc, kPipeK3,
                            FirChannel<kPeaks && kGated, kPeaks, kAvx, kI16>,

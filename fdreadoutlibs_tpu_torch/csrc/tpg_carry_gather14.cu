@@ -1,4 +1,4 @@
-// K4b-gather (the pipeline; K3b's fused tick with fir_packed): words14 rows
+// K4b-gather (the pipeline; K3b's mode with fir_packed): words14 rows
 // through the gather, with the SLOT_WORD_CARRY emission layout (CarrySlots
 // in tpg.cuh).
 // One translation unit of the kernel library: the fused tick's

@@ -1,4 +1,4 @@
-// K4b-slab (the pipeline; K3b's slab kernel with fir_packed): words14 rows
+// K4b-slab (the pipeline; K3b's mode with fir_packed): words14 rows
 // unpacked into time2 slabs, with the SLOT_WORD_CARRY emission layout
 // (CarrySlots in tpg.cuh).
 // One translation unit of the kernel library: the fused tick's

@@ -21,8 +21,7 @@ names): K1 = time2 datapath, K2 = plain datapath, K3 = the FIR family on
 any, K4 = the in-kernel 14-bit unpack (K1-K4 a warp-specialised pipeline
 per 32 channels: a loader-and-front warp, then for FIR a filter-and-hit
 warp, for AbsRS and StandardRS a running-sum warp and a hit warp, for
-SimpleThreshold a hit warp; K3b's one-thread-per-channel fused tick for
-FIR with ``fir_packed``); K5 = the two-pass FIR schedule, selected by
+SimpleThreshold a hit warp); K5 = the two-pass FIR schedule, selected by
 ``fir_twopass`` 1 or 2 as ``pallas_tpg.process_window_pallas`` selects
 ``_fir2_kernel`` (the same pipeline with a warp each for front, filter
 and hit; its slabs live in shared memory, so it takes no scratch); and the
@@ -31,7 +30,9 @@ variants of
 (``pack_state(dtype=torch.int16)``, the native int16 arithmetic of
 ``fixedpoint.I16Fx`` on an int16 feed; the same pipeline, its roles on the
 int16 arithmetic), K3b
-= ``fir_packed`` (the FIR family with the SWAR carry), K4b-gather =
+= ``fir_packed`` (the FIR family with the SWAR carry: K3's pipeline, its
+front warp carrying the IQR rows and its hit warp the hit word packed in
+16-bit halves), K4b-gather =
 ``words14_gather`` and K4b-slab = ``words14_slab`` (the words14 unpack as a
 gather, or into a slab of time2 words before the time2 tick; both the same
 pipeline, the slab unpacked a stage of the ring at a time).  With
@@ -81,19 +82,9 @@ from .xp import DTYPES, TorchXP, check_supported, make_fx
 # it; K5 has the direct store only, as ``_fir2_kernel``.  No entry sets it:
 # ``probes/slots_ab.py`` and the tests flip and restore it.
 SLOT_WORD_CARRY = False
-# csrc/tpg.cuh: kCarrySlots, kBlock (K3b's channels per block), kMaxSlabBytes,
-# and the pipeline's kPipeLanes (its channels per block), kPipeStages,
-# kStageWords (one slab) and mbarriers (kPipeBars of 8 B), restated so that
-# a launch the kernel would refuse raises here with the sizes in words
-# (:func:`carry_shared_bytes`); tests/test_torch_kernel_host.py holds them to
-# the C side's own ``tpg_shared_bytes``
+# csrc/tpg.cuh::kCarrySlots, the slots a thread carries in registers (for
+# the refusal's message; the bytes are the C entry's, carry_shared_bytes)
 _CARRY_SLOTS = 4
-_BLOCK = 128
-_SHARED_MAX = 232448
-_PIPE_LANES = 32
-_PIPE_STAGES = 4
-_STAGE_WORDS = 32 * _PIPE_LANES
-_PIPE_BARRIER_BYTES = 20 * 8
 
 N_FIR_TAPS = 8
 KSTATE = NSTATE + 1 + N_FIR_TAPS           # + rs_memory_factor + FIR ring rows
@@ -112,16 +103,13 @@ _LIVE_FIR = _LIVE_SIMPLE + ("quantile25", "quantile75", "accum25", "accum75")
 _LANES = 128
 _SUBLANES = 8
 
-# csrc/tpg.cuh family and encoding codes
+# csrc/tpg.cuh family and encoding codes (_PLAIN16: plain samples on the
+# int16 state)
 _FAMILY = {Algorithm.SIMPLE_THRESHOLD: 0, Algorithm.ABS_RS: 1,
            Algorithm.STANDARD_RS: 2, Algorithm.FIR: 3}
-_PLAIN, _TIME2, _PACKED14, _GATHER14, _SLAB14 = 0, 1, 2, 3, 4
+_PLAIN, _TIME2, _PACKED14, _GATHER14, _SLAB14, _PLAIN16 = 0, 1, 2, 3, 4, 5
 # the fir_packed carry's bias (fir.tpg_tick_fir)
 _B = 1 << 15
-# K3b on the slab (``fir_packed`` with ``words14_slab``: tpg_slab_kernel) holds
-# a chunk's time2 words of 128 channels in shared memory: tc/2 * 512 B within
-# the 227 KB a block may use (K4b-slab's pipeline holds a stage at a time)
-_SLAB_TC_MAX = 896
 
 # packed 14-bit feed layouts (``packed14=``): the (L, T, 28) frame words of
 # L links, and the (T, WR, 7, 128) words14 rows of native.relayout_words14
@@ -633,7 +621,7 @@ def kernels_of(cfg: TPGConfig, time_packed: bool,
     the SWAR carry, whose code then runs the whole launch: :func:`kernel_of`),
     K2b alone for an int16 state (every family) — or K5 alone, the two-pass
     FIR schedule (its own C entry, on any datapath).  The names stay
-    ROADMAP.md's whatever code runs them: all but K3b are the pipeline of
+    ROADMAP.md's whatever code runs them: each is a mode of the pipeline of
     ``csrc/tpg.cuh``."""
     if fir_twopass:
         return ("K5",)
@@ -659,12 +647,12 @@ def kernel_of(cfg: TPGConfig, time_packed: bool,
     """The one kernel of ROADMAP.md whose code a launch runs (the effective
     options of :func:`_options`), where :func:`kernels_of` names every
     kernel on its datapath: K5, K2b, K3b whenever ``fir_packed`` is in
-    effect (on any feed: its one-thread-per-channel tick, ``tpg_kernel``,
-    or ``tpg_slab_kernel`` on words14 rows with the slab), K4b-slab or
-    K4b-gather, K4 for any family on packed words, K3 for the FIR fused
-    tick on plain and time2 rows, else K1 (time2) or K2 (plain samples) for
-    the threshold families (all but K3b the pipeline of ``csrc/tpg.cuh``;
-    K4b-slab and K4b-gather its modes on words14 rows)."""
+    effect (on any feed: K3's mode of the pipeline with the packed front
+    and back), K4b-slab or K4b-gather, K4 for any family on packed words,
+    K3 for the FIR fused tick on plain and time2 rows, else K1 (time2) or
+    K2 (plain samples) for the threshold families (each a mode of the
+    pipeline of ``csrc/tpg.cuh``; K4b-slab and K4b-gather its modes on
+    words14 rows)."""
     if fir_twopass:
         return "K5"
     if int16:
@@ -691,29 +679,24 @@ def reset_launches() -> None:
 
 
 def carry_shared_bytes(cfg: TPGConfig, tc: int, k_slots: int,
-                       words14_slab: bool = False,
-                       fir_packed: bool = False) -> int:
-    """Shared memory of one block of a fused launch under
-    :data:`SLOT_WORD_CARRY`, as the launch counts it against
-    :data:`_SHARED_MAX` (``csrc/tpg.cuh::fused_shared_bytes``): the staging
-    of the slots above the register ceiling (a chunk of tc ticks closes at
-    most ceil(tc / 2) hits per channel, so no more slots are carried), one
-    column per channel of the block of the kernel that runs.  K3b
-    (``fir_packed``, 128 channels per block): after ``tpg_slab_kernel``'s
-    time2 slab of a chunk on words14 rows with ``words14_slab``.  Every
-    other launch, the pipeline (32 channels per block): after its ring of 4
-    stages of slabs (the feed, s, and sigma for FIR or the running sum's
-    over flags for AbsRS and StandardRS; K4b-slab's time2 slab), and its
-    mbarriers."""
-    staged = max(0, min(k_slots, (tc + 1) // 2) - _CARRY_SLOTS) \
-        * record_words(cfg)
-    if fir_packed:
-        slab = tc // 2 * _BLOCK if words14_slab else 0
-        return 4 * (slab + staged * _BLOCK)
-    slabs = (2 if cfg.algorithm == Algorithm.SIMPLE_THRESHOLD else 3) \
-        + int(words14_slab)
-    return 4 * (slabs * _PIPE_STAGES * _STAGE_WORDS + staged * _PIPE_LANES) \
-        + _PIPE_BARRIER_BYTES
+                       encoding: int = _PLAIN, lib=None) -> tuple:
+    """(bytes, most): the shared memory one block of a fused launch takes
+    under :data:`SLOT_WORD_CARRY`, and the most a block may take, from the
+    C entry ``csrc/tpg.cu::tpg_shared_bytes`` of ``lib`` (the card's tpg
+    library by default) for these arguments: the launch's own count
+    (``csrc/tpg.cuh::fused_shared_bytes``: the pipeline's ring of
+    ``pipe_slabs`` slabs per stage, K4b-slab's time2 slab among them; the
+    staging of the slots above the register ceiling in columns of 32
+    channels, no more than a chunk of tc ticks can close, ceil(tc / 2) per
+    channel; its mbarriers).  ``encoding`` is the launch's csrc/tpg.cuh
+    code (``_PLAIN16`` for int16 samples)."""
+    fn = (_build.load("tpg") if lib is None else lib).tpg_shared_bytes
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_longlong
+    most = ctypes.c_int(0)
+    need = fn(tc, k_slots, encoding, _FAMILY[cfg.algorithm],
+              int(cfg.track_peaks), 1, ctypes.byref(most))
+    return int(need), most.value
 
 
 # csrc/tpg.cu::tpg_launch's C signature (the staged arms' too), and
@@ -774,22 +757,29 @@ def _fir_args(cfg: TPGConfig):
 def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
             tc: int, k_slots: int, time_packed: bool, packed14: str | None,
             device: int, stream, fir_twopass: int = 0, fir_packed=None,
-            words14_gather: bool = False, words14_slab: bool = False):
-    """Allocate the outputs beside ``state`` and call the C entry ``fn`` (``tpg_launch``, or ``tpg_fir2_launch`` when
-    ``fir_twopass``) on contiguous, checked tensors, with the effective
-    options of :func:`_options` and the emission layout
-    :data:`SLOT_WORD_CARRY` names now.  Returns (slots, nclose,
+            words14_gather: bool = False, words14_slab: bool = False,
+            lib=None):
+    """Allocate the outputs beside ``state`` and call the C entry ``fn``
+    (``tpg_launch``, or ``tpg_fir2_launch`` when ``fir_twopass``) on
+    contiguous, checked tensors, with the effective options of
+    :func:`_options` and the emission layout :data:`SLOT_WORD_CARRY` names
+    now; under that layout a launch whose block would not fit its shared
+    memory (:func:`carry_shared_bytes` from ``lib``, the library of ``fn``,
+    the card's by default) raises first.  Returns (slots, nclose,
     new_state)."""
     T, C = _check_window(feed, state, tc, k_slots, time_packed, packed14)
+    layout = _feed_layout(feed, time_packed, packed14, words14_gather,
+                          words14_slab)
     carry = bool(SLOT_WORD_CARRY) and not fir_twopass
-    need = carry_shared_bytes(cfg, tc, k_slots, words14_slab,
-                              bool(fir_packed)) if carry else 0
-    if need > _SHARED_MAX:
-        raise ValueError(
-            f"SLOT_WORD_CARRY stages min(k_slots, ceil(tc / 2)) - "
-            f"{_CARRY_SLOTS} slots per thread in shared memory: tc={tc}, "
-            f"k_slots={k_slots} need {need} B > {_SHARED_MAX} B a block may "
-            "use")
+    if carry:
+        enc = _PLAIN16 if state.dtype == torch.int16 else layout[1]
+        need, most = carry_shared_bytes(cfg, tc, k_slots, enc, lib)
+        if need > most:
+            raise ValueError(
+                f"SLOT_WORD_CARRY stages min(k_slots, ceil(tc / 2)) - "
+                f"{_CARRY_SLOTS} slots per thread in shared memory: "
+                f"tc={tc}, k_slots={k_slots} need {need} B > {most} B a "
+                "block may use")
     taps, tap_exponent, adc_max, sigma_cap, thr_mult = _fir_args(cfg)
     n_chunks = T // tc
     nw = record_words(cfg)
@@ -801,10 +791,8 @@ def _launch(fn, feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
     floor = cfg.algorithm != Algorithm.SIMPLE_THRESHOLD or cfg.threshold < 0
     twopass = (int(fir_twopass == 2),) if fir_twopass else ()
     err = fn(
-        feed.data_ptr(), *_feed_layout(feed, time_packed, packed14,
-                                       words14_gather, words14_slab),
-        n_chunks, tc, new_state.data_ptr(), C, slots.data_ptr(),
-        nclose.data_ptr(), k_slots, _FAMILY[cfg.algorithm],
+        feed.data_ptr(), *layout, n_chunks, tc, new_state.data_ptr(), C,
+        slots.data_ptr(), nclose.data_ptr(), k_slots, _FAMILY[cfg.algorithm],
         int(cfg.peak_gated), int(floor), int(cfg.track_peaks),
         int(cfg.fir_avx_semantics), cfg.threshold, cfg.accumulator_limit,
         cfg.rs_scale_factor_x10, taps, tap_exponent, adc_max, sigma_cap,
@@ -833,9 +821,6 @@ def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
     fir_packed, words14_gather, words14_slab = _options(
         cfg, state, tc, packed14, fir_twopass, fir_packed, words14_gather,
         words14_slab)
-    if fir_packed and words14_slab and tc > _SLAB_TC_MAX:
-        raise ValueError(f"fir_packed with words14_slab holds tc/2 x 128 "
-                         f"words in shared memory: tc={tc} > {_SLAB_TC_MAX}")
     dev = state.device
     out = _launch(_kernel_fn(fir_twopass), feed, state, cfg, tc, k_slots,
                   time_packed, packed14,
@@ -891,9 +876,8 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
       words14_gather: the words14 unpack as a gather (K4b-gather; with
         fir_twopass too); words14_slab: the samples unpacked into time2
         words before the tick (K4b-slab; tc % 16 == 0, not with
-        fir_twopass; with fir_packed on the card tc <= 896).  Both
-        take packed14="words14" only; the gather is ignored for the
-        unpacked encodings, as in the JAX package.
+        fir_twopass).  Both take packed14="words14" only; the gather is
+        ignored for the unpacked encodings, as in the JAX package.
 
     Returns (slots (T/tc, K, nw, C), nclose (T/tc, C), new_state).
     """

@@ -1,6 +1,7 @@
 """The pipeline's two levers on the card (``csrc/tpg.cuh``,
 ``pipe_kernel``): K3 (the loader-and-front warp and the filter-and-hit
-warp), K5 (a warp each for front, filter and hit), K1, K2, K4, K2b and K4b
+warp), K3b (the same with the SWAR carry, ``fir_packed``, on every feed),
+K5 (a warp each for front, filter and hit), K1, K2, K4, K2b and K4b
 (the threshold families on time2 rows, plain samples, packed words, int16
 samples and state, and words14 rows through the gather and the slab: a
 loader-and-front warp, for AbsRS a running-sum warp, and a hit warp; K4,
@@ -14,7 +15,7 @@ chain of register dependences per tick.
     python fdreadoutlibs_tpu_torch/probes/fir_pipe.py [--root DIR]
 
 prints one JSON line.  ``--root`` times the package of another checkout
-instead (an earlier commit's K1-K5, K2b and K4b through
+instead (an earlier commit's K1-K5, K2b, K3b and K4b through
 ``tpg.launch_kernel``, whose arguments are the same), so that two commits
 can be compared on one card in one call; the staged arms and the machine
 code are this package's only.  Each case's ``digest`` (of its slots,
@@ -37,33 +38,43 @@ import torch
 
 T, C, TC, K = 8192, 2560, 256, 4
 SEED = 20260
-# (label, family, feed, fir_twopass, peaks): the feed is "plain" or
-# "time2" rows, packed 14-bit "frames" or "words14" rows (K4's decode;
+# (label, family, feed, options, peaks): the feed is "plain" or "time2"
+# rows, packed 14-bit "frames" or "words14" rows (K4's decode;
 # "words14-gather" and "words14-slab" the K4b schedules on the same rows),
-# or "int16" samples on the int16 state, of the same samples; the staged
-# arms' cases follow
-CASES = (("K3 FIR plain", "FIR", "plain", 0, False),
-         ("K3 FIR time2", "FIR", "time2", 0, False),
-         ("K3 FIR plain peaks", "FIR", "plain", 0, True),
-         ("K5 FIR plain twopass 1", "FIR", "plain", 1, False),
-         ("K5 FIR plain twopass 2", "FIR", "plain", 2, False),
-         ("K2 AbsRS plain", "AbsRS", "plain", 0, False),
-         ("K2 SimpleThreshold plain", "SimpleThreshold", "plain", 0, False),
-         ("K4 AbsRS frames", "AbsRS", "frames", 0, False),
-         ("K4 AbsRS words14", "AbsRS", "words14", 0, False),
-         ("K4 FIR frames", "FIR", "frames", 0, False),
-         ("K1 AbsRS time2", "AbsRS", "time2", 0, False),
-         ("K1 SimpleThreshold time2", "SimpleThreshold", "time2", 0, False),
-         ("K2b AbsRS int16", "AbsRS", "int16", 0, False),
-         ("K2b FIR int16", "FIR", "int16", 0, False),
-         ("K4 FIR words14", "FIR", "words14", 0, False),
-         ("K4b-gather AbsRS", "AbsRS", "words14-gather", 0, False),
-         ("K4b-gather FIR", "FIR", "words14-gather", 0, False),
-         ("K4b-slab AbsRS", "AbsRS", "words14-slab", 0, False),
-         ("K4b-slab FIR", "FIR", "words14-slab", 0, False),
-         ("K5 FIR words14 twopass 2", "FIR", "words14", 2, False),
-         ("K5 FIR words14-gather twopass 2", "FIR", "words14-gather", 2,
-          False))
+# or "int16" samples on the int16 state, of the same samples; the options
+# are ``tpg.launch_kernel``'s fir_twopass (K5) or fir_packed (K3b); the
+# staged arms' cases follow
+TWOPASS1, TWOPASS2 = {"fir_twopass": 1}, {"fir_twopass": 2}
+PACKED = {"fir_packed": True}
+CASES = (("K3 FIR plain", "FIR", "plain", {}, False),
+         ("K3 FIR time2", "FIR", "time2", {}, False),
+         ("K3 FIR plain peaks", "FIR", "plain", {}, True),
+         ("K5 FIR plain twopass 1", "FIR", "plain", TWOPASS1, False),
+         ("K5 FIR plain twopass 2", "FIR", "plain", TWOPASS2, False),
+         ("K2 AbsRS plain", "AbsRS", "plain", {}, False),
+         ("K2 SimpleThreshold plain", "SimpleThreshold", "plain", {}, False),
+         ("K4 AbsRS frames", "AbsRS", "frames", {}, False),
+         ("K4 AbsRS words14", "AbsRS", "words14", {}, False),
+         ("K4 FIR frames", "FIR", "frames", {}, False),
+         ("K1 AbsRS time2", "AbsRS", "time2", {}, False),
+         ("K1 SimpleThreshold time2", "SimpleThreshold", "time2", {}, False),
+         ("K2b AbsRS int16", "AbsRS", "int16", {}, False),
+         ("K2b FIR int16", "FIR", "int16", {}, False),
+         ("K4 FIR words14", "FIR", "words14", {}, False),
+         ("K4b-gather AbsRS", "AbsRS", "words14-gather", {}, False),
+         ("K4b-gather FIR", "FIR", "words14-gather", {}, False),
+         ("K4b-slab AbsRS", "AbsRS", "words14-slab", {}, False),
+         ("K4b-slab FIR", "FIR", "words14-slab", {}, False),
+         ("K5 FIR words14 twopass 2", "FIR", "words14", TWOPASS2, False),
+         ("K5 FIR words14-gather twopass 2", "FIR", "words14-gather",
+          TWOPASS2, False),
+         ("K3b FIR plain", "FIR", "plain", PACKED, False),
+         ("K3b FIR time2", "FIR", "time2", PACKED, False),
+         ("K3b FIR plain peaks", "FIR", "plain", PACKED, True),
+         ("K3b FIR frames", "FIR", "frames", PACKED, False),
+         ("K3b FIR words14", "FIR", "words14", PACKED, False),
+         ("K3b FIR words14-gather", "FIR", "words14-gather", PACKED, False),
+         ("K3b FIR words14-slab", "FIR", "words14-slab", PACKED, False))
 STAGED = (("staged FIR plain", "FIR", "plain"),
           ("staged FIR time2", "FIR", "time2"),
           ("staged AbsRS plain", "AbsRS", "plain"),
@@ -272,6 +283,7 @@ def group_loops(insns, min_insns: int = 6 * GROUP) -> list:
 # (AbsRS floored; SimpleThreshold at a positive threshold, unfloored).
 REPORTED = {
     "K3": (0, 1, "FirChannel", "Lb0ELb0ELb1ELb0E"),
+    "K3b": (0, 1, "FirPackedChannel", "Lb0ELb0ELb1E"),
     "K1 AbsRS": (1, 4, "ThresholdChannel", "Li1ELb0ELb1ELb0ELb0E"),
     "K1 SimpleThreshold": (1, 4, "ThresholdChannel", "Li0ELb0ELb0ELb0ELb0E"),
     "K2b AbsRS": (5, 4, "ThresholdChannel", "Li1ELb0ELb1ELb1ELb0E"),
@@ -309,7 +321,8 @@ _FIR_K3 = {(16, 32): "loader + front", (32, 0): "filter + hit"}
 _FIR_K5 = {(16, 32): "loader + front", (32, 32): "filter", (32, 0): "hit"}
 _THR_RS = {(16, 16, False): "loader + front", (16, 16, True): "running sum",
            (32, 0): "hit"}
-ROLES = {"K3": _FIR_K3, "K5 twopass 1": _FIR_K5, "K5 twopass 2": _FIR_K5,
+ROLES = {"K3": _FIR_K3, "K3b": _FIR_K3, "K5 twopass 1": _FIR_K5,
+         "K5 twopass 2": _FIR_K5,
          "K1 AbsRS": {(8, 16): "loader + front", (16, 16): "running sum",
                       (32, 0): "hit"},
          "K1 SimpleThreshold": {(8, 16): "loader + front", (16, 0): "hit"},
@@ -444,14 +457,14 @@ def run(device=None, trials: int = 3, reps: int = 10,
         return feeds[feed], states[feeds[feed].dtype]
 
     runs, family = {}, {}
-    for label, fam, feed, twopass, peaks in CASES:
+    for label, fam, feed, options, peaks in CASES:
         cfg = replace(cfgs[fam], track_peaks=peaks)
         f, state = feed_state(fam, feed.partition("-")[0])
         time2, packed, opts = feed_options(feed)
         runs[label] = (lambda cfg=cfg, f=f, state=state, time2=time2,
-                       packed=packed, tp=twopass, opts=opts:
+                       packed=packed, opts={**opts, **options}:
                        tpg.launch_kernel(f, state, cfg, TC, K, time2, packed,
-                                         fir_twopass=tp, **opts))
+                                         **opts))
         family[label] = (fam, peaks)
     here = Path(tpg.__file__).resolve().parents[1] == \
         Path(__file__).resolve().parents[1]

@@ -1,15 +1,14 @@
 // Host stand-in for the CUDA runtime, for the CPU tests only: enough of it
 // to compile fdreadoutlibs_tpu_torch/csrc/tpg*.cu and csrc/probes*.cu with a
 // C++ compiler and -DTPG_HOST_EMULATION (tests/test_torch_kernel_host.py).  A grid without
-// barriers runs serially, one thread after another; a block whose threads
-// meet at __syncthreads() or __syncwarp(), exchange values with
-// __shfl_sync or pass the FIR pipeline's stages runs as that many host
-// threads (host_run_block), the barrier a real one among them, a shuffle a
-// meeting of the warp's lanes in its mask, a stage barrier a host barrier
-// with the mbarrier's arrive and parity wait, its asynchronous copy a plain
-// one, and its __shared__ arrays (static and dynamic) are shared by them.  The kernel's arithmetic
-// and addressing are the card's; its scheduling, caching and timing are
-// not.
+// barriers (the probes') runs serially, one thread after another; a block
+// of the pipeline, whose threads meet at __syncthreads() or __syncwarp()
+// and pass its stages, runs as that many host threads (host_run_block),
+// the barrier a real one among them, a stage barrier a host barrier with
+// the mbarrier's arrive and parity wait, its asynchronous copy a plain
+// one, and its __shared__ arrays (static and dynamic) are shared by them.
+// The kernel's arithmetic and addressing are the card's; its scheduling,
+// caching and timing are not.
 #pragma once
 
 #include <cmath>
@@ -93,16 +92,14 @@ inline unsigned __viaddmax_s16x2(unsigned a, unsigned b, unsigned c) {
   return __vmaxs2(__vadd2(a, b), c);
 }
 
-// A reusable barrier for n threads; wait(m) meets m of them instead (the
-// live lanes of a warp's shuffle).
+// A reusable barrier for n threads (a block's, or a warp's 32 lanes).
 class HostBarrier {
  public:
-  explicit HostBarrier(unsigned n = 0) : n_(n) {}
-  void wait() { wait(n_); }
-  void wait(unsigned n) {
+  explicit HostBarrier(unsigned n = 32) : n_(n) {}
+  void wait() {
     std::unique_lock<std::mutex> lock(mu_);
     const unsigned gen = gen_;
-    if (++waiting_ == n) {
+    if (++waiting_ == n_) {
       waiting_ = 0;
       ++gen_;
       cv_.notify_all();
@@ -119,32 +116,14 @@ class HostBarrier {
   unsigned gen_ = 0;
 };
 
-// A warp's shuffle exchange: its lanes' values and their meeting point.
-struct HostWarp {
-  HostBarrier meet;
-  unsigned values[32] = {};
-};
-
 inline HostBarrier* host_block_barrier = nullptr;
-inline HostWarp* host_block_warps = nullptr;
+inline HostBarrier* host_block_warps = nullptr;   // one per warp
 inline std::vector<unsigned char>* host_block_shared = nullptr;
 
 inline void __syncthreads() { host_block_barrier->wait(); }
 
-// The lanes in `mask` each give a value and take lane src's.
-template <class T>
-T __shfl_sync(unsigned mask, T value, int src) {
-  HostWarp& warp = host_block_warps[threadIdx.x / 32];
-  const unsigned n = static_cast<unsigned>(__builtin_popcount(mask));
-  warp.values[threadIdx.x % 32] = static_cast<unsigned>(value);
-  warp.meet.wait(n);
-  const T out = static_cast<T>(warp.values[src & 31]);
-  warp.meet.wait(n);   // nobody writes again before every lane has read
-  return out;
-}
-
 // A warp's lanes meet (all 32 of them).
-inline void __syncwarp() { host_block_warps[threadIdx.x / 32].meet.wait(32); }
+inline void __syncwarp() { host_block_warps[threadIdx.x / 32].wait(); }
 
 // The FIR pipeline's stage barrier (an mbarrier on the card): `count`
 // arrivals complete a phase; a wait for parity p returns once the phase of
@@ -194,7 +173,7 @@ T* host_dynamic_shared() {
 template <class F>
 void host_run_block(unsigned n, F body, size_t shared_bytes = 0) {
   HostBarrier barrier(n);
-  std::unique_ptr<HostWarp[]> warps(new HostWarp[(n + 31) / 32]);
+  std::unique_ptr<HostBarrier[]> warps(new HostBarrier[(n + 31) / 32]);
   std::vector<unsigned char> shared(shared_bytes);
   host_block_barrier = &barrier;
   host_block_warps = warps.get();

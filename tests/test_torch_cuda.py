@@ -2,10 +2,10 @@
 K2 and K3: both datapaths, all four families; K4: both packed layouts, all
 four families; the pipeline of K1-K5, K2b and K4b launched 50 times
 each for races (K2b at an even and an odd feed stride), and the staged
-arms; that K1, K2b and K4b launch the pipeline and K3b its own kernels, by
-``tpg.kernel_of`` and the machine code's kernel names; K5: fir_twopass 1
-and 2 on every encoding, also against K3, and through the words14 gather;
-K2b, K3b, K4b-gather, K4b-slab (also at a 1024-tick chunk) and
+arms; that K1, K2b, K3b and K4b launch the pipeline, by ``tpg.kernel_of``
+and the machine code's kernel names; K5: fir_twopass 1 and 2 on every
+encoding, also against K3, and through the words14 gather; K2b, K3b,
+K4b-gather, K4b-slab (K3b and K4b-slab also at a 1024-tick chunk) and
 the float running sum; the ``SLOT_WORD_CARRY`` layout on every one of those
 datapaths; the probes' kernels P1-P3), and the APA app (every feed),
 ``StreamingIngest``, the WIB2 and
@@ -80,40 +80,33 @@ def tpg_functions():
     return set(fir_pipe._FUNC.findall(_build.sass("tpg")))
 
 
-# csrc/tpg.cuh's encodings of the kernels that run the pipeline alone
+# csrc/tpg.cuh's encodings of the variants of the fused tick that the
+# symbol checks follow (K3b's is its feed's)
 _PIPE_ENCODING = {"K1": 1, "K2b": 5, "K4b-gather": 3, "K4b-slab": 4}
 
 
-def _assert_pipeline(functions, kernel, cfg, carry):
-    """K1 (encoding 1), K2b (5), K4b-gather (3) and K4b-slab (4) are
-    instantiated only as the pipeline (``pipe_kernel``, the threshold mode,
-    K3's for FIR), with this emission layout, and no one-thread-per-channel
-    tick (``tpg_kernel``; ``tpg_slab_kernel`` for the slab) of their
-    encoding is left to fall back to but K3b's (FirPackedChannel)."""
-    enc = _PIPE_ENCODING[kernel]
+def _assert_pipeline(functions, kernel, cfg, carry, kw):
+    """K1 (encoding 1), K2b (5), K4b-gather (3), K4b-slab (4) and K3b (on
+    the encoding of its feed, ``kw`` as ``process_window`` took it:
+    FirPackedChannel in K3's mode) are instantiated as the pipeline
+    (``pipe_kernel``, the threshold mode, K3's for FIR) with this emission
+    layout, and the library holds no one-thread-per-channel tick
+    (``tpg_kernel``, ``tpg_slab_kernel``) to fall back to."""
+    channel = ""
+    if kernel == "K3b":
+        enc = 4 if kw.get("words14_slab") else \
+            3 if kw.get("words14_gather") else \
+            2 if kw.get("packed14") else 1 if kw["time_packed"] else 0
+        channel = "16FirPackedChannel"
+    else:
+        enc = _PIPE_ENCODING[kernel]
     mode = 1 if cfg.algorithm == Algorithm.FIR else 4
     tail = f"ELb{int(carry)}EEEvN3tpg6ParamsE"
-    assert any(re.search(rf"pipe_kernelILi{enc}ELi{mode}E", f)
-               and f.endswith(tail) for f in functions), (kernel, mode)
+    assert any(re.search(rf"pipe_kernelILi{enc}ELi{mode}EN\w*?{channel}", f)
+               and f.endswith(tail) for f in functions), (kernel, enc, kw)
     back = [f for f in functions
-            if (re.search(rf"tpg_kernelI\w*ELi{enc}ELb", f)
-                or (enc == 4 and "tpg_slab_kernel" in f))
-            and "FirPackedChannel" not in f]
+            if re.search(r"\d(?:tpg_kernel|tpg_slab_kernel)I", f)]
     assert back == [], back
-
-
-def _assert_k3b(functions, kw, carry):
-    """K3b's launch (``fir_packed``) reaches its one-thread-per-channel
-    kernel on its encoding: ``tpg_slab_kernel`` on words14 rows with the
-    slab, ``tpg_kernel`` with FirPackedChannel on the others."""
-    if kw.get("words14_slab"):
-        pat = rf"tpg_slab_kernelINS_16FirPackedChannelI\w*?EELb{int(carry)}E"
-    else:
-        enc = 3 if kw.get("words14_gather") else \
-            2 if kw.get("packed14") else 1 if kw["time_packed"] else 0
-        pat = (rf"tpg_kernelINS_16FirPackedChannelI\w*?EELi{enc}"
-               rf"ELb{int(carry)}E")
-    assert any(re.search(pat, f) for f in functions), (pat, kw)
 
 
 @pytest.mark.parametrize("time_packed", [True, False],
@@ -519,8 +512,8 @@ def test_variant_kernels_match_plain(card, tpg_functions, cfg, C, T, tc):
     plain version; the float running sum rides every one of them.  C = 208
     leaves a partly empty block and a half warp.  Each launch counts as its
     kernel (``tpg.kernel_of``: K3b whenever fir_packed is in effect), and
-    K2b's and K4b's reach the pipeline, K3b's its own kernels (the machine
-    code's kernel names)."""
+    K2b's, K3b's and K4b's reach the pipeline (the machine code's kernel
+    names)."""
     k = 4
     adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
     state = tpg.pack_state(st, C, device=card)
@@ -558,10 +551,7 @@ def test_variant_kernels_match_plain(card, tpg_functions, cfg, C, T, tc):
             before_fn[fn] + 1, (fn, kw)
         if int16:
             assert fn == "K2b"
-        if fn == "K3b":
-            _assert_k3b(tpg_functions, kw, carry=False)
-        else:
-            _assert_pipeline(tpg_functions, fn, cfg, carry=False)
+        _assert_pipeline(tpg_functions, fn, cfg, False, kw)
         want = tpg.process_window_plain(feed, s0, cfg, tc, k, **kw)
         for g, w in zip(got, want):
             assert torch.equal(g, w), kw
@@ -596,10 +586,10 @@ def test_k4b_pipeline_is_deterministic(card, cfg, C, T, tc):
                          ids=["AbsRS", "FIR"])
 def test_k4b_slab_long_chunk_matches_plain(card, cfg):
     """K4b-slab at tc = 1024, above the 896 ticks whose time2 words of 128
-    channels a block's shared memory holds: the pipeline unpacks a stage at
-    a time, so the launch is taken (direct store and carry layout) and
-    equals the plain version; K3b on the slab (``fir_packed``), which holds
-    the chunk, is refused before it launches."""
+    channels a block's shared memory would hold: the pipeline unpacks a
+    stage at a time, so the launch is taken (direct store and carry layout)
+    and equals the plain version; for FIR so is K3b on the slab
+    (``fir_packed``), the same pipeline."""
     k = 4
     C, T, tc = 2560, 2048, 1024
     adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
@@ -616,9 +606,18 @@ def test_k4b_slab_long_chunk_matches_plain(card, cfg):
         assert torch.equal(g, w)
         assert torch.equal(c, w)
     if cfg.algorithm == Algorithm.FIR:
-        with pytest.raises(ValueError, match="tc=1024 > 896"):
-            tpg.process_window(w14, state, cfg, tc, k, False, "words14",
-                               fir_packed=True, words14_slab=True)
+        want = tpg.process_window_plain(w14, state, cfg, tc, k, False,
+                                        "words14", fir_packed=True,
+                                        words14_slab=True)
+        direct = tpg.process_window(w14, state, cfg, tc, k, False, "words14",
+                                    fir_packed=True, words14_slab=True)
+        with slots_ab.slot_word_carry():
+            carry = tpg.process_window(w14, state, cfg, tc, k, False,
+                                       "words14", fir_packed=True,
+                                       words14_slab=True)
+        for g, w, c in zip(direct, want, carry):
+            assert torch.equal(g, w)
+            assert torch.equal(c, w)
 
 
 @pytest.mark.parametrize("fir_twopass", [1, 2])
@@ -646,9 +645,9 @@ def test_slot_word_carry_matches_plain(card, tpg_functions, cfg, C, T, tc,
     """``SLOT_WORD_CARRY`` on every datapath the flag reaches (K1-K4, K2b,
     K3b, K4b), against the plain version and the direct store: k = 4 fills
     the register slots, k = 6 the shared-memory staging; C = 208 leaves a
-    partly empty block and a half warp.  K5 ignores the flag.  K1's, K2b's
-    and K4b's carry launches reach the pipeline, K3b's its own kernels
-    (``tpg.kernel_of`` and the machine code's kernel names)."""
+    partly empty block and a half warp.  K5 ignores the flag.  K1's, K2b's,
+    K3b's and K4b's carry launches reach the pipeline (``tpg.kernel_of``
+    and the machine code's kernel names)."""
     adcs, st, w14 = _variant_inputs(cfg, C, T, tc, k, card)
     state = tpg.pack_state(st, C, device=card)
     padded = np.pad(adcs, ((0, 0), (0, -C % 64)), constant_values=900)
@@ -682,10 +681,8 @@ def test_slot_word_carry_matches_plain(card, tpg_functions, cfg, C, T, tc,
                 before[name] + 1, (name, kw)
         fn = tpg.kernel_of(cfg, kw["time_packed"], kw.get("packed14"),
                            int16=int16, **opts)
-        if fn == "K3b":
-            _assert_k3b(tpg_functions, kw, carry=True)
-        elif fn in _PIPE_ENCODING:
-            _assert_pipeline(tpg_functions, fn, cfg, carry=True)
+        if fn == "K3b" or fn in _PIPE_ENCODING:
+            _assert_pipeline(tpg_functions, fn, cfg, True, kw)
         want = tpg.process_window_plain(feed, s0, cfg, tc, k, **kw)
         for g, w, d in zip(got, want, direct):
             assert torch.equal(g, w), kw

@@ -2,9 +2,13 @@
 plain version on the CPU) against the JAX package's
 ``process_window_pallas(fir_packed=True, interpret=True)`` on the plain,
 time2 and words14 encodings, with peaks on and off and both threshold
-semantics.  Integer pipeline: slots, nclose and the carried (canonical)
-state equal bit for bit (tolerance 0)."""
+semantics; and K3b's CUDA source built for the host
+(``tests/torch_host_lib.py``) on words14 rows through the slab at a
+1024-tick chunk against the same JAX kernel.  Integer pipeline: slots,
+nclose and the carried (canonical) state equal bit for bit (tolerance
+0)."""
 
+import ctypes
 import dataclasses
 
 import jax.numpy as jnp
@@ -21,6 +25,7 @@ from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
                                              time2_words, tpg_stream)
 from test_torch_tpg import jax_outputs_to_port
 from test_torch_words14 import jax_nclose
+from torch_host_lib import host_library
 
 torch.set_num_threads(1)
 
@@ -129,3 +134,40 @@ def test_firpacked_off_where_jax_ignores_it():
         assert torch.equal(g, w)
     assert tpg.kernels_of(FIR, False, fir_packed=True) == ("K2", "K3b")
     assert tpg.kernels_of(FIR, True, fir_packed=True) == ("K3b",)
+
+
+def test_k3b_slab_long_chunk_kernel_matches_pallas():
+    """K3b at tc = 1024 on words14 rows through the slab (``fir_packed``
+    with ``words14_slab``: 1024 ticks of time2 words of 128 channels would
+    outgrow a block's shared memory, and the pipeline stages 32 ticks at a
+    time), the CUDA source on the host through the wrapper's marshalling
+    (``tpg._launch``), against ``process_window_pallas(fir_packed=True,
+    words14_slab=True, interpret=True)`` on the same seeded rows, two
+    chunks in one window."""
+    fn = host_library("tpg").tpg_launch
+    fn.argtypes = tpg._ARGTYPES
+    fn.restype = ctypes.c_int
+    n, tc = 2048, 1024
+    cfg = CASES["avx-peaks"]
+    adcs = fir_stream(n, C, tc, K, seed=37)
+    st = seed_chanstate(init_chanstate(C), adcs[0], 0)
+    pos = jtpg.words14_positions(C)
+    stack = jtpg.pack_state(st, C, positions=pos)
+    feed, kw = _port_feed("words14", adcs)
+    js, jn, stack = jtpg.process_window_pallas(
+        jnp.asarray(feed.numpy()), stack, cfg, tc=tc, k_slots=K,
+        interpret=True, words14=True, unroll=2, fir_packed=True,
+        words14_slab=True)
+    ps, pn, state = tpg._launch(fn, feed, tpg.pack_state(st, C), cfg, tc, K,
+                                kw["time_packed"], kw["packed14"], 0, None,
+                                fir_packed=True, words14_slab=True)
+    s = np.asarray(js)
+    js = s.transpose(1, 2, 3, 0, 4, 5).reshape(
+        s.shape[1], K, s.shape[3], -1)[..., pos]
+    jn = jax_nclose(jn, pos)
+    np.testing.assert_array_equal(ps.numpy(), js)
+    np.testing.assert_array_equal(pn.numpy(), jn)
+    assert torch.equal(state, tpg.state_from_jax(np.asarray(stack), C,
+                                                 positions=pos))
+    assert int((js[:, :, -1] != 0).sum()) > 0
+    assert int(jn.max()) > K                       # drops exercised

@@ -3,19 +3,19 @@
 ``csrc/probes*.cu`` compiled with the host C++ compiler against a stand-in
 CUDA runtime
 (``tests/cuda_host/cuda_runtime.h``, ``-DTPG_HOST_EMULATION``; built
-once by ``tests/torch_host_lib.py``: a grid without barriers runs
-serially; the blocks of the pipeline (K2, K3, K4, K5), K4b-slab and
-K4b-gather run as host threads that meet at a real barrier or shuffle),
+once by ``tests/torch_host_lib.py``: a block of the pipeline, every kernel
+of the library, runs as host threads that meet at real barriers),
 called
 through the wrapper's own argument marshalling (``ops/tpg._launch``) and
 held bit-equal to the plain version for every encoding (K1 time2, K2
 plain, K4 frame words and words14 rows, K4b-gather and K4b-slab on words14
-rows) and family (K3 FIR, K3b with the SWAR carry, the float running sum),
+rows) and family (K3 FIR, K3b with the SWAR carry on every one of those
+encodings, the float running sum),
 the int16 state (K2b), and K5 (fir_twopass 1 and 2, also through the
 gather) for the FIR variants, at a shape with whole 16-tick groups and one
 with a ragged chunk tail or a partly empty block and warp; the pipeline
-(K3 on plain, time2 and packed rows, K5, K1, K2, K4 and K2b for the
-threshold families, K2b for FIR, the staged arms; its warps as host
+(K3 and K3b on plain, time2 and packed rows, K5, K1, K2, K4 and K2b for
+the threshold families, K2b for FIR, the staged arms; its warps as host
 threads, its stage barriers and copies the stand-in's) also at ProtoWIB
 plane widths, partly empty warps and 7-word groups, chunks that are no
 whole stage, and K2b's int16 feed at odd and even strides.  The carry
@@ -228,11 +228,12 @@ def _plain(feed, state, cfg, tc, k, packed14, time2=False):
     return tpg.process_window_plain(feed, state, cfg, tc, k, time2, packed14)
 
 
-def _host_launch(fn):
-    """A window through the host-built C entry ``fn`` (``tpg._launch``)."""
+def _host_launch(fn, lib):
+    """A window through the host-built C entry ``fn`` of ``lib``
+    (``tpg._launch``)."""
     def launch(feed, state, cfg, tc, k, packed14, time2=False):
         return tpg._launch(fn, feed, state, cfg, tc, k, time2, packed14, 0,
-                           None)
+                           None, lib=lib)
     return launch
 
 
@@ -245,7 +246,7 @@ def _assert_windows_equal(got, want, *what):
 @pytest.mark.parametrize("slot_word_carry", [False, True],
                          ids=["direct", "carry"])
 @pytest.mark.parametrize("name", THRESHOLDS)
-def test_threshold_pipeline_source_matches_plain(host_kernel, name,
+def test_threshold_pipeline_source_matches_plain(host_lib, host_kernel, name,
                                                  slot_word_carry,
                                                  monkeypatch):
     """K1, K2 and K4 (the threshold families on time2 rows, plain samples,
@@ -258,7 +259,7 @@ def test_threshold_pipeline_source_matches_plain(host_kernel, name,
     monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", slot_word_carry)
     cfg = CONFIGS[name]
     drops = 0
-    kernel = _host_launch(host_kernel)
+    kernel = _host_launch(host_kernel, host_lib)
     for C, T, tc, k in THRESHOLD_PIPE_SHAPES:
         feeds, state = _inputs(cfg, C, T, tc, k, split_pulse=True)
         want = _two_windows(_plain, feeds[0][0], state, cfg, tc, k, None, T)
@@ -288,14 +289,14 @@ INT16_STRIDE_SHAPES = [(45, 192, 48, 2), (77, 320, 160, 5)]
                          ids=["direct", "carry"])
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_int16_pipeline_feed_stride_source_matches_plain(
-        host_kernel, name, slot_word_carry, monkeypatch):
+        host_lib, host_kernel, name, slot_word_carry, monkeypatch):
     """K2b (every family on the int16 state; FIR in K3's mode) at an odd C
     with an odd and an even ``feed_stride``, the synchronous feed and the
     word copies, against the plain version over two windows whose split
     falls inside a pulse."""
     monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", slot_word_carry)
     cfg = CONFIGS[name]
-    kernel = _host_launch(host_kernel)
+    kernel = _host_launch(host_kernel, host_lib)
     drops = 0
     for C, T, tc, k in INT16_STRIDE_SHAPES:
         feeds, state = _inputs(cfg, C, T, tc, k, split_pulse=True)
@@ -346,13 +347,14 @@ def test_threshold_staged_arm_source_matches_plain(host_lib, name):
 @pytest.mark.parametrize("slot_word_carry", [False, True],
                          ids=["direct", "carry"])
 @pytest.mark.parametrize("name", [n for n in CONFIGS if n.startswith("FIR")])
-def test_fir_pipeline_packed_source_matches_plain(host_kernel, name,
-                                                  slot_word_carry,
+def test_fir_pipeline_packed_source_matches_plain(host_lib, host_kernel,
+                                                  name, slot_word_carry,
                                                   monkeypatch):
     """K4's FIR (K3's pipeline on packed words, ``pipe_kernel<kPacked14,
-    kPipeK3>``) on frame words and words14 rows with a last warp of one
-    7-word group (C = 48, 80), chunks that are no whole stage, K = 1 and
-    above the carry ceiling, against the plain version."""
+    kPipeK3>``) and K3b on the same words (``fir_packed``: the mode's
+    packed front and back) on frame words and words14 rows with a last warp
+    of one 7-word group (C = 48, 80), chunks that are no whole stage, K = 1
+    and above the carry ceiling, against the plain version."""
     monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", slot_word_carry)
     cfg = CONFIGS[name]
     for C, T, tc, k in [(48, 200, 50, 1), (80, 320, 160, 6)]:
@@ -361,20 +363,22 @@ def test_fir_pipeline_packed_source_matches_plain(host_kernel, name,
                                         False)
         assert int(want[1].max()) > k
         for feed, _, packed14 in feeds[2:]:
-            got = tpg._launch(host_kernel, feed, state, cfg, tc, k, False,
-                              packed14, 0, None)
-            for g, w in zip(got, want):
-                assert torch.equal(g, w), (C, tc, k, packed14)
+            for fir_packed in (False, True):
+                got = tpg._launch(host_kernel, feed, state, cfg, tc, k,
+                                  False, packed14, 0, None,
+                                  fir_packed=fir_packed, lib=host_lib)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (C, tc, k, packed14,
+                                               fir_packed)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_kernel_variants_match_plain(host_kernel, name):
-    """K4b-gather and K4b-slab on words14 rows (the pipeline), K2b on the
-    int16 state and feed, and with fir_packed K3b on every encoding (its
-    one-thread-per-channel kernels), against their plain versions; C = 208
-    leaves a partly empty block (the pipeline's last warp of one 7-word
-    group and 16 idle lanes; K3b's slab barrier) and a half warp (K3b's
-    shuffle mask on the gather)."""
+    """K4b-gather and K4b-slab on words14 rows, K2b on the int16 state and
+    feed, and with fir_packed K3b on every encoding (K3's mode with the
+    packed front and back), all the pipeline, against their plain versions;
+    C = 208 leaves a partly empty block (the last warp of one 7-word group
+    and 16 idle lanes) and a half warp."""
     cfg = CONFIGS[name]
     k = 2
     for C, T, tc in [(256, 320, 64), (208, 192, 48)]:
@@ -417,38 +421,34 @@ def test_kernel_variants_match_plain(host_kernel, name):
 @pytest.mark.parametrize("sched", ["gather", "slab"])
 @pytest.mark.parametrize("name", [n for n in CONFIGS if n.startswith("FIR")])
 def test_k3b_words14_kernels_match_plain(host_kernel, name, sched):
-    """K3b on words14 rows through the gather and the slab: ``fir_packed``
-    keeps the one-thread-per-channel kernels (``tpg_kernel``'s warp
-    shuffle, ``tpg_slab_kernel``'s chunk slab), against the plain version,
+    """K3b on words14 rows through the gather and the slab (``fir_packed``:
+    K3's mode of the pipeline with the packed front and back, after the
+    gather's decode or the slab's unpack pass), against the plain version,
     at a partly empty block and a half warp (C = 208) and a chunk with a
-    16-tick tail; at tc = 1024 the chunk slab of 128 channels outgrows a
-    block's shared memory and the slab kernel refuses the launch, where
-    K4b-slab's pipeline, a stage at a time, takes the same chunk."""
+    16-tick tail; on the slab also at tc = 1024, a chunk whose time2 words
+    of 128 channels would outgrow a block's shared memory: the pipeline
+    unpacks a stage at a time, for K3b as for K4b-slab."""
     cfg = CONFIGS[name]
     k = 2
     opts = {f"words14_{sched}": True}
-    for C, T, tc in [(208, 192, 48), (256, 320, 64)]:
+    shapes = [(208, 192, 48), (256, 320, 64)]
+    if sched == "slab":
+        shapes.append((64, 1024, 1024))
+    for C, T, tc in shapes:
         feeds, state = _inputs(cfg, C, T, tc, k)
         w14 = feeds[3][0]
-        want = tpg.process_window_plain(w14, state, cfg, tc, k, False,
-                                        "words14", fir_packed=True, **opts)
-        got = tpg._launch(host_kernel, w14, state, cfg, tc, k, False,
-                          "words14", 0, None, fir_packed=True, **opts)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), (C, tc)
-        assert int(want[1].max()) > k
-    if sched == "slab":
-        feeds, state = _inputs(cfg, 64, 1024, 1024, k)
-        w14 = feeds[3][0]
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            tpg._launch(host_kernel, w14, state, cfg, 1024, k, False,
-                        "words14", 0, None, fir_packed=True, **opts)
-        want = tpg.process_window_plain(w14, state, cfg, 1024, k, False,
-                                        "words14", **opts)
-        got = tpg._launch(host_kernel, w14, state, cfg, 1024, k, False,
-                          "words14", 0, None, **opts)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+        for fir_packed in (True, False):
+            want = tpg.process_window_plain(w14, state, cfg, tc, k, False,
+                                            "words14", fir_packed=fir_packed,
+                                            **opts)
+            got = tpg._launch(host_kernel, w14, state, cfg, tc, k, False,
+                              "words14", 0, None, fir_packed=fir_packed,
+                              **opts)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (C, tc, fir_packed)
+        assert int((want[0][:, :, -1] != 0).sum()) > 0
+        if tc < 1024:
+            assert int(want[1].max()) > k
 
 
 @pytest.mark.parametrize("fir_twopass", [1, 2])
@@ -470,7 +470,8 @@ def test_fir2_kernel_gather_matches_plain(host_fir2, fir_twopass):
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_slot_word_carry_source_matches_plain(host_kernel, carry, name):
+def test_slot_word_carry_source_matches_plain(host_lib, host_kernel, carry,
+                                              name):
     """The ``SLOT_WORD_CARRY`` units on every encoding and variant against
     the plain version (which the layout does not change): k = 2 within the
     register ceiling with drops, k = 5 and 6 above it (the shared-memory
@@ -497,19 +498,19 @@ def test_slot_word_carry_source_matches_plain(host_kernel, carry, name):
         for feed, s0, kw in runs:
             got = tpg._launch(host_kernel, feed, s0, cfg, tc, k,
                               kw.pop("time_packed"), kw.pop("packed14"), 0,
-                              None, **kw)
+                              None, lib=host_lib, **kw)
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (C, k, kw)
         s16 = state.to(torch.int16)
         want = tpg.process_window_plain(adcs.to(torch.int16), s16, cfg, tc,
                                         k, False)
         got = tpg._launch(host_kernel, adcs.to(torch.int16), s16, cfg, tc, k,
-                          False, None, 0, None)
+                          False, None, 0, None, lib=host_lib)
         for g, w in zip(got, want):
             assert torch.equal(g, w), (C, k, "int16")
 
 
-def test_slot_word_carry_any_k(host_kernel, carry):
+def test_slot_word_carry_any_k(host_lib, host_kernel, carry):
     """A k far above what a chunk can close carries ceil(tc / 2) slots and
     leaves the others zero; a staging that cannot fit a block's shared
     memory raises instead of taking the direct store."""
@@ -520,94 +521,107 @@ def test_slot_word_carry_any_k(host_kernel, carry):
         want = tpg.process_window_plain(feeds[0][0], state, cfg, tc, k,
                                         False)
         got = tpg._launch(host_kernel, feeds[0][0], state, cfg, tc, k, False,
-                          None, 0, None)
+                          None, 0, None, lib=host_lib)
         for g, w in zip(got, want):
             assert torch.equal(g, w), k
     # the pipeline (K2): 32 channels' staging after its ring of 4 stages of
     # 3 slabs and its 20 mbarriers
-    assert tpg.carry_shared_bytes(cfg, 64, 1000) == \
+    assert tpg.carry_shared_bytes(cfg, 64, 1000, lib=host_lib)[0] == \
         28 * 3 * 32 * 4 + 3 * 4 * 4096 + 160
     big = torch.zeros((1024, C), dtype=torch.int32)
     with pytest.raises(ValueError, match="SLOT_WORD_CARRY"):
         tpg._launch(host_kernel, big, state, cfg, 1024, 1000, False, None, 0,
-                    None)
+                    None, lib=host_lib)
+
+
+def _ring_bytes(cfg, enc):
+    """The pipeline's ring and mbarriers in bytes, as csrc/tpg.cuh::
+    pipe_slabs counts them for the fused tick: 4 stages of 32 x 32 words in
+    3 slabs (2 for SimpleThreshold), one more for K4b-slab's time2 slab,
+    and 20 mbarriers of 8 bytes."""
+    slabs = (2 if cfg.algorithm == Algorithm.SIMPLE_THRESHOLD else 3) + \
+        (enc == tpg._SLAB14)
+    return slabs * 4 * 4096 + 160
+
+
+def _staging_bytes(cfg, tc, k):
+    """The carry layout's staging: the slots above the 4 in registers, no
+    more than a chunk can close (ceil(tc / 2)), one column of 32 channels."""
+    return max(0, min(k, (tc + 1) // 2) - 4) * tpg.record_words(cfg) * 32 * 4
 
 
 @pytest.mark.parametrize("name", ["Simple", "AbsRS", "FIR",
                                   "FIR-peaks-gated"])
-def test_carry_shared_bytes_matches_source(host_lib, name):
+def test_carry_shared_bytes_matches_source(host_lib, host_kernel, name,
+                                           monkeypatch):
     """The wrapper's refusal and the launch's own are one rule:
-    ``tpg.carry_shared_bytes`` and ``tpg._SHARED_MAX`` against the C entry
-    built from ``csrc/tpg.cuh``'s constants (``fused_shared_bytes``: record
-    words 3 and 2, the pipeline's slabs of each family), below, at and
+    ``tpg.carry_shared_bytes`` is the C entry built from ``csrc/tpg.cuh``
+    (``fused_shared_bytes`` over ``pipe_slabs``), which counts the ring,
+    the staging and the mbarriers (record words 3 and 2) below, at and
     above the register ceiling, on plain rows and on words14 rows with the
-    slab (the pipeline's time2 slab), and for FIR with ``fir_packed`` (K3b:
-    ``tpg_kernel``, and ``tpg_slab_kernel``'s chunk slab)."""
+    slab (K3b's ring is K3's); at the largest k whose staging fits a block
+    the launch runs (K3 and K3b for FIR) and equals the plain version, one
+    more is refused by the wrapper and, the wrapper's count stubbed out, by
+    the launch itself."""
     cfg = CONFIGS[name]
-    fn = host_lib.tpg_shared_bytes
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_longlong
-    most = ctypes.c_int(0)
-    packed = (False, True) if cfg.algorithm == Algorithm.FIR else (False,)
-    args = (tpg._FAMILY[cfg.algorithm], int(cfg.track_peaks))
     for tc in (2, 31, 32, 200, 256, 512, 2048):
         for k in (1, 3, 4, 5, 17, 155, 156, 1000, 100000):
-            for slab in (False, True):
-                for fir_packed in packed:
-                    enc = tpg._SLAB14 if slab else tpg._PLAIN
-                    want = fn(tc, k, enc, *args, int(fir_packed), 1,
-                              ctypes.byref(most))
-                    assert tpg.carry_shared_bytes(cfg, tc, k, slab,
-                                                  fir_packed) == want, \
-                        (tc, k, slab, fir_packed)
-    assert most.value == tpg._SHARED_MAX
-    # without the carry layout the ring (with K4b-slab's time2 slabs) and
-    # its mbarriers are left, or K3b's slab of a chunk
-    slabs = 2 if cfg.algorithm == Algorithm.SIMPLE_THRESHOLD else 3
-    assert fn(256, 1000, tpg._SLAB14, *args, 0, 0, None) == \
-        (slabs + 1) * 4 * 4096 + 160
-    assert fn(256, 1000, tpg._PLAIN, *args, 0, 0, None) == \
-        slabs * 4 * 4096 + 160
-    if cfg.algorithm == Algorithm.FIR:
-        assert fn(256, 1000, tpg._SLAB14, *args, 1, 0, None) == \
-            128 * tpg._BLOCK * 4
-        assert fn(256, 1000, tpg._GATHER14, *args, 1, 0, None) == 0
+            for enc in (tpg._PLAIN, tpg._SLAB14):
+                need, most = tpg.carry_shared_bytes(cfg, tc, k, enc,
+                                                    host_lib)
+                assert need == _ring_bytes(cfg, enc) + \
+                    _staging_bytes(cfg, tc, k), (tc, k, enc)
+                assert most == 232448
+    # the largest k that fits, at a tc whose chunks can close more
+    room = 232448 - _ring_bytes(cfg, tpg._PLAIN)
+    fits = 4 + room // (tpg.record_words(cfg) * 32 * 4)
+    C, T, tc = 32, 2048, 2048
+    assert fits < (tc + 1) // 2
+    feeds, state = _inputs(cfg, C, T, tc, 2)
+    feed = feeds[0][0]
+    monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", True)
+    want = tpg.process_window_plain(feed, state, cfg, tc, fits, False)
+    for fir_packed in (False, True) if cfg.algorithm == Algorithm.FIR \
+            else (False,):
+        got = tpg._launch(host_kernel, feed, state, cfg, tc, fits, False,
+                          None, 0, None, fir_packed=fir_packed, lib=host_lib)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), fir_packed
+    with pytest.raises(ValueError, match="SLOT_WORD_CARRY"):
+        tpg._launch(host_kernel, feed, state, cfg, tc, fits + 1, False, None,
+                    0, None, lib=host_lib)
+    monkeypatch.setattr(tpg, "carry_shared_bytes",
+                        lambda *args: (0, 232448))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tpg._launch(host_kernel, feed, state, cfg, tc, fits + 1, False, None,
+                    0, None)
 
 
 # the fused launch's other encodings: time2 rows (K1), packed words (K4),
 # words14 rows through the gather (K4b-gather), int16 samples (K2b; the
-# csrc/tpg.cuh encoding kPlain16, which fir_packed does not take)
+# csrc/tpg.cuh encoding kPlain16)
 OTHER_ENCODINGS = {"time2": tpg._TIME2, "packed14": tpg._PACKED14,
-                   "gather14": tpg._GATHER14, "int16": 5}
+                   "gather14": tpg._GATHER14, "int16": tpg._PLAIN16}
 
 
 @pytest.mark.parametrize("enc", list(OTHER_ENCODINGS))
 @pytest.mark.parametrize("name", ["Simple", "AbsRS", "FIR",
                                   "FIR-peaks-gated"])
 def test_carry_shared_bytes_every_encoding(host_lib, name, enc):
-    """``tpg.carry_shared_bytes`` on the encodings that stage no time2 slab
-    equals the C entry's count for that encoding (``fused_shared_bytes``:
-    the pipeline's ring of ``pipe_slabs`` slabs, the slab count the launch
-    itself takes, and its staging; K3b's ``tpg_kernel`` with
-    ``fir_packed``), with and without the carry layout."""
+    """The C entry's count on the encodings that stage no time2 slab is the
+    pipeline's ring of ``pipe_slabs`` slabs (the slab count the launch
+    itself takes) and its staging, with the carry layout and, from the
+    entry alone, without it."""
     cfg = CONFIGS[name]
     fn = host_lib.tpg_shared_bytes
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_longlong
     code = OTHER_ENCODINGS[enc]
-    packed = (False, True) if cfg.algorithm == Algorithm.FIR and \
-        enc != "int16" else (False,)
-    args = (tpg._FAMILY[cfg.algorithm], int(cfg.track_peaks))
     for tc in (2, 32, 200, 2048):
         for k in (1, 4, 5, 156, 100000):
-            for fir_packed in packed:
-                want = fn(tc, k, code, *args, int(fir_packed), 1, None)
-                assert tpg.carry_shared_bytes(cfg, tc, k, False,
-                                              fir_packed) == want, \
-                    (tc, k, fir_packed)
-    slabs = 2 if cfg.algorithm == Algorithm.SIMPLE_THRESHOLD else 3
-    assert fn(256, 1000, code, *args, 0, 0, None) == \
-        slabs * 4 * 4096 + 160
+            need, _ = tpg.carry_shared_bytes(cfg, tc, k, code, host_lib)
+            assert need == _ring_bytes(cfg, code) + \
+                _staging_bytes(cfg, tc, k), (tc, k)
+    args = (tpg._FAMILY[cfg.algorithm], int(cfg.track_peaks))
+    assert fn(256, 1000, code, *args, 0, None) == _ring_bytes(cfg, code)
 
 
 @pytest.mark.parametrize("ilp", [1, 2, 4, 8, 16])

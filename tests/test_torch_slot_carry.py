@@ -7,7 +7,9 @@ k = 2, a k that overflows (1) and a k above the port's register ceiling (6).
 Slots, nclose and carried state: tolerance 0.  On the CPU the port's wrapper
 runs the plain version, which the layout does not change; the CUDA source of
 the layout runs in ``tests/test_torch_kernel_host.py`` and on the card in
-``tests/test_torch_cuda.py``."""
+``tests/test_torch_cuda.py``.  The wrapper's count of the layout's shared
+memory is the C entry's of the kernel library built for the host
+(``tests/torch_host_lib.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from fdreadoutlibs_tpu_torch.probes.slots_ab import slot_word_carry
 from fdreadoutlibs_tpu_torch.testing import time2_words
 from tests.test_torch_tpg import jax_outputs_to_port
 from tests.test_tpg_scan import random_stream
+from torch_host_lib import host_library
 
 torch.set_num_threads(1)
 
@@ -94,8 +97,15 @@ class _Recorder:
         return 0
 
 
+@pytest.fixture(scope="module")
+def host_lib():
+    """The kernel library built for the host: its ``tpg_shared_bytes``
+    counts the carry layout's shared memory for the wrapper."""
+    return host_library("tpg")
+
+
 @pytest.mark.parametrize("fir_twopass", [0, 1])
-def test_flag_is_read_at_launch(fir_twopass):
+def test_flag_is_read_at_launch(host_lib, fir_twopass):
     """The wrapper passes the flag's value of the moment of the launch to
     the C entry; K5's entry gets 0 whatever the flag (``_fir2_kernel`` never
     reads it)."""
@@ -109,7 +119,7 @@ def test_flag_is_read_at_launch(fir_twopass):
                 fir_twopass)
     with slot_word_carry():
         tpg._launch(fn, feed, state, cfg, 32, 2, False, None, 0, None,
-                    fir_twopass)
+                    fir_twopass, lib=host_lib)
     tpg._launch(fn, feed, state, cfg, 32, 2, False, None, 0, None,
                 fir_twopass)
     assert [c[at] for c in fn.calls] == [0, 0 if fir_twopass else 1, 0]
@@ -118,33 +128,31 @@ def test_flag_is_read_at_launch(fir_twopass):
 
 
 @pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
-def test_carry_shared_bytes(cfg):
+def test_carry_shared_bytes(host_lib, cfg):
     """The staging holds the slots above the register ceiling, and never
     more than a chunk can close, after the pipeline's ring and mbarriers
-    (K4b-slab's time2 slabs in the ring; K3b with ``fir_packed`` has no
-    ring but its 128 channels' columns, after the chunk's slab on the
-    slab); a k that needs more than a block's shared memory raises before
-    any launch."""
+    (K4b-slab's time2 slabs in the ring; K3b's ring is K3's), as the C
+    entry counts them; a k that needs more than a block's shared memory
+    raises before any launch."""
     nw = tpg.record_words(cfg)
     slabs = 2 if cfg.algorithm == Algorithm.SIMPLE_THRESHOLD else 3
     ring = slabs * 4 * 4096 + 160
-    assert tpg.carry_shared_bytes(cfg, 256, 4) == ring
-    assert tpg.carry_shared_bytes(cfg, 256, 6) == ring + 2 * nw * 32 * 4
-    assert tpg.carry_shared_bytes(cfg, 32, 1000) == ring + 12 * nw * 32 * 4
-    assert tpg.carry_shared_bytes(cfg, 256, 4, words14_slab=True) == \
-        ring + 4 * 4096
-    if cfg.algorithm == Algorithm.FIR:
-        assert tpg.carry_shared_bytes(cfg, 256, 6, fir_packed=True) == \
-            2 * nw * 128 * 4
-        assert tpg.carry_shared_bytes(cfg, 256, 4, words14_slab=True,
-                                      fir_packed=True) == 128 * 128 * 4
+
+    def need(tc, k, enc=tpg._PLAIN):
+        got, most = tpg.carry_shared_bytes(cfg, tc, k, enc, host_lib)
+        assert most == 232448
+        return got
+    assert need(256, 4) == ring
+    assert need(256, 6) == ring + 2 * nw * 32 * 4
+    assert need(32, 1000) == ring + 12 * nw * 32 * 4
+    assert need(256, 4, tpg._SLAB14) == ring + 4 * 4096
     state = torch.zeros((tpg.KSTATE, 64), dtype=torch.int32)
     feed = torch.zeros((2048, 64), dtype=torch.int32)
     fn = _Recorder()
     with slot_word_carry():
         with pytest.raises(ValueError, match="SLOT_WORD_CARRY"):
             tpg._launch(fn, feed, state, cfg, 2048, 1000, False, None, 0,
-                        None)
+                        None, lib=host_lib)
     assert not fn.calls
     tpg._launch(fn, feed, state, cfg, 2048, 1000, False, None, 0, None)
     assert len(fn.calls) == 1             # the direct store takes it

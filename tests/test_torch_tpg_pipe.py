@@ -101,8 +101,13 @@ K4B_RUNS = [(sched, n, False, T // 2, TC) for sched in ("gather", "slab")
 
 
 @pytest.fixture(scope="module")
-def host_kernel():
-    fn = host_library("tpg").tpg_launch
+def host_lib():
+    return host_library("tpg")
+
+
+@pytest.fixture(scope="module")
+def host_kernel(host_lib):
+    fn = host_lib.tpg_launch
     fn.argtypes = tpg._ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -159,10 +164,11 @@ def _rs_float_channels(cfg, win, st, state, jstate, slots, nclose, tc,
     return ok, st
 
 
-def _windows_match_pallas(host_kernel, cfg, C, adcs, st, time2=False,
-                          dtype=np.int32):
+def _windows_match_pallas(host_lib, host_kernel, cfg, C, adcs, st,
+                          time2=False, dtype=np.int32):
     """The two windows of ``adcs`` through the Pallas kernel (interpret
-    mode) and the host-built pipeline, state carried through both: plain
+    mode) and the host-built pipeline (``host_kernel``, the C entry of
+    ``host_lib``), state carried through both: plain
     samples, time2 words (``time2``) or int16 samples and state (``dtype``
     np.int16).  For rs_float, as :func:`_rs_float_channels` says."""
     stack = jtpg.pack_state(st, C, dtype=dtype)
@@ -179,7 +185,7 @@ def _windows_match_pallas(host_kernel, cfg, C, adcs, st, time2=False,
             interpret=True, time_packed=time2, unroll=2 if time2 else 1)
         slots, nclose, state = tpg._launch(
             host_kernel, torch.from_numpy(np.ascontiguousarray(feed)), state,
-            cfg, TC, K, time2, None, 0, None)
+            cfg, TC, K, time2, None, 0, None, lib=host_lib)
         js, jn = jax_outputs_to_port(js, jn, C)
         jstate = tpg.state_from_jax(np.asarray(stack), C)
         ok, st = _rs_float_channels(cfg, win, st, state, jstate, slots,
@@ -196,38 +202,42 @@ def _windows_match_pallas(host_kernel, cfg, C, adcs, st, time2=False,
 
 
 @pytest.mark.parametrize("name", list(K2_CASES))
-def test_k2_pipeline_matches_pallas(host_kernel, name):
+def test_k2_pipeline_matches_pallas(host_lib, host_kernel, name):
     """K2: the pipeline on plain samples against the Pallas kernel on the
     same samples (time_packed=False); rs_float as
     :func:`_windows_match_pallas` says."""
     cfg, C = K2_CASES[name]
     adcs, st = _seeded(C, seed=C + 11)
-    _windows_match_pallas(host_kernel, cfg, C, adcs, st)
+    _windows_match_pallas(host_lib, host_kernel, cfg, C, adcs, st)
 
 
 @pytest.mark.parametrize("name,carry", K1_RUNS,
                          ids=[n + ("-carry" if c else "") for n, c in K1_RUNS])
-def test_k1_pipeline_matches_pallas(host_kernel, name, carry, monkeypatch):
+def test_k1_pipeline_matches_pallas(host_lib, host_kernel, name, carry,
+                                   monkeypatch):
     """K1: the pipeline on time2 rows (its loader stages 16 rows of two
     ticks each per 32-tick stage) against the Pallas kernel on the same
     time2 words (time_packed=True)."""
     monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", carry)
     cfg, C = K1_CASES[name]
     adcs, st = _seeded(C, seed=C + 17)
-    _windows_match_pallas(host_kernel, cfg, C, adcs, st, time2=True)
+    _windows_match_pallas(host_lib, host_kernel, cfg, C, adcs, st,
+                          time2=True)
 
 
 @pytest.mark.parametrize("name,carry", K2B_RUNS,
                          ids=[n + ("-carry" if c else "")
                               for n, c in K2B_RUNS])
-def test_k2b_pipeline_matches_pallas(host_kernel, name, carry, monkeypatch):
+def test_k2b_pipeline_matches_pallas(host_lib, host_kernel, name, carry,
+                                    monkeypatch):
     """K2b: the pipeline on int16 samples and state (the threshold mode;
     K3's for FIR) against the Pallas kernel on the JAX package's int16
     stack (``pack_state(dtype=np.int16)``)."""
     monkeypatch.setattr(tpg, "SLOT_WORD_CARRY", carry)
     cfg, C = K2B_CASES[name]
     adcs, st = _seeded(C, seed=C + 19, fir=cfg.algorithm == Algorithm.FIR)
-    _windows_match_pallas(host_kernel, cfg, C, adcs, st, dtype=np.int16)
+    _windows_match_pallas(host_lib, host_kernel, cfg, C, adcs, st,
+                          dtype=np.int16)
 
 
 @pytest.mark.parametrize("name", list(K4_CASES))
@@ -270,8 +280,8 @@ def test_k4_pipeline_matches_pallas(host_kernel, name):
     ids=[f"{sc}-{nm}" + ("-carry" if c else "") + (f"-tc{tc}" if tc != TC
                                                   else "")
          for sc, nm, c, _, tc in K4B_RUNS])
-def test_k4b_pipeline_matches_pallas(host_kernel, sched, name, carry, n, tc,
-                                     monkeypatch):
+def test_k4b_pipeline_matches_pallas(host_lib, host_kernel, sched, name,
+                                     carry, n, tc, monkeypatch):
     """K4b-gather and K4b-slab: the pipeline on words14 rows (the gather:
     K4's decode of the staged rows; the slab: warp 0 unpacks each staged
     stage into a time2 slab and runs K1's front on it) against the Pallas
@@ -301,7 +311,8 @@ def test_k4b_pipeline_matches_pallas(host_kernel, sched, name, carry, n, tc,
             unroll=2 if sched == "slab" else 1, **opts)
         slots, nclose, state = tpg._launch(
             host_kernel, pack_words14(torch.from_numpy(words.view(np.int32))),
-            state, cfg, tc, K, False, "words14", 0, None, **opts)
+            state, cfg, tc, K, False, "words14", 0, None, lib=host_lib,
+            **opts)
         js, jn = jax_outputs_to_port(js, jn, int(pos.max()) + 1)
         js, jn = js[..., pos], jn[:, pos]
         jstate = tpg.state_from_jax(np.asarray(stack), C, positions=pos)

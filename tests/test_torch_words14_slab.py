@@ -114,7 +114,8 @@ def test_schedules_in_launch_accounting():
 
 def test_fir_packed_counts_as_k3b():
     """With fir_packed in effect the launch runs K3b's code on any feed
-    (``tpg_kernel``, ``tpg_slab_kernel`` on the slab): ``kernel_of`` names
+    (K3's mode of the pipeline with the packed front and back, on the slab
+    after K4b-slab's unpack pass): ``kernel_of`` names
     K3b as the function, and ``kernels_of`` keeps the datapath beside it;
     without it, or where it is off (not FIR), the words14 schedules are
     K4b's own."""
