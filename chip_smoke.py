@@ -88,7 +88,23 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    rows carry the error measured there; the one-op and mix kernels are held
    once more at their rows' shapes; the carry layout is run on the reported
    case of K1-K4 and the variants, held bit-equal to the plain result of
-   phase 3 and timed beside the direct store.
+   phase 3 and timed beside the direct store;
+9. detector slice — ``apps.detector_readout.DetectorReadoutApp`` at full
+   width: the TPC arm at 40 WIBEth links (2560 channels) on the fused feed
+   (K4), 128 frames per link per batch; the PDS arm at 10 DAPHNE-stream
+   links (40 channels, K2), 4 superchunks (3072 ticks) per link per batch;
+   the TDE arm at 12 links of 64 channels, one 5965-sample cycle per link
+   per batch under ``run_model(backend="pallas")`` (K2 on windows of 512
+   ticks).  One warm-up batch and 8 steady batches, once sync and once
+   pipelined: per-arm ms per batch and RTF, K4 once per batch and K2 once
+   per PDS batch and 12 times per TDE link per batch, no timestamp errors,
+   every drain of the merged TPSet stream time-ordered, both runs' TPSet
+   streams equal; batches 0-1 of every arm equal to the plain version with
+   the arm's seeding, windows, K and compaction; ``request_raw`` returns
+   payloads and ``record_fragment`` writes one fragment per arm that reads
+   back with the requested source id and payloads; then the PDS arm's K2
+   alone on its batch (the one-chain-per-channel bound on the arm's RTF)
+   and one TDE window's K2.
 
 Phase 2 also builds the port's native host codecs (``native/``) and fails
 if they do not load, so no host stage is timed on the numpy fallback.
@@ -111,7 +127,7 @@ version.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels (each with the launches of its kernel function on the main
-paths, ``tpg.kernel_of``, and beside them ``datapath_launches``, every
+paths, phase 9's included, ``tpg.kernel_of``, and beside them ``datapath_launches``, every
 launch whose datapath holds it, ``tpg.kernels_of``; its error against
 the plain version, its time, the plain version's, and its bound: the
 larger of the bytes it must move over 3.35 TB/s and its int32 operations
@@ -126,8 +142,10 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -135,11 +153,15 @@ import numpy as np
 import torch
 
 from fdreadoutlibs_tpu_torch import native, probes
+from fdreadoutlibs_tpu_torch.apps import detector_readout, pds_readout
 from fdreadoutlibs_tpu_torch.apps.apa_readout import APAReadoutApp, make_batch
-from fdreadoutlibs_tpu_torch.formats import protowib, wib2, wibeth
+from fdreadoutlibs_tpu_torch.formats import daphne, protowib, tde, wib2, wibeth
+from fdreadoutlibs_tpu_torch.models.algorithms import (
+    K_SLOTS as RUN_MODEL_K, WINDOW as RUN_MODEL_WINDOW)
 from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, _build,
                                          ingest, init_chanstate,
                                          seed_chanstate, tpg)
+from fdreadoutlibs_tpu_torch.ops.hits import concat_hits
 from fdreadoutlibs_tpu_torch.ops.ingest import (compact_on_device,
                                                 unpack_compact)
 from fdreadoutlibs_tpu_torch.probes import (fir_pipe, i16_ops, roofline,
@@ -148,11 +170,13 @@ from fdreadoutlibs_tpu_torch.probes.roofline import (DECODE_OPS, INT32_LANES,
                                                      OPS_PER_TICK)
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor, \
     WIBFrameProcessor
+from fdreadoutlibs_tpu_torch.stream import tde as tde_stream
 from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
 from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
                                              protowib_superchunks,
                                              time2_words, tpg_stream,
                                              wib2_superchunks)
+from fdreadoutlibs_tpu_torch.tp.recorder import FragmentRecorder
 from fdreadoutlibs_tpu_torch.tp.wib_tp_handler import WIBTPHandler
 from fdreadoutlibs_tpu_torch.utils.preflight import (device_preflight,
                                                      nvidia_smi, sm_clock_mhz)
@@ -1683,6 +1707,334 @@ def probes_phase(dev, kernels: dict):
     return rows, ceiling, pipe_rows
 
 
+# ---- phase 9: the detector slice -------------------------------------------
+
+DET_APA_LINKS = N_LINKS      # one APA: 2560 channels, fused feed (K4)
+DET_PDS_LINKS = 10           # 40 channels (pds_readout.py's default)
+DET_PDS_SC = 4               # superchunks per PDS link per batch: 3072 ticks
+DET_TDE_LINKS = 12           # 12 AMCs x 64 channels (tde_file_creator)
+DET_TIMED = 8                # steady batches per run (phase 4 has 16)
+# detector time per batch of each arm: 128 WIBEth frames of 64 ticks x 32
+# clocks; 4 x 12 DAPHNE-stream frames of 64 one-clock ticks; one TDE cycle
+# of 5965 samples x 32 clocks; a 62.5 MHz clock is 16 ns
+DET_SPAN_S = {"tpc": FRAMES * wibeth.EXPECTED_TICK_DIFFERENCE * 16e-9,
+              "pds": DET_PDS_SC * pds_readout.TICKS_PER_SC * 16e-9,
+              "tde": tde.EXPECTED_TICK_DIFFERENCE * 16e-9}
+# run_model's windows per TDE cycle: 11 of 512 ticks and one of 333
+TDE_WINDOWS = -(-tde.TOT_ADC16_SAMPLES // RUN_MODEL_WINDOW)
+DET_SOURCES = {"tpc": detector_readout.TPC_SOURCE_BASE,
+               "pds": detector_readout.PDS_SOURCE_BASE,
+               "tde": detector_readout.TDE_SOURCE_BASE}
+
+
+def detector_batches():
+    """The phase's batches (warm-up + steady) for the three arms, and the
+    ADCs of the checked ones: (T, 2560) TPC, (T, 40) PDS, (5965, 768) TDE
+    int32, channels stacked link by link."""
+    rng = np.random.default_rng(SEED + 9)
+    batches, checked = [], []
+    ts = {"tpc": 0x1000000, "pds": 0x2000000, "tde": 0x3000000}
+    for b in range(N_WARM + DET_TIMED):
+        frames, adcs = make_batch(rng, DET_APA_LINKS, FRAMES, b, ts["tpc"])
+        scs, padcs = pds_readout.make_batch(rng, DET_PDS_LINKS, DET_PDS_SC,
+                                            ts["pds"])
+        tframes = detector_readout._tde_cycle(rng, DET_TDE_LINKS, ts["tde"],
+                                              pulse=True)
+        batches.append({"tpc": frames, "pds": scs, "tde": tframes,
+                        "ts": dict(ts)})
+        if b < N_CHECKED:
+            T = padcs.shape[1]
+            checked.append({
+                "tpc": (adcs & 0x3FFF).transpose(1, 2, 0, 3)
+                .reshape(FRAMES * 64, C_APA).astype(np.int32),
+                "pds": padcs.transpose(1, 0, 2).reshape(
+                    T, DET_PDS_LINKS * pds_readout.CH_PER_LINK)
+                .astype(np.int32),
+                "tde": tde.get_adc_samples(tframes).transpose(2, 0, 1)
+                .reshape(tde.TOT_ADC16_SAMPLES, -1).astype(np.int32)})
+        ts["tpc"] += FRAMES * wibeth.EXPECTED_TICK_DIFFERENCE
+        ts["pds"] += DET_PDS_SC * pds_readout.TICKS_PER_SC
+        ts["tde"] += tde.EXPECTED_TICK_DIFFERENCE
+    return batches, checked
+
+
+def plain_pds_hits(adcs_batches, app, dev):
+    """What the PDS arm must fetch for consecutive (T, 40) batches: the
+    kernel's plain version with the arm's seeding, tc, K and compaction,
+    carrying state."""
+    state = None
+    for adcs in adcs_batches:
+        T, C = adcs.shape
+        if state is None:
+            state = tpg.pack_state(seed_chanstate(
+                init_chanstate(C), adcs[0], app.cfg.rs_memory_factor_x10), C,
+                device=dev)
+        tc = tpg.auto_tc(T, cap=kernel_knobs(app.cfg)["tc"])
+        slots, nclose, state = tpg.process_window_plain(
+            torch.from_numpy(adcs).to(dev), state, app.cfg, tc, app.k_slots,
+            time_packed=False)
+        yield unpack_compact(compact_on_device(slots, nclose, 0, C,
+                                               max(2048, 2 * C)))
+
+
+def plain_tde_hits(adcs_batches, cfg, dev):
+    """What each TDE link's ``run_model(backend="pallas")`` must return for
+    consecutive cycles: the kernel's plain version over every link's
+    channels at once (channels are independent) in the same 512-tick
+    windows, one chunk and 8 slots each, seeded from each channel's first
+    sample, carrying state.  Yields per cycle a list of hits per link."""
+    state = None
+    for adcs in adcs_batches:
+        T, C = adcs.shape
+        if state is None:
+            state = tpg.pack_state(seed_chanstate(
+                init_chanstate(C), adcs[0], cfg.rs_memory_factor_x10), C,
+                device=dev)
+        x = torch.from_numpy(adcs).to(dev)
+        parts = []
+        for t0 in range(0, T, RUN_MODEL_WINDOW):
+            w = min(RUN_MODEL_WINDOW, T - t0)
+            slots, nclose, state = tpg.process_window_plain(
+                x[t0:t0 + w], state, cfg, w, RUN_MODEL_K, time_packed=False)
+            parts.append(ingest.decode_slots(slots, nclose, C,
+                                             tick_offset=t0)[0])
+        hits = concat_hits(parts)
+        out = []
+        for l in range(C // tde.N_CHANNELS_PER_LINK):
+            h = hits[hits["channel"] // tde.N_CHANNELS_PER_LINK == l].copy()
+            h["channel"] -= l * tde.N_CHANNELS_PER_LINK
+            out.append(h)
+        yield out
+
+
+def tpset_key(s):
+    return (int(s.type), s.origin, s.start_time, s.end_time, s.seqno,
+            s.objects.tobytes())
+
+
+def time_ordered(sets) -> bool:
+    """One drain of the merged stream is in (start_time, origin, seqno)
+    order."""
+    return sets == sorted(sets, key=lambda s: (s.start_time, s.origin,
+                                               s.seqno))
+
+
+def detector_run(pipelined: bool, batches, dev):
+    """One run of the three-arm app over the batches: per-arm ms per call,
+    the merged TPSet stream's drains (one after every batch, one after the
+    flush), the fetched TPC and PDS
+    hits and the TDE links' run_model hits of the checked batches, the
+    launch counts, and the app."""
+    app = detector_readout.DetectorReadoutApp(
+        apa_links=DET_APA_LINKS, pds_links=DET_PDS_LINKS,
+        tde_links=DET_TDE_LINKS, tde_backend="pallas", pipelined=pipelined,
+        device=dev, fused_unpack=True)
+    got = {"tpc": [], "pds": [], "tde": []}
+    for arm, arm_app in (("tpc", app.tpc), ("pds", app.pds)):
+        fetch = arm_app._fetch_hits
+
+        def recording(packed, fetch=fetch, out=got[arm]):
+            res = fetch(packed)
+            out.append(res)
+            return res
+        arm_app._fetch_hits = recording
+    real_run_model = tde_stream.run_model
+
+    def recording_run_model(*a, **kw):
+        res = real_run_model(*a, **kw)
+        got["tde"].append(res[0])
+        return res
+    tde_stream.run_model = recording_run_model
+    ms = {"tpc": [], "pds": [], "tde": []}
+    drains = []
+    tpg.reset_launches()
+    try:
+        for bat in batches:
+            for arm, call in (("tpc", app.process_tpc_batch),
+                              ("pds", app.process_pds_batch),
+                              ("tde", app.process_tde_batch)):
+                t0 = time.perf_counter()
+                call(bat[arm])
+                ms[arm].append((time.perf_counter() - t0) * 1e3)
+            drains.append(app.drain_tpsets())
+        t0 = time.perf_counter()
+        app.flush()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        drains.append(app.drain_tpsets())
+    finally:
+        tde_stream.run_model = real_run_model
+    launches = dict(tpg.process_window.function_launches)
+    tally()
+    return {"app": app, "ms": ms, "flush_ms": flush_ms, "drains": drains,
+            "sets": [s for d in drains for s in d], "got": got,
+            "launches": launches}
+
+
+def detector_slice(dev) -> dict:
+    """Phase 9.  Returns the K2 and K4 launches of its two runs."""
+    t0 = time.perf_counter()
+    batches, checked = detector_batches()
+    print(f"  data: {len(batches)} batches of {DET_APA_LINKS} WIBEth links x "
+          f"{FRAMES} frames, {DET_PDS_LINKS} DAPHNE-stream links x "
+          f"{DET_PDS_SC} superchunks, {DET_TDE_LINKS} TDE links x 64 "
+          f"channels x one cycle in {time.perf_counter() - t0:.3f} s")
+    n_b = len(batches)
+    runs = {}
+    for pipelined in (False, True):
+        mode = "pipelined" if pipelined else "sync"
+        r = runs[mode] = detector_run(pipelined, batches, dev)
+        info = r["app"].get_info()
+        want = {k: 0 for k in KERNELS}
+        want["K4"] = n_b
+        want["K2"] = n_b + n_b * DET_TDE_LINKS * TDE_WINDOWS
+        summary = {}
+        for arm in ("tpc", "pds", "tde"):
+            steady = r["ms"][arm][N_WARM:]
+            summary[arm] = {
+                "ms_per_batch_p50": statistics.median(steady),
+                "ms_per_batch_max": max(steady),
+                "warm_up_ms": r["ms"][arm][0],
+                "rtf": DET_SPAN_S[arm] * len(steady) / (sum(steady) / 1e3),
+                "hits": info[arm]["total_hits"],
+                "tps_sent": info[arm]["total_tps_sent"],
+                "ts_errors": info[arm]["ts_errors"]}
+        print(f"  {mode}: per arm (ms per batch over {DET_TIMED} steady "
+              "batches, RTF = detector seconds over wall seconds):",
+              json.dumps(summary), f"flush {r['flush_ms']:.3f} ms, TPSets "
+              f"{len(r['sets'])}, launches "
+              f"{json.dumps({k: v for k, v in r['launches'].items() if v})}",
+              flush=True)
+        if r["launches"] != want:
+            raise AssertionError(f"detector {mode}: launches "
+                                 f"{r['launches']}, want {want}")
+        for arm, s in summary.items():
+            if s["hits"] <= 0 or s["ts_errors"] != 0:
+                raise AssertionError(f"detector {mode} {arm}: {s}")
+        if not all(time_ordered(d) for d in r["drains"]):
+            raise AssertionError(f"detector {mode}: a drain of the merged "
+                                 "TPSet stream is not time-ordered")
+        for arm, base in DET_SOURCES.items():
+            own = [s for s in r["sets"] if s.origin == base]
+            if not own or [s.seqno for s in own] != list(range(len(own))):
+                raise AssertionError(f"detector {mode} {arm}: TPSets missing "
+                                     "or out of sequence")
+        r["summary"] = summary
+    # the pipelined run emits each batch's TPSets a drain later: the
+    # streams are equal TPSet for TPSet in each arm's sequence
+    by_arm = {mode: sorted(map(tpset_key, r["sets"]),
+                           key=lambda k: (k[1], k[4]))
+              for mode, r in runs.items()}
+    if by_arm["sync"] != by_arm["pipelined"]:
+        raise AssertionError("detector: the sync and pipelined TPSet streams "
+                             "differ")
+    print(f"  sync and pipelined merged TPSet streams equal "
+          f"({len(runs['sync']['sets'])} TPSets)")
+
+    # each arm's hits against the plain version (sync run; the pipelined
+    # run fetched the same batches in the same order)
+    app = runs["sync"]["app"]
+    rmf = np.concatenate([p.register_memory_factor for p in app.tpc.procs])
+    plain = {
+        "tpc": list(plain_app_hits([c["tpc"] for c in checked], rmf,
+                                   app.tpc.cfg, app.tpc.k_slots, dev)),
+        "pds": list(plain_pds_hits([c["pds"] for c in checked], app.pds,
+                                   dev)),
+        "tde": list(plain_tde_hits([c["tde"] for c in checked],
+                                   app.tde.procs[0].tpg_cfg, dev))}
+    for mode, r in runs.items():
+        for b in range(N_CHECKED):
+            for arm in ("tpc", "pds"):
+                hits, d = r["got"][arm][b]
+                want_h, want_d = plain[arm][b]
+                if d != want_d or not np.array_equal(hits, want_h):
+                    raise AssertionError(
+                        f"detector {mode} {arm} batch {b}: hits ({len(hits)},"
+                        f" dropped {d}) differ from the plain version "
+                        f"({len(want_h)}, dropped {want_d})")
+            tde_got = r["got"]["tde"][b * DET_TDE_LINKS:
+                                      (b + 1) * DET_TDE_LINKS]
+            for l, (h, want_h) in enumerate(zip(tde_got, plain["tde"][b])):
+                if not np.array_equal(h, want_h):
+                    raise AssertionError(
+                        f"detector {mode} tde batch {b} link {l}: hits "
+                        f"({len(h)}) differ from the plain version "
+                        f"({len(want_h)})")
+        print(f"  {mode}: batches 0-{N_CHECKED - 1} == plain: tpc "
+              f"{[len(h) for h, _ in r['got']['tpc'][:N_CHECKED]]}, pds "
+              f"{[len(h) for h, _ in r['got']['pds'][:N_CHECKED]]}, tde "
+              f"{[sum(len(h) for h in x) for x in plain['tde']]} hits")
+
+    # the request and fragment layer: raw frames from every arm, one
+    # fragment per arm recorded and read back
+    last = batches[-1]["ts"]
+    spans = {"tpc": wibeth.EXPECTED_TICK_DIFFERENCE,
+             "pds": pds_readout.TICKS_PER_SC, "tde": 1}
+    rec_dir = tempfile.mkdtemp(prefix="chip_smoke_fragments_")
+    try:
+        rec = FragmentRecorder(rec_dir, run_number=app.run_number)
+        for i, (arm, sid) in enumerate(DET_SOURCES.items()):
+            window = (last[arm], last[arm] + spans[arm])
+            raw = app.request_raw(sid, *window)
+            frag = app.record_fragment(sid, *window, rec, trigger_number=i)
+            back = rec.read(i)
+            if len(raw) == 0 or back.header.source_id != sid or \
+                    not np.array_equal(back.payloads, raw) or \
+                    not np.array_equal(frag.payloads, raw):
+                raise AssertionError(f"detector {arm}: request_raw / "
+                                     "record_fragment wrong")
+            print(f"  {arm}: request_raw {len(raw)} payloads; fragment "
+                  f"source {back.header.source_id} "
+                  f"{back.header.fragment_type} read back equal")
+    finally:
+        shutil.rmtree(rec_dir, ignore_errors=True)
+
+    # the PDS arm's kernel alone on its batch (3072 ticks x 40 channels):
+    # one channel's ticks are one serial chain, so its time bounds the
+    # arm's real-time factor however few channels it has
+    pds = app.pds
+    words = daphne.stream_frames_bytes_to_u32(daphne.superchunk_frames(
+        batches[-1]["pds"], stream=True).reshape(DET_PDS_LINKS, -1,
+                                                 daphne.STREAM_FRAME_SIZE))
+    feed = daphne.stream_unpack_frames(torch.from_numpy(words).to(dev)) \
+        .reshape(DET_PDS_LINKS, -1, 4).transpose(0, 1) \
+        .reshape(-1, DET_PDS_LINKS * 4).contiguous()
+    T = feed.shape[0]
+    tc = tpg.auto_tc(T, cap=kernel_knobs(pds.cfg)["tc"])
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    k_ms = time_kernel(lambda: tpg.process_window(
+        feed, pds._stack, pds.cfg, tc, pds.k_slots, time_packed=False),
+        20, flush)
+    mhz = sm_clock_mhz()
+    ns_tick = k_ms * 1e6 / T
+    tde_feed = torch.from_numpy(checked[0]["tde"][:RUN_MODEL_WINDOW,
+                                                  :tde.N_CHANNELS_PER_LINK]
+                                .copy()).to(dev)
+    tde_state = tpg.pack_state(seed_chanstate(
+        init_chanstate(tde.N_CHANNELS_PER_LINK), checked[0]["tde"][0, :64],
+        0), tde.N_CHANNELS_PER_LINK, device=dev)
+    tde_cfg = app.tde.procs[0].tpg_cfg
+    tde_ms = time_kernel(lambda: tpg.process_window(
+        tde_feed, tde_state, tde_cfg, RUN_MODEL_WINDOW, RUN_MODEL_K,
+        time_packed=False), 20, flush)
+    print(f"  pds arm kernel K2 alone ({T} ticks x {DET_PDS_LINKS * 4} "
+          f"channels, tc {tc}): {k_ms:.4f} ms per batch = {ns_tick:.2f} ns "
+          f"per tick = {ns_tick * mhz / 1e3:.1f} cycles per tick at {mhz} "
+          f"MHz; detector time per batch "
+          f"{DET_SPAN_S['pds'] * 1e3:.6f} ms: kernel-only RTF "
+          f"{DET_SPAN_S['pds'] * 1e3 / k_ms:.4f} (the serial-chain bound)")
+    print(f"  tde arm kernel K2 alone (one 512-tick window x 64 channels, "
+          f"8 slots): {tde_ms:.4f} ms per window, "
+          f"{tde_ms * DET_TDE_LINKS * TDE_WINDOWS:.3f} ms for the "
+          f"{DET_TDE_LINKS} links' {TDE_WINDOWS} windows of a cycle")
+    print("  detector slice:", json.dumps({
+        mode: {arm: {"ms_per_batch_p50": round(s["ms_per_batch_p50"], 4),
+                     "rtf": round(s["rtf"], 4)}
+               for arm, s in r["summary"].items()}
+        for mode, r in runs.items()}))
+    return {k: sum(r["launches"][k] for r in runs.values())
+            for k in ("K2", "K4")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1789,17 +2141,20 @@ def main() -> int:
     with phase("8 probes"):
         probe_rows, ceiling, pipe_rows = probes_phase(dev, kernels)
 
+    with phase("9 detector slice"):
+        det = detector_slice(dev)
+
     # launches on the main paths: the APA app's feeds, the WIB2 and the
-    # ProtoWIB processors' runs, the kernel entries.  A row counts its
+    # ProtoWIB processors' runs, the kernel entries, the detector slice.  A row counts its
     # kernel function's launches (tally); the launches of every kernel on
     # a launch's datapath (tpg.kernels_of: a FIR launch on plain samples is
     # K2's datapath and K3's family) stand beside them
     datapath = {
         "K1": app_launches["time2"],
         "K2": app_launches["packed"] + packed["K2"] + pw["K2"]
-        + entries["K2"],
+        + entries["K2"] + det["K2"],
         "K3": packed["K3"] + time2["K3"] + pw["K3"],
-        "K4": app_launches["fused"] + app_launches["words14"],
+        "K4": app_launches["fused"] + app_launches["words14"] + det["K4"],
         "K5": pw["K5"],
         **{k: entries[k] for k in ("K2b", "K3b", "K4b-slab", "K4b-gather")}}
     print("  launches on the main paths, per kernel function:",

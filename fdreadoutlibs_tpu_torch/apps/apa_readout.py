@@ -26,8 +26,6 @@ copied otherwise); only the device seam differs:
 card; ``device="cpu"`` runs the kernel's plain version (the CPU tests).
 Nothing falls back from one to the other.
 
-Not ported yet: Fragment recording (``record_fragment``).
-
 Run:  python -m fdreadoutlibs_tpu_torch.apps.apa_readout --time2-feed \\
           --algorithm AbsRS --threshold-on-collection --frames-per-batch 128
       (or --fused-unpack, --words14-feed, or neither for the packed feed)
@@ -463,6 +461,18 @@ class APAReadoutApp:
     def request_raw(self, link: int, start_ts: int, end_ts: int):
         """Serve a trigger data request for raw frames on one link."""
         return self.readout[link].request(start_ts, end_ts)
+
+    def record_fragment(self, link: int, start_ts: int, end_ts: int,
+                        recorder, trigger_number: int = 0,
+                        sequence_number: int = 0):
+        """Serve a data request as a Fragment and persist it (the dataflow
+        tier's job upstream of the reference; tp/recorder.py)."""
+        frag = self.readout[link].request_fragment(
+            start_ts, end_ts, run_number=self.run_number,
+            trigger_number=trigger_number, source_id=link,
+            sequence_number=sequence_number)
+        recorder.write(frag)
+        return frag
 
     def _flush_link_counters(self) -> None:
         for vec, name in ((self._hits_link, "num_hits"),

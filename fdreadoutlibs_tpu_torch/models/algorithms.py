@@ -104,7 +104,9 @@ def run_model(adcs: np.ndarray, cfg: TPGConfig, backend: str = "scan",
     from ..utils.tuning import kernel_knobs
     dev = resolve_device(device)
     st = pack_state(state, C, device=dev)
-    x = torch.from_numpy(adcs).to(dev)
+    # a transposed caller's array (a TDE cycle) is a strided view: the
+    # kernel takes contiguous rows
+    x = torch.from_numpy(np.ascontiguousarray(adcs)).to(dev)
     if backend == "scan":
         slots, nclose, st = process_window_plain(x, st, cfg, tc=T, k_slots=T,
                                                  time_packed=False)

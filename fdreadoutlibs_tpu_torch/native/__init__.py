@@ -1,7 +1,8 @@
 """ctypes bindings for the native C++ host codecs and latency buffer.
 
 Copied from ``fdreadoutlibs_tpu/native/__init__.py:1-472`` (the entry
-points the port calls); the sources ``framecodec.cpp`` and
+points the port calls; :475-503's DAPHNE relayout with its numpy codec
+only); the sources ``framecodec.cpp`` and
 ``latency_buffer.cpp`` are copies of that package's.  The library is built
 from them at first use with ``g++`` into ``fdreadoutlibs_tpu_torch/_build/``
 (gitignored), under a name keyed on the sources and flags, so an edited
@@ -402,6 +403,31 @@ def relayout_time2_protowib(frames: np.ndarray, chan_list,
         return out
     from ..formats import protowib as pw
     adcs = pw.get_adcs(frames)[:, chan].astype(np.int32)
+    res = _pair_flat(adcs, C, S)
+    if out is not None:
+        _check_out(out, res.shape)[...] = res
+        return out
+    return res
+
+
+def relayout_time2_daphne(words: np.ndarray, out: np.ndarray = None,
+                          pad8: bool = True) -> np.ndarray:
+    """DAPHNE-stream variant of relayout_time2 (the JAX package's
+    ``native/__init__.py:475-503``): (L, N, 112) uint32 frame rows (each
+    frame = 64 ticks x 4 channels, TIME-major 14-bit values) -> (N*32, S,
+    128) int32 time-paired canonical layout, channel c = 4*link + ch.
+    The numpy codec only (the port's native library carries no DAPHNE
+    codec); pad8=False ships only ceil(C/128) rows, as for
+    relayout_time2."""
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    L, N, W = words.shape
+    if W != 112:
+        raise ValueError(f"expected (L, N, 112) DAPHNE stream words, "
+                         f"got {words.shape}")
+    C = 4 * L
+    S = _pad_sublanes8(C) if pad8 else -(-C // 128)
+    adcs = unpack14_words(words.reshape(L, N, 16, 7)) \
+        .reshape(L, N * 64, 4).transpose(1, 0, 2).reshape(N * 64, C)
     res = _pair_flat(adcs, C, S)
     if out is not None:
         _check_out(out, res.shape)[...] = res

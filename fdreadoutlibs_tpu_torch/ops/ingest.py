@@ -10,6 +10,9 @@ Counterparts of ``fdreadoutlibs_tpu/ops/ingest.py``:
   plain-sample datapath on a (T, C) int32 feed;
 * :func:`process_packed_protowib` (:244-276) decodes ProtoWIB frames on
   the device and runs its two planes;
+* :func:`process_packed_daphne` (:213-237) unpacks DAPHNE-stream frame
+  words on the device (4 channels x 64 ticks per frame) and runs the
+  plain-sample datapath;
 * :func:`process_packed_frames_fused` (:84-104) and
   :func:`process_words14_feed` (:111-143) hand the packed words to the
   kernel, which unpacks them in-register (K4): the frame words as they
@@ -35,7 +38,7 @@ from .chanstate import init_chanstate, seed_chanstate
 from .config import TPGConfig
 from .hits import HIT_DTYPE, hits_from_compact, sort_hits
 
-from ..formats import protowib, wib2, wibeth
+from ..formats import daphne, protowib, wib2, wibeth
 from ..utils.tuning import kernel_knobs
 from .hits import compact_slots
 from .tpg import auto_tc, pack_state, process_window
@@ -173,6 +176,28 @@ def process_packed_protowib(words: torch.Tensor, coll_state: torch.Tensor,
             run(protowib.INDUCTION_INDEX_TO_CHAN, ind_state, ind_cfg))
 
 
+def process_packed_daphne(words: torch.Tensor, state: torch.Tensor,
+                          cfg: TPGConfig, n_channels: int, tc: int = 512,
+                          k_slots: int = 4, fir_twopass: int = 0):
+    """DAPHNE-stream packed ingest (:213-237): words (L, N, 112) int32
+    packed rows — each stream frame is 64 ticks of 4 channels, time-major
+    — for L links -> device unpack -> (T, L*4) samples (channel = link*4 +
+    c, T = 64 N) -> the plain-sample datapath.  Returns (slots, nclose,
+    new_state) like ``tpg.process_window``."""
+    _check_channels(state, n_channels)
+    L, N, _ = words.shape
+    C = L * daphne.STREAM_N_CHANNELS
+    if C != n_channels:
+        raise ValueError(f"{L} links of {daphne.STREAM_N_CHANNELS} channels "
+                         f"are not {n_channels} channels")
+    T = N * daphne.STREAM_N_SAMPLES
+    adcs = daphne.stream_unpack_frames(_as_int32(words))   # (L, N, 64, 4)
+    flat = adcs.reshape(L, T, daphne.STREAM_N_CHANNELS).transpose(0, 1) \
+        .reshape(T, C)
+    return process_window(flat, state, cfg, tc=tc, k_slots=k_slots,
+                          time_packed=False, fir_twopass=fir_twopass)
+
+
 def compact_on_device(slots, nclose, tick_offset: int, n_channels: int,
                       max_hits: int):
     """-> ONE (max_hits + 1, 6) int32 device tensor: the compact hit rows
@@ -251,8 +276,9 @@ class StreamingIngest:
     ("cuda" runs the kernel and raises without a card; "cpu" runs the
     kernel's plain version).
 
-    format="wibeth" (64 channels x 64 ticks per frame) or "wib2" (256
-    channels x 1 tick per frame; superchunk frames flattened per link).
+    format="wibeth" (64 channels x 64 ticks per frame), "wib2" (256
+    channels x 1 tick per frame; superchunk frames flattened per link) or
+    "daphne_stream" (4 channels x 64 ticks per frame).
     Ingest modes: the packed words unpacked on the device (default),
     ``fused=True`` (WIBEth only: the in-kernel unpack, K4, fed by
     :meth:`submit_words` or, already in words14 order, by
@@ -270,11 +296,7 @@ class StreamingIngest:
                  time2: bool = False, device="cuda",
                  fir_twopass: int | None = None):
         from ..apps.apa_readout import resolve_device
-        if format == "daphne_stream":
-            raise NotImplementedError(
-                "StreamingIngest(format='daphne_stream') is not ported yet "
-                "(ROADMAP.md queue 1 item 8, the PDS frontend)")
-        if format not in ("wibeth", "wib2"):
+        if format not in ("wibeth", "wib2", "daphne_stream"):
             raise ValueError(f"unknown format {format!r}")
         if fused and format != "wibeth":
             raise ValueError("fused in-kernel unpack supports "
@@ -288,15 +310,23 @@ class StreamingIngest:
         self.fused = fused
         self.time2 = time2
         self._t2_bufs = native.FeedBuffer()   # host relayout output reuse
+        self._ticks_per_row = 1            # ticks per packed word row
+        # _unpack: the first row of each link's words -> its channels'
+        # samples of tick 0, (L, channels per link)
         if format == "wibeth":
             self._ch_per_link = wibeth.N_CHANNELS
             self._fn = process_packed_frames_fused if fused \
                 else process_packed_frames
             self._unpack = wibeth.unpack_frames
-        else:
+        elif format == "wib2":
             self._ch_per_link = wib2.N_CHANNELS
             self._fn = process_packed_wib2
             self._unpack = wib2.unpack_frames
+        else:
+            self._ch_per_link = daphne.STREAM_N_CHANNELS
+            self._fn = process_packed_daphne
+            self._ticks_per_row = daphne.STREAM_N_SAMPLES
+            self._unpack = lambda w: daphne.stream_unpack_frames(w)[..., 0, :]
         self.n_channels = n_links * self._ch_per_link
         # explicit arguments win; else the tuned file (FDREADOUT_TUNED);
         # else the shipped table (ingest.py:398-407)
@@ -350,11 +380,12 @@ class StreamingIngest:
         self.tick_offset += T
 
     def submit_words(self, words: np.ndarray):
-        """words: (L, rows, W) uint32 packed rows (W=28 wibeth, 112 wib2).
-        Returns the decoded hits of the PREVIOUS batch, or None."""
+        """words: (L, rows, W) uint32 packed rows (W=28 wibeth, 112 wib2
+        and daphne_stream).  Returns the decoded hits of the PREVIOUS
+        batch, or None."""
         if self.time2:
             return self.submit_time2(self.host_relayout_time2(words))
-        T = words.shape[1]
+        T = words.shape[1] * self._ticks_per_row
         if self.state is None:
             self._ensure_state(words)
         out = self._collect() if self._pending is not None else None
@@ -386,8 +417,15 @@ class StreamingIngest:
     def host_relayout_time2(self, words: np.ndarray) -> np.ndarray:
         """(L, rows, W) packed words -> the time2 feed (T//2,
         ceil(C/128), 128) int32 (``native.relayout_time2(pad8=False)``:
-        the port's kernel reads unpadded rows), into a reused
+        the port's kernel reads unpadded rows; the DAPHNE-stream codec
+        ``native.relayout_time2_daphne`` for that format), into a reused
         ``native.FeedBuffer``."""
+        if self.format == "daphne_stream":
+            L, N, _ = words.shape
+            shape = (N * daphne.STREAM_N_SAMPLES // 2,
+                     -(-self.n_channels // 128), 128)
+            return native.relayout_time2_daphne(
+                words, out=self._t2_bufs.get(shape), pad8=False)
         L, T, _ = words.shape
         shape = native.time2_feed_shape(L, T, ch_per_link=self._ch_per_link,
                                         pad8=False)
@@ -438,10 +476,14 @@ class StreamingIngest:
             words = wibeth.frames_bytes_to_u32(
                 frames_links.reshape(-1, wibeth.FRAME_SIZE)) \
                 .reshape(L, N * wibeth.N_TIME_SAMPLES, 28)
-        else:
+        elif self.format == "wib2":
             words = np.ascontiguousarray(wib2.adc_region_u32(
                 frames_links.reshape(-1, wib2.FRAME_SIZE))) \
                 .reshape(L, N, wib2.ADC_WORDS)
+        else:
+            words = daphne.stream_frames_bytes_to_u32(
+                frames_links.reshape(-1, daphne.STREAM_FRAME_SIZE)) \
+                .reshape(L, N, daphne.STREAM_ADC_WORDS)
         return self.submit_words(words)
 
     def _collect(self):

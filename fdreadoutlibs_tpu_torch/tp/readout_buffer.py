@@ -1,7 +1,7 @@
 """Raw-payload readout buffering + windowed data requests.
 
 Port copy of ``fdreadoutlibs_tpu/tp/readout_buffer.py``: identical code apart
-from imports; ``request_fragment`` (the Fragment/wire path) is left out.
+from imports.
 
 The reference's request handlers serve *raw payload* windows from latency
 buffers for trigger readout (DefaultRequestHandlerModel /
@@ -461,6 +461,20 @@ class ReadoutRequestHandler:
         span = self.adapter.payload_tick_difference
         win = self.buffer.extract_window(max(0, start_ts - span + 1), end_ts)
         return win if self.ring else win["payload"]
+
+    def request_fragment(self, start_ts: int, end_ts: int, *,
+                         run_number: int = 0, trigger_number: int = 0,
+                         source_id: int = 0, sequence_number: int = 0):
+        """Serve a DataRequest as a daqdataformats-style Fragment (payloads
+        + FragmentHeader with the requested window)."""
+        from ..formats.fragment import build_fragment
+        payloads = self.request(start_ts, end_ts)
+        return build_fragment(
+            payloads, run_number=run_number, trigger_number=trigger_number,
+            window_begin=start_ts, window_end=end_ts, source_id=source_id,
+            fragment_type=self.adapter.fragment_type,
+            sequence_number=sequence_number,
+            subsystem=self.adapter.subsystem)
 
     def cleanup(self, max_ts_diff: Optional[int] = None,
                 max_occupancy: Optional[int] = None) -> int:

@@ -1,7 +1,7 @@
 """TP request handler: TPSet windowing, heartbeats, cutoff, data requests.
 
 Port copy of ``fdreadoutlibs_tpu/tp/request_handler.py``: identical code apart
-from imports; ``request_fragment`` (the Fragment/wire path) is left out.
+from imports.
 
 Equivalent of TPCTPRequestHandler (src/TPCTPRequestHandler.cpp): a sender
 loop windows buffered TPs into ``trigger::TPSet``s at a configured rate with
@@ -206,6 +206,21 @@ class TPRequestHandler:
         """Serve a data request: all buffered TPs in [start_ts, end_ts)."""
         self.metrics.inc("num_requests")
         return self.buffer.extract_window(start_ts, end_ts)
+
+    def request_fragment(self, start_ts: int, end_ts: int, *,
+                         run_number: int = 0, trigger_number: int = 0,
+                         source_id: int = 0, sequence_number: int = 0):
+        """Serve a data request as a kTriggerPrimitive Fragment — the
+        trigger-record path the reference serves through
+        DefaultSkipListRequestHandler over TriggerPrimitiveTypeAdapter
+        payloads (SWWIBTriggerPrimitiveProcessor.hpp:36-51)."""
+        from ..formats.fragment import build_fragment
+        tps = self.request(start_ts, end_ts)
+        return build_fragment(
+            tps, run_number=run_number, trigger_number=trigger_number,
+            window_begin=start_ts, window_end=end_ts, source_id=source_id,
+            fragment_type="kTriggerPrimitive",
+            sequence_number=sequence_number)
 
     def get_info(self) -> dict:
         info = self.metrics.get_info()

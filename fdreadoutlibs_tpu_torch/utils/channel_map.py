@@ -1,10 +1,10 @@
 """Channel map service (≈ detchannelmaps::TPCChannelMap).
 
-Copied from ``fdreadoutlibs_tpu/utils/channel_map.py:20-291, 403-493,
-527-572``: the maps the port's processors resolve through
-:func:`make_map` and what they call; the code is unchanged.  The
-vertical-drift TDE map and the dump-writing and cross-check tools
-(:294-400, :496-524, :539-561) are not carried yet.
+Copied from ``fdreadoutlibs_tpu/utils/channel_map.py:20-371, 403-493,
+527-576``: the maps the port's processors resolve through
+:func:`make_map` (the vertical-drift :class:`VDTDEChannelMap` among them)
+and what they call; the code is unchanged.  The dump-writing and
+cross-check tools (:374-400, :496-524, :539-561) are not carried yet.
 
 The reference resolves (crate, slot, stream, in-frame channel) -> offline
 channel and offline channel -> plane through an external package
@@ -298,6 +298,84 @@ class HDAPAChannelMap(ChannelMap):
 
 
 
+class VDTDEChannelMap(ChannelMap):
+    """Vertical-drift top-electronics (TDE) channel map, geometry-derived.
+
+    The VD top drift is read out by uTCA crates of AMC digitizer cards,
+    64 channels each (TDE16 frames; TDEFrameTypeAdapter); one CRP
+    (charge-readout plane) carries 3072 strips in three views —
+    induction-1, induction-2, collection, sizes (952, 952, 1168).  The
+    reference has no VD map in-repo either (it would come from
+    detchannelmaps' vdcb/vdtop tables), so, like :class:`HDAPAChannelMap`,
+    this derives offline numbers from the electronics geometry and takes
+    the exact installation orderings as injectable data:
+
+    * ``offline = crp * 3072 + serial`` with
+      ``serial = perm[((crate % crates_per_crp) * n_slots + slot) * 64
+      + chan]`` and ``crp = crate // crates_per_crp``;
+    * ``perm`` is an optional 3072-entry permutation (identity by
+      default) — inject the real vdtop ordering here, or load a full
+      dump via :meth:`TableChannelMap.from_file`;
+    * planes follow this framework's convention: 0 = collection,
+      1/2 = induction views, split by cumulative view sizes.
+    """
+
+    def __init__(self, plane_sizes=(952, 952, 1168), crates_per_crp: int = 4,
+                 n_slots: int = 12, permutation=None):
+        self.plane_sizes = tuple(int(s) for s in plane_sizes)
+        self.channels_per_crp = sum(self.plane_sizes)
+        self.crates_per_crp = crates_per_crp
+        self.n_slots = n_slots
+        if crates_per_crp * n_slots * 64 != self.channels_per_crp:
+            raise ValueError(
+                f"geometry mismatch: {crates_per_crp} crates x {n_slots} "
+                f"AMCs x 64 != {self.channels_per_crp} channels/CRP")
+        if permutation is None:
+            self.permutation = np.arange(self.channels_per_crp)
+        else:
+            self.permutation = np.asarray(permutation)
+            if sorted(self.permutation.tolist()) != \
+                    list(range(self.channels_per_crp)):
+                raise ValueError("permutation must be a permutation of "
+                                 f"range({self.channels_per_crp})")
+
+    def get_offline_channel_from_crate_slot_stream_chan(self, crate, slot,
+                                                        stream, chan):
+        # TDE links carry one stream per AMC; ``stream`` is the link id
+        # and is 0 in the tde_file_creator layout — fold it into the slot
+        # index if an installation uses multiple links per AMC
+        if not (0 <= slot < self.n_slots and 0 <= chan < 64):
+            raise ValueError(f"TDE geometry: slot in [0,{self.n_slots}), "
+                             f"chan in [0,64); got {slot}, {chan}")
+        crp, crate_in = divmod(int(crate), self.crates_per_crp)
+        serial = (crate_in * self.n_slots + int(slot)) * 64 + int(chan)
+        return crp * self.channels_per_crp + int(self.permutation[serial])
+
+    def get_plane_from_offline_channel(self, offline):
+        in_crp = int(offline) % self.channels_per_crp
+        u, v, _ = self.plane_sizes
+        if in_crp < u:
+            return 1
+        if in_crp < u + v:
+            return 2
+        return 0                                      # collection
+
+    def offline_channels(self, crate, slot, stream, n_channels=64):
+        # same geometry validation as the scalar accessor — this is the
+        # path TDEFrameProcessor uses, and an out-of-range slot would
+        # otherwise alias into another AMC's serial range silently
+        if not (0 <= int(slot) < self.n_slots and 0 < n_channels <= 64):
+            raise ValueError(f"TDE geometry: slot in [0,{self.n_slots}), "
+                             f"n_channels in (0,64]; got {slot}, {n_channels}")
+        if int(crate) < 0:
+            raise ValueError(f"TDE geometry: crate must be >= 0; got {crate}")
+        crp, crate_in = divmod(int(crate), self.crates_per_crp)
+        base = (crate_in * self.n_slots + int(slot)) * 64
+        serial = base + np.arange(n_channels)
+        return (crp * self.channels_per_crp
+                + self.permutation[serial]).astype(np.int64)
+
+
 def frontend_geometry(frontend: str) -> tuple[int, int]:
     """(n_streams, channels_per_stream) for an HD-APA frontend.
 
@@ -413,3 +491,6 @@ register_map("PD2HDChannelMap", HDAPAChannelMap)
 register_map("HDColdboxChannelMap", HDAPAChannelMap)
 register_map("VDColdboxChannelMap", IdentityChannelMap)
 register_map("ProtoDUNESP1ChannelMap", HDAPAChannelMap)
+# vertical-drift top electronics (the TDE path)
+register_map("VDTDEChannelMap", VDTDEChannelMap)
+register_map("VDTopChannelMap", VDTDEChannelMap)

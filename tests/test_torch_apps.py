@@ -208,10 +208,15 @@ def test_feeds_agree_and_flags_exclusive():
 def _unported(case):
     from fdreadoutlibs_tpu.ops import TPGConfig
     from fdreadoutlibs_tpu_torch.ops import ingest
-    ingest.StreamingIngest(TPGConfig(), n_links=1, format=case, device="cpu")
+    return ingest.StreamingIngest(TPGConfig(), n_links=1, format=case,
+                                  device="cpu")
 
 
 @pytest.mark.parametrize("case", ["daphne_stream"])
 def test_unported_feeds_refused(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _unported(case)
+    """DAPHNE-stream, once the one feed the port refused, is ported
+    (tests/test_torch_pds.py holds it to the JAX package); a format neither
+    package has is refused."""
+    assert _unported(case).n_channels == 4
+    with pytest.raises(ValueError, match="unknown format"):
+        _unported("daphne_selftriggered")

@@ -10,7 +10,10 @@ the float running sum; the ``SLOT_WORD_CARRY`` layout on every one of those
 datapaths; the probes' kernels P1-P3), and the APA app (every feed),
 ``StreamingIngest``, the WIB2 and
 ProtoWIB processors and ``run_model`` on the card against the same on the
-CPU.  Marked ``cuda``:
+CPU; for the detector slice, K2 at the PDS and TDE widths (40, 64 and 62
+channels; 512- and 333-tick windows), the PDS app (sync and pipelined),
+the DAPHNE-stream processor and the three-arm detector app on the card
+against the same on the CPU.  Marked ``cuda``:
 each test skips where torch finds no card.  This file imports no JAX, so on
 the machine with the card (which has none) run it without the suite's
 conftest:
@@ -793,3 +796,139 @@ def test_probe_entries_refuse_cpu_routes(card):
     a, b = i16_ops.op_inputs("add", card)
     with pytest.raises(ValueError):
         i16_ops.one_op("add", a, b.cpu())
+
+
+# ---- the detector slice: K2 at the PDS and TDE widths, the PDS device
+# path, the TDE arm under "pallas" and the three-arm app
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=IDS[:len(CONFIGS)])
+@pytest.mark.parametrize("C,T,tc,k", [(40, 3072, 512, 4),
+                                      (64, 512, 512, 8),
+                                      (64, 333, 333, 8),
+                                      (62, 333, 333, 8)])
+def test_k2_detector_widths_match_plain(card, cfg, C, T, tc, k):
+    """K2 at 40 channels (the PDS app's 10 links: a block of 32 and one of
+    8) and 64 (a TDE link; the 512-tick windows of ``run_model`` and the
+    333-tick tail of a 5965-tick cycle; 62, a link with two channels
+    missing), against its plain version."""
+    adcs, rmf = tpg_stream(T, C, tc, k, seed=C + T)
+    st = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], rmf), C,
+                        device=card)
+    feed = torch.from_numpy(adcs).to(card)
+    before = tpg.process_window.function_launches["K2"]
+    got = tpg.process_window(feed, st, cfg, tc, k, time_packed=False)
+    assert tpg.process_window.function_launches["K2"] == before + 1
+    want = tpg.process_window_plain(feed.cpu(), st.cpu(), cfg, tc, k,
+                                    time_packed=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int((want[0][:, :, -1] != 0).sum()) > 0
+
+
+def test_pds_app_on_card_matches_cpu(card):
+    from fdreadoutlibs_tpu_torch.apps.pds_readout import (PDSReadoutApp,
+                                                          make_batch as pds)
+    rng = np.random.default_rng(5)
+    batches = [pds(rng, 10, 4, 0x2000000 + b * 3072, signal_rate=0.5)[0]
+               for b in range(3)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for pipelined in (False, True):
+            app = PDSReadoutApp(n_links=10, device=dev, pipelined=pipelined)
+            fetched = []
+            fetch = app._fetch_hits
+
+            def recording_fetch(packed, fetch=fetch, fetched=fetched):
+                fetched.append(fetch(packed))
+                return fetched[-1]
+
+            app._fetch_hits = recording_fetch
+            tpg.reset_launches()
+            for scs in batches:
+                app.process_batch(scs.copy())
+            app.flush()
+            out[dev, pipelined] = (fetched, app.handler.buffer.snapshot(),
+                                   dict(tpg.process_window.function_launches))
+    want = out["cpu", False]
+    assert sum(len(h) for h, _ in want[0]) > 0
+    for key, got in out.items():
+        for (ha, da), (hb, db) in zip(got[0], want[0]):
+            np.testing.assert_array_equal(ha, hb)
+            assert da == db
+        np.testing.assert_array_equal(got[1], want[1])
+        assert got[2]["K2"] == (3 if key[0] == "cuda" else 0)
+
+
+def test_daphne_stream_processor_on_card_matches_cpu(card):
+    from fdreadoutlibs_tpu_torch.formats import daphne
+    from fdreadoutlibs_tpu_torch.stream import DAPHNEStreamFrameProcessor
+    rng = np.random.default_rng(6)
+    sc = daphne.empty_superchunks(8, stream=True)
+    adcs = (800 + rng.normal(0, 10, (8 * 768, 4))).astype(np.uint16)
+    adcs[1000:1010, 2] += 600
+    daphne.stream_set_adcs(daphne.superchunk_frames(sc, stream=True)
+                           .reshape(-1, daphne.STREAM_FRAME_SIZE),
+                           adcs.reshape(-1, 64, 4))
+    daphne.fake_timestamps(sc, 40_000, offset=64, stream=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sink = QueueSender()
+        p = DAPHNEStreamFrameProcessor(tp_sink=sink, device=dev)
+        p.conf({"enable_tpg": True, "tpg_threshold": 150,
+                "tpg_backend": "pallas"})
+        p.start()
+        p.process(sc[:4].copy())
+        p.process(sc[4:].copy())
+        out[dev] = (np.concatenate(sink.drain()), p.current_state())
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    for key in out["cpu"][1]:
+        np.testing.assert_array_equal(out["cuda"][1][key], out["cpu"][1][key])
+
+
+def test_detector_app_on_card_matches_cpu(card, tmp_path):
+    """The three-arm app (TPC on the fused feed, K4; PDS, K2; TDE under
+    "pallas", K2) on the card against the same on the CPU: the merged
+    TPSet stream and per-arm info; one fragment per arm."""
+    from fdreadoutlibs_tpu_torch.apps.detector_readout import (
+        PDS_SOURCE_BASE, TDE_SOURCE_BASE, DetectorReadoutApp, _pds_batch,
+        _tde_cycle, _tpc_batch)
+    from fdreadoutlibs_tpu_torch.tp.recorder import FragmentRecorder
+    rng = np.random.default_rng(8)
+    batches = []
+    for b in range(2):
+        batches.append((_tpc_batch(rng, 4, 8, b, 0x1000000 + b * 8 * 2048),
+                        _pds_batch(rng, 2, 2, 0x2000000 + b * 1536)[0],
+                        _tde_cycle(rng, 2, 0x3000000 + b * 190880, True)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        app = DetectorReadoutApp(apa_links=4, pds_links=2, tde_links=2,
+                                 tde_backend="pallas", device=dev,
+                                 fused_unpack=True)
+        tpg.reset_launches()
+        sets = []
+        for tpc, pds, tde_frames in batches:
+            app.process_tpc_batch(tpc.copy())
+            app.process_pds_batch(pds.copy())
+            app.process_tde_batch(tde_frames.copy())
+            sets += app.drain_tpsets()
+        app.flush()
+        sets += app.drain_tpsets()
+        rec = FragmentRecorder(tmp_path / dev)
+        for sid in (1, PDS_SOURCE_BASE, TDE_SOURCE_BASE + 1):
+            app.record_fragment(sid, 0, 1 << 30, rec)
+        info = app.get_info()
+        for arm in info.values():
+            arm.pop("handler")
+        out[dev] = (sets, info, [(tmp_path / dev / m["file"]).read_bytes()
+                                 for m in rec.index()],
+                    dict(tpg.process_window.function_launches))
+    (sa, ia, fa, la), (sb, ib, fb, lb) = out["cuda"], out["cpu"]
+    assert ia == ib and fa == fb and len(sa) == len(sb) > 0
+    for x, y in zip(sa, sb):
+        assert (x.origin, x.start_time, x.seqno) == \
+            (y.origin, y.start_time, y.seqno)
+        np.testing.assert_array_equal(x.objects, y.objects)
+    # K4: one per TPC batch; K2: one per PDS batch + 12 windows per TDE
+    # link per cycle
+    assert la["K4"] == 2 and la["K2"] == 2 + 2 * 2 * 12
+    assert not any(lb.values())

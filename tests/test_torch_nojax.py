@@ -52,6 +52,21 @@ for kw in ({}, {"fused": True}, {"time2": True}):
         ing.submit(make_batch(rng, 2, 2, b, 0x1000000 + 4096 * b)[0])
     assert len(ing.flush()[0]) > 0, kw
 
+from fdreadoutlibs_tpu_torch.apps import detector_readout, pds_readout
+assert detector_readout.main(["--apa-links", "1", "--pds-links", "1",
+                              "--tde-links", "1", "--batches", "1",
+                              "--tde-backend", "pallas", "--device",
+                              "cpu"]) == 0
+assert pds_readout.main(["--links", "2", "--batches", "2",
+                         "--superchunks-per-batch", "1", "--pipelined",
+                         "--device", "cpu"]) == 0
+ing = StreamingIngest(TPGConfig(threshold=120), 2, format="daphne_stream",
+                      device="cpu")
+scs = pds_readout.make_batch(np.random.default_rng(3), 2, 1, 0,
+                             signal_rate=1.0)[0]
+ing.submit(scs.reshape(2, -1, 472))        # (links, frames, frame bytes)
+assert len(ing.flush()[0]) > 0
+
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor
 from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
 from fdreadoutlibs_tpu_torch.testing import wib2_superchunks
@@ -121,7 +136,19 @@ if not torch.cuda.is_available():
     else:
         raise AssertionError("StreamingIngest on 'cuda' without a card did "
                              "not raise")
-    for proc_cls in (WIB2FrameProcessor, WIBFrameProcessor):
+    for app_cls in (pds_readout.PDSReadoutApp,
+                    detector_readout.DetectorReadoutApp):
+        try:
+            app_cls(device="cuda")
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError(f"{app_cls.__name__} on 'cuda' without a "
+                                 "card did not raise")
+    from fdreadoutlibs_tpu_torch.stream import (DAPHNEStreamFrameProcessor,
+                                                TDEFrameProcessor)
+    for proc_cls in (WIB2FrameProcessor, WIBFrameProcessor,
+                     DAPHNEStreamFrameProcessor, TDEFrameProcessor):
         try:
             proc_cls(device="cuda")
         except RuntimeError:
@@ -210,7 +237,9 @@ def test_no_port_module_imports_the_jax_package():
     paths = sorted((ROOT / "fdreadoutlibs_tpu_torch").rglob("*.py"))
     assert len(paths) > 35
     assert {"roofline.py", "i16_ops.py", "swar_frugal.py", "slots_ab.py",
-            "preflight.py"} <= {p.name for p in paths}
+            "preflight.py", "detector_readout.py", "pds_readout.py",
+            "fragment.py", "wire.py", "daphne.py", "tde.py", "ssp.py",
+            "recorder.py"} <= {p.name for p in paths}
     for path in paths:
         roots = _import_roots(path)
         assert not roots & {"fdreadoutlibs_tpu", "jax", "jaxlib",
