@@ -104,7 +104,29 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    payloads and ``record_fragment`` writes one fragment per arm that reads
    back with the requested source id and payloads; then the PDS arm's K2
    alone on its batch (the one-chain-per-channel bound on the arm's RTF)
-   and one TDE window's K2.
+   and one TDE window's K2;
+10. modules slice — ``apps.scheduler.MultiAPAScheduler`` at 4 APAs x 40
+   WIBEth links (4 x 2560 channels; AbsRS 150, phase 4's
+   threshold-on-collection memory factors, k_slots 4): one warm-up batch
+   and 8 steady batches of 128 frames an APA, submitted round-robin in a
+   seeded shuffled order (K2 once per submit); the aggregate RTF (4 x
+   detector seconds over wall seconds), ms per submit p50 and the stage
+   split of one submit (words copy, H2D, unpack, K2, compaction, fetch).
+   APA 0 takes phase 4's batches and equals phase 4's plain result on
+   batches 0-1 (end ticks shifted by the batch's offset, the same cap of
+   max(2048, 2C)); APAs 1-3 take phase 4's batches from other starts with
+   the links rotated and each equals a single-APA ``StreamingIngest`` on
+   the card, hits and dropped counts; APA 1's batch 0 equals the plain
+   version; ``get_info`` counts 9 batches an APA.  Then ``entry()`` on the
+   card (K4 once) against ``entry(device="cpu")``; the CLI in-process
+   (``cli.main``): ``make-zeros`` -> ``pattern-generator -p golden`` ->
+   ``tpg-emulator -i pallas`` (2 hits, the reference's TP file),
+   ``compare-backends -b reference scan pallas`` on 32 frames of one link
+   (MATCH), and ``profile`` at 2560 channels x 8192 ticks x 4 windows for
+   AbsRS (K2), FIR (K3) and FIR ``--fir-twopass 2`` (K5), each trace's
+   summary naming ``pipe_kernel``; last a WIBEth processor on the card
+   checkpointed with its state on the card and a hit in flight, restored
+   into a fresh processor, equal to the uninterrupted run.
 
 Phase 2 also builds the port's native host codecs (``native/``) and fails
 if they do not load, so no host stage is timed on the numpy fallback.
@@ -127,7 +149,8 @@ version.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels (each with the launches of its kernel function on the main
-paths, phase 9's included, ``tpg.kernel_of``, and beside them ``datapath_launches``, every
+paths, phases 9 and 10 included, ``tpg.kernel_of``, and beside them
+``datapath_launches``, every
 launch whose datapath holds it, ``tpg.kernels_of``; its error against
 the plain version, its time, the plain version's, and its bound: the
 larger of the bytes it must move over 3.35 TB/s and its int32 operations
@@ -139,6 +162,8 @@ the port.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -152,24 +177,28 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from fdreadoutlibs_tpu_torch import native, probes
+from fdreadoutlibs_tpu_torch import cli, native, probes
+from fdreadoutlibs_tpu_torch import entry as entry_mod
 from fdreadoutlibs_tpu_torch.apps import detector_readout, pds_readout
 from fdreadoutlibs_tpu_torch.apps.apa_readout import APAReadoutApp, make_batch
+from fdreadoutlibs_tpu_torch.apps.scheduler import MultiAPAScheduler
+from fdreadoutlibs_tpu_torch.entry import entry
 from fdreadoutlibs_tpu_torch.formats import daphne, protowib, tde, wib2, wibeth
 from fdreadoutlibs_tpu_torch.models.algorithms import (
     K_SLOTS as RUN_MODEL_K, WINDOW as RUN_MODEL_WINDOW)
 from fdreadoutlibs_tpu_torch.ops import (Algorithm, TPGConfig, _build,
-                                         ingest, init_chanstate,
+                                         ingest, init_chanstate, patterns,
                                          seed_chanstate, tpg)
 from fdreadoutlibs_tpu_torch.ops.hits import concat_hits
-from fdreadoutlibs_tpu_torch.ops.ingest import (compact_on_device,
+from fdreadoutlibs_tpu_torch.ops.ingest import (StreamingIngest,
+                                                compact_on_device,
                                                 unpack_compact)
 from fdreadoutlibs_tpu_torch.probes import (fir_pipe, i16_ops, roofline,
                                             slots_ab, swar_frugal)
 from fdreadoutlibs_tpu_torch.probes.roofline import (DECODE_OPS, INT32_LANES,
                                                      OPS_PER_TICK)
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor, \
-    WIBFrameProcessor
+    WIBEthFrameProcessor, WIBFrameProcessor
 from fdreadoutlibs_tpu_torch.stream import tde as tde_stream
 from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
 from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
@@ -178,6 +207,8 @@ from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
                                              wib2_superchunks)
 from fdreadoutlibs_tpu_torch.tp.recorder import FragmentRecorder
 from fdreadoutlibs_tpu_torch.tp.wib_tp_handler import WIBTPHandler
+from fdreadoutlibs_tpu_torch.utils import checkpoint
+from fdreadoutlibs_tpu_torch.utils.logging import device_trace
 from fdreadoutlibs_tpu_torch.utils.preflight import (device_preflight,
                                                      nvidia_smi, sm_clock_mhz)
 from fdreadoutlibs_tpu_torch.utils.tuning import kernel_knobs
@@ -834,8 +865,10 @@ def apa_stage_split(app, frames, feed: str, n_rep: int = 5):
     return {k: statistics.median(r[k] for r in reps) for k in reps[0]}
 
 
-def apa_slice(dev) -> dict:
-    """Phase 4.  Returns each feed's kernel launches in its app run."""
+def apa_slice(dev) -> tuple:
+    """Phase 4.  Returns each feed's kernel launches in its app run, and
+    for phase 10 its batches, memory factors, configuration and plain
+    result."""
     rng = np.random.default_rng(SEED)
     ts, batches, checked_adcs = 0x1000000, [], []
     for b in range(N_WARM + N_TIMED):
@@ -902,6 +935,8 @@ def apa_slice(dev) -> dict:
                                   for p in app.procs])
             plain = list(plain_app_hits(checked_adcs, rmf, app.cfg,
                                         app.k_slots, dev))
+            apa_data = {"batches": batches, "plain": plain, "rmf": rmf,
+                        "cfg": app.cfg}
         for b, (want_h, d_want) in enumerate(plain):
             hits, d = fetched[b]
             if d != d_want or not np.array_equal(hits, want_h):
@@ -920,7 +955,7 @@ def apa_slice(dev) -> dict:
                          "proc_ms_p50": lat["proc_ms_p50"],
                          "proc_ms_p95": lat["proc_ms_p95"]}
     print("  apa feeds:", json.dumps(summary))
-    return launches_of
+    return launches_of, apa_data
 
 
 def make_wib2_procs(time2: bool, dev):
@@ -2035,6 +2070,308 @@ def detector_slice(dev) -> dict:
             for k in ("K2", "K4")}
 
 
+# ---- phase 10: the modules slice -------------------------------------------
+
+SCHED_APAS = 4               # README "Using it": 4 APAs of 40 links a card
+SCHED_TIMED = 8              # steady batches per APA, after one warm-up
+SCHED_K = 4                  # the APA app's k_slots
+CLI_FRAMES = 32              # one link's frames in compare-backends' file
+PROFILE_RUNS = (("AbsRS", [], "K2"), ("FIR", ["-t", "5"], "K3"),
+                ("FIR", ["-t", "5", "--fir-twopass", "2"], "K5"))
+
+
+def sched_stage_split(sched, frames, n_rep: int = 5):
+    """One scheduler submit one step at a time (each synced): median ms per
+    stage.  APA 0's carried state is left untouched."""
+    L, N, _ = frames.shape
+    T, C = N * wibeth.N_TIME_SAMPLES, L * wibeth.N_CHANNELS
+    tc = tpg.auto_tc(T, cap=sched.tc)
+    reps = []
+    for _ in range(n_rep):
+        r = {}
+        words, r["words copy"] = clock(lambda: wibeth.frames_bytes_to_u32(
+            frames.reshape(-1, wibeth.FRAME_SIZE)).reshape(L, T, 28))
+        dev_in, r["H2D"] = clock(lambda: torch.from_numpy(
+            words.view(np.int32)).to(sched.device))
+        feed, r["unpack"] = clock(lambda: wibeth.unpack_frames(
+            dev_in.transpose(0, 1)).reshape(T, C))
+        (slots, nclose, _), r["K2"] = clock(lambda: tpg.process_window(
+            feed, sched._stacks[0], sched.cfg, tc, sched.k_slots,
+            time_packed=False))
+        packed, r["compaction"] = clock(lambda: compact_on_device(
+            slots, nclose, 0, C, max(2048, 2 * C)))
+        _, r["fetch"] = clock(lambda: unpack_compact(packed))
+        reps.append(r)
+    return {k: statistics.median(r[k] for r in reps) for k in reps[0]}
+
+
+def same_hits(label: str, got, want) -> None:
+    (hits, d), (want_h, want_d) = got, want
+    if d != want_d or not np.array_equal(hits, want_h):
+        raise AssertionError(f"{label}: hits ({len(hits)}, dropped {d}) "
+                             f"differ from ({len(want_h)}, dropped {want_d})")
+
+
+def batch_adcs(frames) -> np.ndarray:
+    """(L, N, 7200) frames -> their (T, C) int32 ADCs."""
+    L, N, _ = frames.shape
+    return wibeth.get_adcs(frames.reshape(-1, wibeth.FRAME_SIZE)) \
+        .reshape(L, N, 64, 64).transpose(1, 2, 0, 3) \
+        .reshape(N * 64, L * 64).astype(np.int32)
+
+
+def scheduler_run(dev, d: dict) -> dict:
+    """The scheduler at full width on phase 4's data ``d``.  Returns its
+    datapath launches."""
+    n = len(d["batches"])
+    # APA 0 takes phase 4's batches; APA k > 0 phase 4's batches from
+    # another start, with the links rotated by 10 k
+    frames = [[d["batches"][b] for b in range(1 + SCHED_TIMED)]] + [
+        [np.roll(d["batches"][(b + 3 * k) % n], 10 * k, axis=0)
+         for b in range(1 + SCHED_TIMED)] for k in range(1, SCHED_APAS)]
+    sched = MultiAPAScheduler(d["cfg"], n_apas=SCHED_APAS, n_links=N_LINKS,
+                              k_slots=SCHED_K, rs_memory_factor=d["rmf"],
+                              device=dev)
+    rng = np.random.default_rng(SEED + 10)
+    got = {a: [] for a in range(SCHED_APAS)}
+
+    def keep(outs):
+        for apa, out in outs:
+            if out is not None:
+                got[apa].append(out)
+
+    tpg.reset_launches()
+    t0 = time.perf_counter()
+    keep((int(a), sched.submit(int(a), frames[int(a)][0]))
+         for a in rng.permutation(SCHED_APAS))
+    keep(sorted(sched.flush().items()))
+    warm_s = time.perf_counter() - t0
+    submit_ms = []
+    t0 = time.perf_counter()
+    for b in range(1, 1 + SCHED_TIMED):
+        for a in rng.permutation(SCHED_APAS):
+            a = int(a)
+            t1 = time.perf_counter()
+            keep([(a, sched.submit(a, frames[a][b]))])
+            submit_ms.append((time.perf_counter() - t1) * 1e3)
+    keep(sorted(sched.flush().items()))
+    wall = time.perf_counter() - t0
+    launches = dict(tpg.process_window.kernel_launches)
+    tally()
+    data_s = SCHED_APAS * SCHED_TIMED * FRAMES * 64 * 32 / 62.5e6
+    info = sched.get_info()
+    print(f"  scheduler: {SCHED_APAS} APAs x {N_LINKS} links "
+          f"({SCHED_APAS} x {C_APA} channels), k_slots {SCHED_K}, tc "
+          f"{tpg.auto_tc(T_APA, cap=sched.tc)}; warm-up round (one batch "
+          f"an APA, then flushed) {warm_s:.4f} s; steady wall {wall:.4f} s "
+          f"for {SCHED_APAS * SCHED_TIMED} submits, data {data_s:.6f} s, "
+          f"aggregate_rtf {data_s / wall:.4f}, ms per submit p50 "
+          f"{statistics.median(submit_ms):.4f} (max {max(submit_ms):.4f})",
+          "launches", json.dumps({k: v for k, v in launches.items() if v}))
+    want = {k: 0 for k in launches}
+    want["K2"] = SCHED_APAS * (1 + SCHED_TIMED)
+    if launches != want:
+        raise AssertionError(f"scheduler: launches {launches}, want {want}")
+    if info["batches"] != [1 + SCHED_TIMED] * SCHED_APAS or \
+            any(len(got[a]) != 1 + SCHED_TIMED for a in got):
+        raise AssertionError(f"scheduler: {info}, collected "
+                             f"{[len(g) for g in got.values()]}")
+    # APA 0 against phase 4's plain result: its end ticks are relative to
+    # each batch, under the same cap of max(2048, 2C)
+    for b, want_b in enumerate(d["plain"]):
+        hits, dropped = got[0][b]
+        hits = hits.copy()
+        hits["end_tick"] -= b * T_APA
+        same_hits(f"scheduler APA 0 batch {b} vs phase 4's plain result",
+                  (hits, dropped), want_b)
+    # APAs 1-3 against a single-APA StreamingIngest of their own batches
+    for a in range(1, SCHED_APAS):
+        ing = StreamingIngest(d["cfg"], N_LINKS, k_slots=SCHED_K,
+                              device_compact=True,
+                              max_hits=max(2048, 2 * C_APA),
+                              rs_memory_factor=d["rmf"], device=dev)
+        outs = [ing.submit(f) for f in frames[a]][1:] + [ing.flush()]
+        for b, want_b in enumerate(outs):
+            same_hits(f"scheduler APA {a} batch {b} vs StreamingIngest",
+                      got[a][b], want_b)
+    # and one batch of another APA against the plain version
+    want_b = next(plain_app_hits([batch_adcs(frames[1][0])], d["rmf"],
+                                 d["cfg"], SCHED_K, dev))
+    same_hits("scheduler APA 1 batch 0 vs the plain version", got[1][0],
+              want_b)
+    print(f"  scheduler: APA 0 batches 0-{len(d['plain']) - 1} == phase 4's "
+          f"plain result ({[len(h) for h, _ in got[0][:len(d['plain'])]]} "
+          f"hits); APAs 1-{SCHED_APAS - 1} == single-APA StreamingIngest, "
+          f"{1 + SCHED_TIMED} batches each "
+          f"({[sum(len(h) for h, _ in got[a]) for a in got]} hits, dropped "
+          f"{[sum(x for _, x in got[a]) for a in got]}); APA 1 batch 0 == "
+          f"plain ({len(want_b[0])} hits)")
+    split = sched_stage_split(sched, frames[0][-1])
+    print("  scheduler stage split, one submit, ms (medians of 5, each stage "
+          "synced):", json.dumps({k: round(v, 4) for k, v in split.items()}))
+    return launches
+
+
+def run_cli(argv) -> tuple:
+    """``cli.main(argv)`` in this process: (exit code, stdout lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def cli_run(dev, td: str) -> dict:
+    """The CLI on the card.  Returns its datapath launches."""
+    def path(name):
+        return os.path.join(td, name)
+
+    def ok(argv, device=True):
+        rc, out = run_cli(argv + (["--device", dev.type] if device else []))
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]} exited {rc}: {out}")
+        return out
+
+    launches = {}
+
+    def count():
+        for k, v in tpg.process_window.kernel_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        tally()
+
+    tpg.reset_launches()
+    ok(["make-zeros", "-o", path("z.bin"), "-n", "2"], device=False)
+    ok(["pattern-generator", "-f", path("z.bin"), "-p", "golden",
+        "--output", path("g.bin")], device=False)
+    rep = json.loads(ok(["tpg-emulator", "-f", path("g.bin"), "-i",
+                         "pallas", "--save-trigprim",
+                         path("tps_pallas.txt")])[-1])
+    # one link of pulses (one a channel on average) on noise: the default
+    # SimpleThreshold at 499 fires on the pulses only, so no backend drops
+    # a close (run_model's "pallas" holds 8 a window)
+    make_batch(np.random.default_rng(SEED + 11), 1, CLI_FRAMES, 0,
+               0x1000000, signal_rate=1.0)[0][0].tofile(path("link.bin"))
+    out = ok(["compare-backends", "-f", path("link.bin"), "-b", "reference",
+              "scan", "pallas"])
+    if int(out[0].split()[1]) <= 0:
+        raise AssertionError(f"cli compare-backends: no hits: {out}")
+    count()
+    ok(["tpg-emulator", "-f", path("g.bin"), "-i", "reference",
+        "--save-trigprim", path("tps_ref.txt")])
+    with open(path("tps_pallas.txt")) as f, open(path("tps_ref.txt")) as g:
+        rows, ref_rows = f.read().splitlines()[1:], g.read().splitlines()[1:]
+    if rep["hits"] != 2 or rows != ref_rows or \
+            rows[0].split(",")[4:6] != ["4528", "506"]:
+        raise AssertionError(f"cli golden round trip: {rep}, {rows} vs "
+                             f"{ref_rows}")
+    print(f"  cli: make-zeros -> pattern-generator -p golden -> tpg-emulator "
+          f"-i pallas: {rep['hits']} hits (one golden hill a frame, charge "
+          f"and peak of the first {rows[0].split(',')[4:6]}) == reference; "
+          f"compare-backends on {CLI_FRAMES} frames of one link: "
+          + "; ".join(out))
+    with device_trace(path("trace_start")):
+        pass        # the profiler's first start in a process (CUPTI) apart
+    for alg, extra, kern in PROFILE_RUNS:
+        tpg.reset_launches()
+        trace = path(f"trace_{kern}")
+        out = ok(["profile", "-a", alg, "--channels", str(C_APA), "--ticks",
+                  str(T_APA), "--windows", "4", "-o", trace, "--top",
+                  "20"] + extra)
+        launched = dict(tpg.process_window.function_launches)
+        if launched[kern] != 5:
+            raise AssertionError(f"cli profile {alg} {extra}: launches "
+                                 f"{launched}")
+        count()
+        rep = json.loads(out[0])
+        names = [ln for ln in out[1:] if "pipe_kernel" in ln]
+        if not names:
+            raise AssertionError(f"cli profile {alg} {extra}: the trace "
+                                 "summary names no kernel: " + "\n".join(out))
+        print(f"  cli profile -a {alg} {' '.join(extra)}: {kern} x 4 windows "
+              f"of {T_APA} x {C_APA}, wall {rep['wall_s']} s, gsps_wall "
+              f"{rep['gsps_wall']}, backend {rep['backend']}; trace row: "
+              f"{names[0].strip()[:160]}")
+    return launches
+
+
+def checkpoint_run(dev, td: str) -> dict:
+    """Checkpoint/resume with the state on the card.  Returns the
+    datapath launches."""
+    frames, _ = patterns.pattern_frames(
+        "golden", first_timestamp=10_000, crate_id=1, slot_id=2,
+        stream_id=3, n_frames=4, channel=7, offset=60)
+
+    def make():
+        p = WIBEthFrameProcessor(tp_sink=QueueSender(), device=dev)
+        p.conf({"crate_id": 1, "slot_id": 2, "link_id": 3,
+                "enable_tpg": True, "tpg_threshold": 499,
+                "tp_timeout": 100_000, "tpg_backend": "pallas"})
+        p.start()
+        return p
+
+    tpg.reset_launches()
+    cont = make()
+    cont.process(frames.copy())
+    want = np.concatenate(cont.tp_sink.drain())
+    p1 = make()
+    p1.process(frames[:2].copy())
+    live = p1._dev_state is not None \
+        and p1._dev_state.device.type == torch.device(dev).type \
+        and p1._state_stale
+    ckpt = checkpoint.checkpoint_processor(p1, os.path.join(td, "c.npz"))
+    part1 = p1.tp_sink.drain()
+    in_flight = int(p1.current_state()["hit_tover"][7])
+    p2 = make()
+    checkpoint.restore_processor(p2, ckpt)
+    p2.process(frames[2:].copy())
+    got = np.concatenate(part1 + p2.tp_sink.drain())
+    launches = dict(tpg.process_window.kernel_launches)
+    tally()
+    if not live or in_flight <= 0 or len(want) != 3 or \
+            not np.array_equal(got, want):
+        raise AssertionError(f"checkpoint on the card: state live {live}, "
+                             f"hit in flight {in_flight}, TPs {len(got)} vs "
+                             f"{len(want)} uninterrupted")
+    print(f"  checkpoint: WIBEth pallas on the card, checkpointed after 2 "
+          f"frames with the state on the card and a hit in flight (tover "
+          f"{in_flight}), restored into a fresh processor: {len(got)} TPs "
+          "== the uninterrupted run")
+    return launches
+
+
+def modules_slice(dev, apa_data: dict) -> dict:
+    """Phase 10, on phase 4's data.  Returns the datapath launches of its
+    counted runs."""
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    add(scheduler_run(dev, apa_data))
+    tpg.reset_launches()
+    fn, args = entry(device=dev)
+    hits, n_hits, state = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(tpg.process_window.kernel_launches)
+    tally()
+    add(launches)
+    fn_c, args_c = entry(device="cpu")
+    hits_c, n_c, state_c = fn_c(*args_c)
+    if launches["K4"] != 1 or int(n_hits) != int(n_c) or \
+            not torch.equal(hits.cpu(), hits_c) or \
+            not torch.equal(state.cpu(), state_c):
+        raise AssertionError(f"entry() on the card differs from the CPU "
+                             f"(n_hits {int(n_hits)} vs {int(n_c)}, "
+                             f"launches {launches})")
+    print(f"  entry(): K4 once (tc {entry_mod.TC}, k_slots "
+          f"{entry_mod.K_SLOTS}), {int(n_hits)} hit "
+          f"{hits[0].tolist()}, hits and new state == entry(device='cpu')")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_modules_") as td:
+        add(cli_run(dev, td))
+        add(checkpoint_run(dev, td))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2113,7 +2450,7 @@ def main() -> int:
         print(f"  SM clock after the timing loops: {sm_mhz} MHz")
 
     with phase("4 apa slice"):
-        app_launches = apa_slice(dev)
+        app_launches, apa_data = apa_slice(dev)
 
     with phase("5 wib2 slice"):
         t0 = time.perf_counter()
@@ -2144,8 +2481,12 @@ def main() -> int:
     with phase("9 detector slice"):
         det = detector_slice(dev)
 
+    with phase("10 modules slice"):
+        mods = modules_slice(dev, apa_data)
+
     # launches on the main paths: the APA app's feeds, the WIB2 and the
-    # ProtoWIB processors' runs, the kernel entries, the detector slice.  A row counts its
+    # ProtoWIB processors' runs, the kernel entries, the detector slice,
+    # the modules slice (scheduler, entry(), CLI, resume).  A row counts its
     # kernel function's launches (tally); the launches of every kernel on
     # a launch's datapath (tpg.kernels_of: a FIR launch on plain samples is
     # K2's datapath and K3's family) stand beside them
@@ -2157,6 +2498,8 @@ def main() -> int:
         "K4": app_launches["fused"] + app_launches["words14"] + det["K4"],
         "K5": pw["K5"],
         **{k: entries[k] for k in ("K2b", "K3b", "K4b-slab", "K4b-gather")}}
+    for k, v in mods.items():
+        datapath[k] += v
     print("  launches on the main paths, per kernel function:",
           json.dumps(function_launches), "per datapath:", json.dumps(datapath))
     rows = []

@@ -18,7 +18,14 @@ adds the in-kernel 14-bit unpack, the APA app's packed-word feeds
 ``ops.ingest.StreamingIngest``.  Slice 4 adds the two-pass FIR schedule
 (K5, selected by the tuned ``fir_twopass`` knob), the ProtoWIB frontend
 (``stream.WIBFrameProcessor`` with ``tp.WIBTPHandler``) and
-``models.run_model``.
+``models.run_model``.  Slices 5 and 6 port the remaining kernel variants
+and the probes; steps 2 and 3 rebuild every kernel as one warp-specialised
+pipeline and port the modules: the full-detector app
+(``apps.detector_readout``, with its PDS and TDE arms and the Fragment
+layer), then multi-APA serving (``apps.scheduler.MultiAPAScheduler``) with
+the operator surface: ``cli`` (``python -m fdreadoutlibs_tpu_torch.cli``),
+``stream.emulator``, ``ops.patterns``, ``utils.config``,
+``utils.checkpoint``, the scan backend (``ops.scan``) and ``entry``.
 """
 
 __version__ = "0.1.0"

@@ -32,7 +32,7 @@ shared across arms:
 ``device="cuda"`` (the default) runs the kernels on every arm and raises
 when there is no card; ``device="cpu"`` runs their plain versions (the CPU
 tests).  The TDE arm's "scan" backend (the default, as in the JAX package)
-is the kernel's plain version on ``device``; "pallas" launches the kernel.
+is ``ops/scan.py`` on ``device``; "pallas" launches the kernel.
 
 Run:  python -m fdreadoutlibs_tpu_torch.apps.detector_readout --batches 3
       (--fused-unpack for the TPC arm's K4 feed, --tde-backend pallas,

@@ -76,17 +76,17 @@ def run_model(adcs: np.ndarray, cfg: TPGConfig, backend: str = "scan",
               device="cuda"):
     """One-call model execution over a (T, C) stream; returns (hits, state).
 
-    Backends: "reference" (the numpy oracle), "scan" (the kernels' plain
-    version, one window with room for every close, as the JAX package's
-    dense scan keeps every close) and "pallas" (``ops.tpg.process_window``
+    Backends: "reference" (the numpy oracle), "scan" (``ops.scan.
+    process_window_scan`` on ``device``, the port of the JAX package's
+    dense scan: plain PyTorch that keeps every close, chosen only by this
+    name) and "pallas" (``ops.tpg.process_window``
     on ``device``: the hand-written kernels on "cuda", their plain versions
     on "cpu"; windows of 512 ticks, one chunk each, 8 hits per channel per
     window, the FIR schedule of ``kernel_knobs``).  ``device`` is unused by
     "reference".
     """
     from ..ops.ingest import decode_slots
-    from ..ops.tpg import (pack_state, process_window, process_window_plain,
-                           unpack_state)
+    from ..ops.tpg import pack_state, process_window, unpack_state
     adcs = np.asarray(adcs, dtype=np.int32)
     T, C = adcs.shape
     if rs_memory_factor is None:
@@ -103,25 +103,27 @@ def run_model(adcs: np.ndarray, cfg: TPGConfig, backend: str = "scan",
     from ..apps.apa_readout import resolve_device
     from ..utils.tuning import kernel_knobs
     dev = resolve_device(device)
-    st = pack_state(state, C, device=dev)
     # a transposed caller's array (a TDE cycle) is a strided view: the
     # kernel takes contiguous rows
     x = torch.from_numpy(np.ascontiguousarray(adcs)).to(dev)
-    if backend == "scan":
-        slots, nclose, st = process_window_plain(x, st, cfg, tc=T, k_slots=T,
-                                                 time_packed=False)
-        hits, _ = decode_slots(slots, nclose, C)
-    else:
-        twopass = kernel_knobs(cfg)["fir_twopass"]
-        parts = []
-        for t0 in range(0, T, WINDOW):
-            w = min(WINDOW, T - t0)
-            slots, nclose, st = process_window(
-                x[t0:t0 + w], st, cfg, tc=w, k_slots=K_SLOTS,
-                time_packed=False, fir_twopass=twopass)
-            parts.append(decode_slots(slots, nclose, C, tick_offset=t0)[0])
-        from ..ops.hits import concat_hits
-        hits = concat_hits(parts)
     state = dict(state)
+    if backend == "scan":
+        from ..ops.hits import decode_dense
+        from ..ops.scan import (process_window_scan, state_to_numpy,
+                                state_to_torch)
+        closed, records, st = process_window_scan(
+            x, state_to_torch(state, dev), cfg)
+        state.update(state_to_numpy(st))
+        return decode_dense(closed, records), state
+    st = pack_state(state, C, device=dev)
+    twopass = kernel_knobs(cfg)["fir_twopass"]
+    parts = []
+    for t0 in range(0, T, WINDOW):
+        w = min(WINDOW, T - t0)
+        slots, nclose, st = process_window(
+            x[t0:t0 + w], st, cfg, tc=w, k_slots=K_SLOTS,
+            time_packed=False, fir_twopass=twopass)
+        parts.append(decode_slots(slots, nclose, C, tick_offset=t0)[0])
+    from ..ops.hits import concat_hits
     state.update(unpack_state(st))
-    return hits, state
+    return concat_hits(parts), state

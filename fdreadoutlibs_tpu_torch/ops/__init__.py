@@ -12,7 +12,10 @@
   kernel's slot buffers;
 * ``ingest`` — the time2, packed-frame, fused (in-kernel unpack), words14
   and ProtoWIB entry points, the one-fetch compaction, ``collect_hits``
-  and ``StreamingIngest``.
+  and ``StreamingIngest``;
+* ``scan``   — the portable backend: the shared tick in a loop over ticks
+  in plain PyTorch, dense outputs and their compaction;
+* ``patterns`` — the validation pattern generators (numpy).
 """
 
 from .chanstate import init_chanstate, seed_chanstate

@@ -2,8 +2,10 @@
 the kernel's K-slot buffers.
 
 The host side (``HIT_DTYPE``, ``empty_hits``, ``sort_hits``,
-``concat_hits``, ``hits_from_compact``) is copied from the jax-free parts
-of ``fdreadoutlibs_tpu/ops/hits.py:14-30, 69-73, 155-161``, unchanged.
+``decode_dense``, ``concat_hits``, ``hits_from_compact``) is copied from the
+jax-free parts of ``fdreadoutlibs_tpu/ops/hits.py:14-43, 69-73, 155-161``,
+unchanged but for ``decode_dense`` taking tensors on any device too (the
+outputs of ``ops/scan.py``).
 
 The device side is the counterpart of that file's ``compact_slot_words``
 and ``compact_pallas_slots`` (there an XLA ``lax.top_k``, not a Pallas
@@ -39,6 +41,22 @@ def empty_hits() -> np.ndarray:
 def sort_hits(hits: np.ndarray) -> np.ndarray:
     """Canonical order: (end_tick, channel)."""
     return hits[np.lexsort((hits["channel"], hits["end_tick"]))]
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def decode_dense(closed, records: dict, tick_offset: int = 0) -> np.ndarray:
+    """Decode dense per-tick outputs: closed (T, C) bool, records dict of
+    (T, C) arrays or tensors -> canonical hit array."""
+    t_idx, c_idx = np.nonzero(_host(closed))
+    hits = np.zeros(len(t_idx), dtype=HIT_DTYPE)
+    hits["channel"] = c_idx
+    hits["end_tick"] = t_idx + tick_offset
+    for f in ("charge", "tover", "peak_adc", "peak_time"):
+        hits[f] = _host(records[f])[t_idx, c_idx]
+    return sort_hits(hits)
 
 
 def concat_hits(parts) -> np.ndarray:

@@ -9,8 +9,9 @@ one host-to-device copy, unpacks them there and runs the kernel
 "cpu"), compacts the hits on the device (``ops.ingest.collect_hits``) and
 keeps the carried state on the device, materialized by
 :meth:`DAPHNEStreamFrameProcessor.current_state` on demand; "scan" runs
-``models.run_model``'s plain version on the device and "reference" the
-numpy oracle.  The TPU knobs ``tpg_pallas_interpret`` and unroll have no
+``models.run_model``'s scan (``ops/scan.py``) on the device and
+"reference" the numpy oracle; "auto" (``RawDataProcessorConf``'s default)
+means "pallas".  The TPU knobs ``tpg_pallas_interpret`` and unroll have no
 counterpart.
 
 Equivalents of DAPHNEFrameProcessor / DAPHNEStreamFrameProcessor
@@ -150,6 +151,8 @@ class DAPHNEStreamFrameProcessor(TaskRawDataProcessor):
                 threshold=config.get("tpg_threshold", 50))
             self.det_id = config.get("det_id", 0)
             self.backend = config.get("tpg_backend", "reference")
+            if self.backend == "auto":      # the kernel route
+                self.backend = "pallas"
             self.k_slots = config.get(
                 "tpg_k_slots", config.get("tpg_pallas_k_slots", 4))
             self._device_compact = bool(

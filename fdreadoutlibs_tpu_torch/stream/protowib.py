@@ -4,12 +4,13 @@ Port copy of ``fdreadoutlibs_tpu/stream/protowib.py``: the same checks and
 TP assembly; the device seam (``_run_pallas_packed``,
 ``_run_pallas_time2``) runs the port's ``ops.ingest`` on an explicit
 ``device`` ("cuda" by default, which raises without a card; "cpu" runs the
-kernels' plain versions).  ``tpg_backend`` is "pallas" (the default: the
-kernel route, as the port's WIBEth processor defaults to its kernel
-route), "reference" (the numpy oracle) or "scan" (the kernels' plain
-version through ``models.run_model``).  Each plane runs the FIR schedule
-that ``utils.tuning.kernel_knobs`` names: the fused tick (K3) or, under a
-tuned ``twopass`` of 1 or 2, the two-pass schedule (K5).
+kernels' plain versions).  ``tpg_backend`` is "pallas" (the default, and
+what "auto" means: the kernel route, as the port's WIBEth processor
+defaults to its kernel route), "reference" (the numpy oracle) or "scan"
+(``ops/scan.py``, the port's one scan, through ``models.run_model``).
+Each plane runs the FIR schedule that ``utils.tuning.kernel_knobs``
+names: the fused tick (K3) or, under a tuned ``twopass`` of 1 or 2, the
+two-pass schedule (K5).
 
 Equivalent of WIBFrameProcessor (include/fdreadoutlibs/wib/
 WIBFrameProcessor.hpp; excluded from the reference *build* but fully
@@ -68,7 +69,10 @@ class WIBFrameProcessor(TaskRawDataProcessor):
         self.crate_no = config.get("crate_id", 0)
         self.slot_no = config.get("slot_id", 0)
         self.fiber_no = config.get("link_id", 0)
+        # "auto" (RawDataProcessorConf's default) is the kernel route
         self.backend = config.get("tpg_backend", "pallas")
+        if self.backend == "auto":
+            self.backend = "pallas"
         if self.backend not in BACKENDS:
             raise ValueError(f"tpg_backend {self.backend!r}: expected one of "
                              f"{BACKENDS}")

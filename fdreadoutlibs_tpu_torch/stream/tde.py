@@ -4,7 +4,7 @@ Port copy of ``fdreadoutlibs_tpu/stream/tde.py:1-165``: the same code apart
 from imports and the device: ``run_model`` runs on the processor's
 ``device`` ("cuda" launches the kernel under "pallas" and raises without a
 card; "cpu" runs the plain version), and the numpy oracle under
-"reference".
+"reference"; "auto" (``RawDataProcessorConf``'s default) means "pallas".
 
 Equivalent of TDEFrameProcessor (src/tde/TDEFrameProcessor.cpp): a TDE link
 interleaves 64 per-channel frames, so timestamp continuity is tracked with
@@ -51,6 +51,8 @@ class TDEFrameProcessor(TaskRawDataProcessor):
                 threshold=config.get("tpg_threshold", 500))
             self.det_id = config.get("det_id", 0)
             self.backend = config.get("tpg_backend", "reference")
+            if self.backend == "auto":      # the kernel route
+                self.backend = "pallas"
             # vertical-drift channel map: TPs carry offline channels when a
             # map is configured (channel_map_name, like the HD processors);
             # crate/slot locate this link in the VD geometry

@@ -6,8 +6,10 @@ the original pulls in jax through its package's ``__init__``.  The
 per-link SWTPG runs the port's kernel path: ``tpg_backend`` "pallas" or
 "auto" (the default) is the hand-written CUDA kernel on ``device="cuda"``
 (the default; no card raises) and its plain version on ``device="cpu"``;
-"reference" is the numpy oracle.  The JAX package's XLA "scan" backend has
-no counterpart.
+"reference" is the numpy oracle and "scan" the port of the JAX package's
+XLA scan (``ops/scan.py`` on ``device``, decoded by ``decode_dense``, as
+the JAX processor's :417-426).  "auto" stays the kernel route: the JAX
+package picks its scan only off the TPU.
 
 Equivalent of WIBEthFrameProcessor + WIBEthFrameHandler
 (src/wibeth/WIBEthFrameProcessor.cpp): preprocess = sequence_check +
@@ -28,9 +30,11 @@ from ..formats import wibeth
 from ..formats.trigprim import TP_DTYPE, TPAlgorithm, TPType, ts_to_i64
 from ..ops.chanstate import init_chanstate, seed_chanstate
 from ..ops.config import Algorithm, TPGConfig
+from ..ops.hits import decode_dense
 from ..ops.ingest import collect_hits, process_packed_frames, \
     process_time2_feed
 from ..ops.reference import process_window_reference
+from ..ops.scan import process_window_scan, state_to_numpy, state_to_torch
 from ..ops.tpg import auto_tc, pack_state, unpack_state
 from ..utils.channel_map import make_map
 from ..utils.tuning import kernel_knobs
@@ -148,11 +152,11 @@ class WIBEthFrameProcessor(TaskRawDataProcessor):
         )
         self.tp_algo = _ALGO_ENUM[self.tpg_cfg.algorithm]
         backend = config.get("tpg_backend", "auto")
-        if backend not in ("auto", "pallas", "reference"):
-            raise ValueError(f"tpg_backend {backend!r} is not ported; use "
+        if backend not in ("auto", "pallas", "reference", "scan"):
+            raise ValueError(f"unknown tpg_backend {backend!r}: expected "
                              "'auto' or 'pallas' (the kernel path on "
-                             "self.device) or 'reference' (numpy oracle)")
-        self.backend = "reference" if backend == "reference" else "pallas"
+                             "self.device), 'scan' or 'reference'")
+        self.backend = "pallas" if backend == "auto" else backend
         # per-chunk hit capacity: k per tc ticks (the JAX processor's
         # streaming default keeps headroom for pathological channels)
         self.k_slots = config.get("tpg_k_slots", 4)
@@ -400,10 +404,17 @@ class WIBEthFrameProcessor(TaskRawDataProcessor):
         return self._state
 
     def _run_backend(self, adcs: np.ndarray):
-        """The numpy oracle backend (tpg_backend="reference")."""
-        hits, self._state = process_window_reference(adcs, self._state,
-                                                     self.tpg_cfg)
-        return hits
+        """The numpy oracle (tpg_backend="reference") or the scan on
+        self.device ("scan")."""
+        if self.backend == "reference":
+            hits, self._state = process_window_reference(
+                adcs, self._state, self.tpg_cfg)
+            return hits
+        closed, records, new_state = process_window_scan(
+            torch.from_numpy(adcs).to(self.device),
+            state_to_torch(self._state, self.device), self.tpg_cfg)
+        self._state.update(state_to_numpy(new_state))
+        return decode_dense(closed, records)
 
     # ------------------------------------------------------- TP assembly
     def process_swtpg_hits(self, hits: np.ndarray, timestamp: int) -> None:

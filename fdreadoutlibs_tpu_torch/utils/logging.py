@@ -1,8 +1,9 @@
 """Tracing / logging (≈ TRACE/ERS TLOG with debug levels).
 
 Copied from ``fdreadoutlibs_tpu/utils/logging.py:1-48``; the code is
-unchanged.  Its ``device_trace`` (:51-56) wraps ``jax.profiler`` and is
-not carried: the port's device traces are ``torch.profiler``'s.
+unchanged.  Its ``device_trace`` (:51-56) wraps ``jax.profiler``; the
+port's, below, is a ``torch.profiler`` capture (CPU and CUDA activities)
+that writes a Chrome trace under its directory.
 
 The reference traces via TLOG_DEBUG(TLVL_*) levels; here the same level
 taxonomy maps onto the stdlib logger plus a timing context manager for the
@@ -14,6 +15,8 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import os
+import tempfile
 import time
 
 log = logging.getLogger("fdreadoutlibs_tpu")
@@ -49,3 +52,27 @@ def timed(name: str, metrics=None, level: int = TLVL_BOOKKEEPING):
         if metrics is not None:
             metrics.inc(f"time_us_{name}", int(dt * 1e6))
         log.log(level, "%s took %.3f ms", name, dt * 1e3)
+
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def device_trace(dirname: str | None = None):
+    """``torch.profiler`` trace around a block, written as a Chrome trace
+    to ``dirname/trace.json`` (open with Perfetto or chrome://tracing).
+    ``dirname`` defaults to ``fdreadout_trace`` under the temporary
+    directory.  CUDA activity is recorded when a card is present."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dirname = dirname or os.path.join(tempfile.gettempdir(),
+                                      "fdreadout_trace")
+    os.makedirs(dirname, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(dirname, TRACE_FILE))

@@ -13,7 +13,11 @@ ProtoWIB processors and ``run_model`` on the card against the same on the
 CPU; for the detector slice, K2 at the PDS and TDE widths (40, 64 and 62
 channels; 512- and 333-tick windows), the PDS app (sync and pipelined),
 the DAPHNE-stream processor and the three-arm detector app on the card
-against the same on the CPU.  Marked ``cuda``:
+against the same on the CPU; for the modules slice, ``MultiAPAScheduler``
+at 4 APAs x 4 links against single-APA ``StreamingIngest`` and its CPU run,
+``entry()``, the CLI's ``tpg-emulator -i pallas``, ``compare-backends`` and
+``profile`` (the trace names the kernel), and checkpoint/resume with the
+state on the card.  Marked ``cuda``:
 each test skips where torch finds no card.  This file imports no JAX, so on
 the machine with the card (which has none) run it without the suite's
 conftest:
@@ -932,3 +936,148 @@ def test_detector_app_on_card_matches_cpu(card, tmp_path):
     # link per cycle
     assert la["K4"] == 2 and la["K2"] == 2 + 2 * 2 * 12
     assert not any(lb.values())
+
+
+# ---- the modules slice: scheduler, entry(), CLI, checkpoint/resume ---------
+
+def test_scheduler_on_card_matches_ingest_and_plain(card):
+    """4 APAs x 4 links, interleaved in a seeded order: each APA equals a
+    single-APA ``StreamingIngest`` on the card of its own batches, and the
+    whole run equals the scheduler on the CPU (K2's plain version)."""
+    from fdreadoutlibs_tpu_torch.apps.scheduler import MultiAPAScheduler
+    L, N, n_apas = 4, 4, 4
+    cfg = TPGConfig.from_raw("AbsRS", threshold=150)
+    rmf = np.where(np.arange(L * 64) % 2, cfg.rs_memory_factor_x10, 0)
+    rng = np.random.default_rng(13)
+    order = [int(a) for a in np.concatenate(
+        [rng.permutation(n_apas) for _ in range(3)])]
+    frames = [make_batch(rng, L, N, b, 0x1000000 + 8192 * b)[0]
+              for b in range(len(order))]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sched = MultiAPAScheduler(cfg, n_apas=n_apas, n_links=L, k_slots=4,
+                                  rs_memory_factor=rmf, device=dev)
+        tpg.reset_launches()
+        outs = [sched.submit(a, f) for a, f in zip(order, frames)]
+        outs.append(sched.flush())
+        got[dev] = (outs, dict(tpg.process_window.function_launches),
+                    [s.cpu() for s in sched._stacks])
+    (outs, launches, stacks), (couts, claunches, cstacks) = \
+        got["cuda"], got["cpu"]
+    assert launches["K2"] == len(order) and not any(claunches.values())
+    for o, c in zip(outs[:-1], couts[:-1]):
+        assert (o is None) == (c is None)
+        if o is not None:
+            np.testing.assert_array_equal(o[0], c[0])
+            assert o[1] == c[1]
+    assert outs[-1].keys() == couts[-1].keys()
+    for s, c in zip(stacks, cstacks):
+        assert torch.equal(s, c)
+    for apa in range(n_apas):
+        ing = StreamingIngest(cfg, L, k_slots=4, device_compact=True,
+                              max_hits=2048, rs_memory_factor=rmf,
+                              device="cuda")
+        mine = [f for a, f in zip(order, frames) if a == apa]
+        want = [ing.submit(f) for f in mine][1:] + [ing.flush()]
+        have = [o for a, o in zip(order, outs) if a == apa][1:] + \
+            [outs[-1][apa]]
+        assert sum(len(h) for h, _ in want) > 0
+        for (h, d), (wh, wd) in zip(have, want):
+            np.testing.assert_array_equal(h, wh)
+            assert d == wd
+
+
+def test_entry_on_card_matches_cpu(card):
+    from fdreadoutlibs_tpu_torch.entry import entry
+    tpg.reset_launches()
+    fn, args = entry()
+    assert args[0].is_cuda and args[1].is_cuda
+    hits, n, state = fn(*args)
+    assert tpg.process_window.function_launches["K4"] == 1
+    fn_c, args_c = entry(device="cpu")
+    hits_c, n_c, state_c = fn_c(*args_c)
+    assert int(n) == int(n_c) == 1
+    assert torch.equal(hits.cpu(), hits_c) and torch.equal(state.cpu(),
+                                                            state_c)
+
+
+def _cli(argv):
+    import contextlib
+    import io
+    from fdreadoutlibs_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def test_cli_tpg_emulator_and_compare_backends_on_card(card, tmp_path):
+    z, g = str(tmp_path / "z.bin"), str(tmp_path / "g.bin")
+    assert _cli(["make-zeros", "-o", z, "-n", "2"])[0] == 0
+    assert _cli(["pattern-generator", "-f", z, "-p", "golden",
+                 "--output", g])[0] == 0
+    tpg.reset_launches()
+    rc, out = _cli(["tpg-emulator", "-f", g, "-i", "pallas",
+                    "--save-trigprim", str(tmp_path / "tps.txt")])
+    assert rc == 0 and json.loads(out[-1])["hits"] == 2
+    assert tpg.process_window.function_launches["K2"] == 1
+    rc, out = _cli(["tpg-emulator", "-f", g, "-i", "reference",
+                    "--save-trigprim", str(tmp_path / "ref.txt")])
+    assert (tmp_path / "tps.txt").read_text() == \
+        (tmp_path / "ref.txt").read_text()
+    frames, _ = make_batch(np.random.default_rng(3), 1, 16, 0, 0x1000000)
+    frames[0].tofile(tmp_path / "noisy.bin")
+    rc, out = _cli(["compare-backends", "-f", str(tmp_path / "noisy.bin"),
+                    "-b", "reference", "scan", "pallas"])
+    assert rc == 0 and out[-1].endswith("MATCH"), out
+
+
+@pytest.mark.parametrize("alg,extra", [("AbsRS", []), ("FIR", ["-t", "5"]),
+                                       ("FIR", ["-t", "5", "--fir-twopass",
+                                                "2"])],
+                         ids=["K2", "K3", "K5"])
+def test_cli_profile_trace_names_the_kernel(card, tmp_path, alg, extra):
+    tpg.reset_launches()
+    rc, out = _cli(["profile", "-a", alg, "--channels", "256", "--ticks",
+                    "1024", "--windows", "2", "-o", str(tmp_path / "tr"),
+                    "--top", "20"] + extra)
+    assert rc == 0
+    assert json.loads(out[0])["backend"] == torch.cuda.get_device_name(0)
+    assert (tmp_path / "tr" / "trace.json").is_file()
+    assert any("pipe_kernel" in ln for ln in out[1:]), out
+    kern = {"AbsRS": "K2", "FIR": "K5" if extra[2:] else "K3"}[alg]
+    assert tpg.process_window.function_launches[kern] == 3
+
+
+def test_checkpoint_resume_with_state_on_card(card, tmp_path):
+    from fdreadoutlibs_tpu_torch.ops import patterns
+    from fdreadoutlibs_tpu_torch.stream import WIBEthFrameProcessor
+    from fdreadoutlibs_tpu_torch.utils import checkpoint
+    frames, _ = patterns.pattern_frames(
+        "golden", first_timestamp=10_000, crate_id=1, slot_id=2,
+        stream_id=3, n_frames=4, channel=7, offset=60)
+
+    def make(dev):
+        p = WIBEthFrameProcessor(tp_sink=QueueSender(), device=dev)
+        p.conf({"crate_id": 1, "slot_id": 2, "link_id": 3,
+                "enable_tpg": True, "tpg_threshold": 499,
+                "tp_timeout": 100_000, "tpg_backend": "pallas"})
+        p.start()
+        return p
+
+    cont = make("cpu")
+    cont.process(frames.copy())
+    want = np.concatenate(cont.tp_sink.drain())
+    p1 = make("cuda")
+    p1.process(frames[:2].copy())
+    assert p1._dev_state.is_cuda and p1._state_stale
+    ckpt = checkpoint.checkpoint_processor(p1, tmp_path / "c.npz")
+    part1 = p1.tp_sink.drain()
+    p2 = make("cuda")
+    checkpoint.restore_processor(p2, ckpt)
+    assert p2._dev_state is None and not p2._state_stale
+    p2.process(frames[2:].copy())
+    assert p2._dev_state.is_cuda
+    got = np.concatenate(part1 + p2.tp_sink.drain())
+    assert len(want) == 3
+    np.testing.assert_array_equal(got, want)

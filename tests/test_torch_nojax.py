@@ -102,6 +102,30 @@ hits = [run_model(adcs, fir, b, device="cpu")[0]
         for b in ("reference", "scan", "pallas")]
 assert len(hits[0]) > 0 and all(np.array_equal(h, hits[0]) for h in hits)
 
+# the second module slice: the scheduler, the CLI and entry()
+import os, tempfile
+from fdreadoutlibs_tpu_torch import cli
+from fdreadoutlibs_tpu_torch.apps.scheduler import MultiAPAScheduler
+from fdreadoutlibs_tpu_torch.entry import entry
+sched = MultiAPAScheduler(TPGConfig(threshold=150), n_apas=2, n_links=2,
+                          device="cpu")
+rng = np.random.default_rng(4)
+for apa in (0, 1, 1, 0):
+    sched.submit(apa, make_batch(rng, 2, 2, 0, 0x1000000)[0])
+got = sched.flush()
+assert set(got) == {0, 1} and all(len(h) > 0 for h, _ in got.values())
+assert sched.get_info()["batches"] == [2, 2]
+fn, args = entry(device="cpu")
+hits_e, n_e, _ = fn(*args)
+assert int(n_e) == 1 and int(hits_e[0, 0]) == 7
+with tempfile.TemporaryDirectory() as td:
+    zeros, patt = os.path.join(td, "z.bin"), os.path.join(td, "g.bin")
+    assert cli.main(["make-zeros", "-o", zeros, "-n", "2"]) == 0
+    assert cli.main(["pattern-generator", "-f", zeros, "-p", "golden",
+                     "--output", patt]) == 0
+    assert cli.main(["compare-backends", "-f", patt, "-b", "reference",
+                     "scan", "pallas", "--device", "cpu"]) == 0
+
 # the probes' entries on CPU tensors run their plain versions
 from fdreadoutlibs_tpu_torch import probes
 from fdreadoutlibs_tpu_torch.probes import (i16_ops, roofline, slots_ab,
@@ -136,6 +160,15 @@ if not torch.cuda.is_available():
     else:
         raise AssertionError("StreamingIngest on 'cuda' without a card did "
                              "not raise")
+    for make in (lambda: MultiAPAScheduler(TPGConfig(), 1, 1),
+                 lambda: entry(), lambda: cli.main(
+                     ["profile", "--channels", "64", "--ticks", "64"])):
+        try:      # "cuda", the default, never carries on without a card
+            make()
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("a slice entry point ran without a card")
     for app_cls in (pds_readout.PDSReadoutApp,
                     detector_readout.DetectorReadoutApp):
         try:
@@ -239,7 +272,9 @@ def test_no_port_module_imports_the_jax_package():
     assert {"roofline.py", "i16_ops.py", "swar_frugal.py", "slots_ab.py",
             "preflight.py", "detector_readout.py", "pds_readout.py",
             "fragment.py", "wire.py", "daphne.py", "tde.py", "ssp.py",
-            "recorder.py"} <= {p.name for p in paths}
+            "recorder.py", "scheduler.py", "cli.py", "entry.py", "scan.py",
+            "config.py", "checkpoint.py", "emulator.py", "patterns.py",
+            "simulation.py", "variable.py"} <= {p.name for p in paths}
     for path in paths:
         roots = _import_roots(path)
         assert not roots & {"fdreadoutlibs_tpu", "jax", "jaxlib",

@@ -227,7 +227,10 @@ def test_wibeth_processor_matches_jax(algorithm, threshold, time2):
 
 def test_processor_backends_and_device():
     with pytest.raises(ValueError):
-        WIB2FrameProcessor(device="cpu").conf(dict(CONF, tpg_backend="scan"))
+        WIB2FrameProcessor(device="cpu").conf(dict(CONF, tpg_backend="xla"))
+    p = WIB2FrameProcessor(device="cpu")
+    p.conf(dict(CONF, tpg_backend="scan"))      # ops/scan.py, as in JAX
+    assert p.backend == "scan"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             WIB2FrameProcessor(device="cuda")
