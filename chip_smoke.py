@@ -127,6 +127,25 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    summary naming ``pipe_kernel``; last a WIBEth processor on the card
    checkpointed with its state on the card and a hit in flight, restored
    into a fresh processor, equal to the uninterrupted run.
+11. parallel slice — ``parallel.APAPipeline`` at full width on phase 4's
+   data (40 links, AbsRS 150 with phase 4's memory factors, tc 512, K 8,
+   512 hits a link, backend "pallas") in each ingest, canonical (K2),
+   fused (K4) and time2 (K1), on a 1-shard and an 8-shard mesh on the card
+   (5 links a shard, each on its own CUDA stream): 1 warm-up and 8 steady
+   batches each, ms per batch p50 and RTF with the fetch, the kernel once
+   a shard a batch, a stage split of one batch (host words, relayout,
+   H2D, kernels on the shards' streams and on one stream, compaction,
+   fetch); batches 0-1 equal the plain version with the same tc, K and
+   per-link cap, and all six runs equal each other (hits, n_hits, totals,
+   dropped, final state).  Then the 8-shard state after batch 1 through
+   ``save_sharded_state``, restored into fresh 8- and 1-shard pipelines,
+   replays batch 2 as the uninterrupted run, and garbage words on link 20
+   leave every other link's hits and state untouched;
+   ``DetectorPipeline`` at 4 APAs x 40 links on a (4, 2) mesh (aggregate
+   RTF; each APA equal to an ``APAPipeline`` of its own batches, each
+   total the sum of its n_hits); ``dryrun_multichip(8)`` on the card; and
+   ``probes.soak`` at 2560 channels x 4096 ticks, 40 windows, in its four
+   ingests (K2, K4 frames, K4 words14, K1), each ``SOAK OK``.
 
 Phase 2 also builds the port's native host codecs (``native/``) and fails
 if they do not load, so no host stage is timed on the numpy fallback.
@@ -149,7 +168,7 @@ version.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels (each with the launches of its kernel function on the main
-paths, phases 9 and 10 included, ``tpg.kernel_of``, and beside them
+paths, phases 9-11 included, ``tpg.kernel_of``, and beside them
 ``datapath_launches``, every
 launch whose datapath holds it, ``tpg.kernels_of``; its error against
 the plain version, its time, the plain version's, and its bound: the
@@ -182,7 +201,8 @@ from fdreadoutlibs_tpu_torch import entry as entry_mod
 from fdreadoutlibs_tpu_torch.apps import detector_readout, pds_readout
 from fdreadoutlibs_tpu_torch.apps.apa_readout import APAReadoutApp, make_batch
 from fdreadoutlibs_tpu_torch.apps.scheduler import MultiAPAScheduler
-from fdreadoutlibs_tpu_torch.entry import entry
+from fdreadoutlibs_tpu_torch.entry import dryrun_multichip, entry
+from fdreadoutlibs_tpu_torch.formats.bitpack import unpack_14bit
 from fdreadoutlibs_tpu_torch.formats import daphne, protowib, tde, wib2, wibeth
 from fdreadoutlibs_tpu_torch.models.algorithms import (
     K_SLOTS as RUN_MODEL_K, WINDOW as RUN_MODEL_WINDOW)
@@ -193,8 +213,12 @@ from fdreadoutlibs_tpu_torch.ops.hits import concat_hits
 from fdreadoutlibs_tpu_torch.ops.ingest import (StreamingIngest,
                                                 compact_on_device,
                                                 unpack_compact)
+from fdreadoutlibs_tpu_torch.parallel import (APAPipeline, DetectorPipeline,
+                                              make_apa_link_mesh,
+                                              make_link_mesh)
+from fdreadoutlibs_tpu_torch.parallel import apa as par_apa
 from fdreadoutlibs_tpu_torch.probes import (fir_pipe, i16_ops, roofline,
-                                            slots_ab, swar_frugal)
+                                            slots_ab, soak, swar_frugal)
 from fdreadoutlibs_tpu_torch.probes.roofline import (DECODE_OPS, INT32_LANES,
                                                      OPS_PER_TICK)
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor, \
@@ -2372,6 +2396,335 @@ def modules_slice(dev, apa_data: dict) -> dict:
     return total
 
 
+# ---- phase 11: the parallel slice ------------------------------------------
+
+PAR_K = 8                    # make_apa_step's k_slots
+PAR_TIMED = 8                # steady batches per run, after one warm-up
+PAR_CAP = 512                # APAPipeline's max_hits_per_link
+PAR_SHARDS = (1, 8)          # the whole APA on one shard; 5 links a shard
+PAR_INGESTS = {"canonical": ({}, "K2"),
+               "fused": ({"fused_unpack": True}, "K4"),
+               "time2": ({"time2_feed": True}, "K1")}
+PAR_BAD_LINK = N_LINKS // 2  # the link that takes garbage words
+PAR_APAS, PAR_APA_SHARDS = 4, 2
+SOAK_WINDOWS, SOAK_TICKS = 40, 4096
+BATCH_S = T_APA * 32 / 62.5e6     # 4.194 ms of detector time a batch
+
+
+def frames_words(frames) -> np.ndarray:
+    """(L, N, 7200) frames -> their (L, T, 28) uint32 ADC words."""
+    L, N, _ = frames.shape
+    return wibeth.frames_bytes_to_u32(frames.reshape(-1, wibeth.FRAME_SIZE)) \
+        .reshape(L, N * wibeth.N_TIME_SAMPLES, 28)
+
+
+def first_adcs(words) -> np.ndarray:
+    """The first tick of each link's words, (..., L, 64) int32."""
+    return unpack_14bit(np.asarray(words[..., 0, :]), 64).astype(np.int32)
+
+
+def plain_pipeline_hits(words_batches, rmf, cfg, dev):
+    """What the pipeline must return for consecutive batches: the kernel's
+    plain version over the whole APA with the pipeline's seeding, tc
+    (``auto_tc(T)``), K and per-link compaction under the per-link cap,
+    carrying state.  Yields (hits, n_hits, total, dropped) as numpy."""
+    body = par_apa._ShardBody(cfg, PAR_CAP, "pallas", PAR_K, False, False, 0)
+    state = None
+    for words in words_batches:
+        L, T, _ = words.shape
+        C = L * wibeth.N_CHANNELS
+        adcs = wibeth.unpack_frames(torch.from_numpy(words.view(np.int32))
+                                    .to(dev).transpose(0, 1)).reshape(T, C)
+        if state is None:
+            state = tpg.pack_state(seed_chanstate(
+                init_chanstate(C), first_adcs(words).reshape(-1), rmf), C,
+                device=dev)
+        slots, nclose, state = tpg.process_window_plain(
+            adcs, state, cfg, tpg.auto_tc(T), PAR_K, time_packed=False)
+        hits, n_hits, total, dropped = body.compact((slots, nclose), L)
+        yield (hits.cpu().numpy(), n_hits.cpu().numpy(), int(total),
+               int(dropped))
+
+
+def new_pipeline(dev, cfg, rmf, words0, n_shards: int, flags=None):
+    pipe = APAPipeline(N_LINKS, cfg,
+                       mesh=make_link_mesh(n_shards, device=dev),
+                       backend="pallas", **(flags or {}))
+    pipe.init_state(first_adcs(words0), rs_memory_factor=rmf)
+    return pipe
+
+
+def step_out(pipe, words) -> tuple:
+    """One batch through the pipeline and fetched: (hits, n_hits, total,
+    dropped in this batch) as numpy."""
+    before = pipe.dropped_hits
+    hits, n_hits, total = pipe.process(words)
+    return np.asarray(hits), np.asarray(n_hits), total, \
+        pipe.dropped_hits - before
+
+
+def same_step(label: str, got, want) -> None:
+    for g, w, what in zip(got, want, ("hits", "n_hits", "total",
+                                      "dropped")):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{label}: {what} differ")
+
+
+def same_state(label: str, got: dict, want: dict, links=slice(None)):
+    for k in want:
+        if not np.array_equal(np.asarray(got[k])[links],
+                              np.asarray(want[k])[links]):
+            raise AssertionError(f"{label}: state {k} differs")
+
+
+def pipeline_stage_split(pipe, frames, n_rep: int = 5):
+    """One batch through the pipeline one stage at a time, each ended by a
+    device sync: median ms per stage (with more than one shard also the
+    shards' kernels launched one after another on one stream).  The
+    pipeline's carried state is left untouched."""
+    step = pipe.step
+    reps = []
+    for _ in range(n_rep):
+        r = {}
+        words, r["host words"] = clock(lambda: frames_words(frames))
+        host, r["host relayout"] = clock(lambda: pipe.host_feed(words))
+        feeds, r["H2D"] = clock(lambda: step.upload(host))
+        kern, r["kernels"] = clock(lambda: step.on_streams(
+            step.body.kernel, feeds, pipe._stacks))
+        if len(step.cells) > 1:
+            _, r["kernels, one stream"] = clock(lambda: [
+                step.body.kernel(f, s) for f, s in zip(feeds, pipe._stacks)])
+        n_links = [s.shape[1] // wibeth.N_CHANNELS for s in pipe._stacks]
+
+        def compact():
+            comp = step.on_streams(step.body.compact, [o for o, _ in kern],
+                                   n_links)
+            step.join()
+            return step.gather(comp)
+
+        out, r["compaction"] = clock(compact)
+        _, r["fetch"] = clock(lambda: (np.asarray(out[0]),
+                                       np.asarray(out[1]),
+                                       torch.stack(out[2:]).tolist()))
+        reps.append(r)
+    return {k: statistics.median(r[k] for r in reps) for k in reps[0]}
+
+
+def pipeline_run(dev, words, cfg, rmf, ingest: str, n_shards: int) -> dict:
+    """One ingest on one mesh: 1 warm-up batch and PAR_TIMED steady ones,
+    each fetched.  Returns its outputs, final state, times and launches."""
+    flags, kern = PAR_INGESTS[ingest]
+    pipe = new_pipeline(dev, cfg, rmf, words[0], n_shards, flags)
+    tpg.reset_launches()
+    outs, ms = [], []
+    t_steady = None
+    for b, w in enumerate(words):
+        if b == N_WARM:
+            t_steady = time.perf_counter()
+        t1 = time.perf_counter()
+        outs.append(step_out(pipe, w))
+        ms.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t_steady
+    launched = dict(tpg.process_window.function_launches)
+    launches = dict(tpg.process_window.kernel_launches)
+    tally()
+    want = {k: 0 for k in KERNELS}
+    want[kern] = n_shards * len(words)
+    if launched != want:
+        raise AssertionError(f"pipeline {ingest} x {n_shards}: launches "
+                             f"{launched}, want {want}")
+    return {"pipe": pipe, "outs": outs, "ms": ms, "wall": wall,
+            "state": {k: np.asarray(v) for k, v in pipe.state.items()},
+            "launches": launches}
+
+
+def resume_run(dev, words, cfg, rmf, want_b2) -> dict:
+    """The sharded checkpoint at full width: the 8-shard state after batch
+    1, restored into fresh 8- and 1-shard pipelines, replays batch 2 as the
+    uninterrupted run; then garbage words on one link in batch 2 leave
+    every other link's hits and state as they were.  Returns the
+    datapath launches."""
+    tpg.reset_launches()
+    cont = new_pipeline(dev, cfg, rmf, words[0], 8)
+    for w in words[:2]:
+        cont.process(w)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as td:
+        checkpoint.save_sharded_state(td + "/apa", cont.state)
+        got = step_out(cont, words[2])
+        same_step("uninterrupted batch 2 vs the timed run", got, want_b2)
+        want_state = {k: np.asarray(v) for k, v in cont.state.items()}
+        for n in (8, 1):
+            p = new_pipeline(dev, cfg, rmf, words[0], n)
+            p.state = checkpoint.load_sharded_state(td + "/apa", p.state)
+            same_step(f"resumed on {n} shards, batch 2",
+                      step_out(p, words[2]), want_b2)
+            same_state(f"resumed on {n} shards", p.state, want_state)
+    bad = words[2].copy()
+    bad[PAR_BAD_LINK] = np.random.default_rng(SEED + 12).integers(
+        0, 2 ** 32, size=bad.shape[1:], dtype=np.uint32)
+    p = new_pipeline(dev, cfg, rmf, words[0], 8)
+    for w in words[:2]:
+        p.process(w)
+    hits, n_hits, _, _ = step_out(p, bad)
+    ok = [link for link in range(N_LINKS) if link != PAR_BAD_LINK]
+    if not (np.array_equal(hits[ok], want_b2[0][ok])
+            and np.array_equal(n_hits[ok], want_b2[1][ok])):
+        raise AssertionError("fault isolation: another link's hits moved")
+    same_state("fault isolation", p.state, want_state, ok)
+    launches = dict(tpg.process_window.kernel_launches)
+    tally()
+    print(f"  sharded resume: the 8-shard state after batch 1, restored "
+          f"into fresh 8- and 1-shard pipelines, replays batch 2 == the "
+          f"uninterrupted run ({int(want_b2[2])} hits, state bit-exact); "
+          f"garbage words on link {PAR_BAD_LINK} in batch 2: link "
+          f"{PAR_BAD_LINK} {int(n_hits[PAR_BAD_LINK])} hits (was "
+          f"{int(want_b2[1][PAR_BAD_LINK])}), every other link's hits and "
+          "state untouched", "launches",
+          json.dumps({k: v for k, v in launches.items() if v}))
+    return launches
+
+
+def detector_pipeline_run(dev, d: dict) -> dict:
+    """4 APAs x 40 links on a (4, 2) ('apa', 'link') mesh on the card,
+    canonical ingest: APA 0 takes phase 4's batches, APA a phase 4's
+    batches from another start with the links rotated by 10 a (as phase
+    10).  Each APA equals a 1-shard ``APAPipeline`` of its own batches.
+    Returns the datapath launches."""
+    n = len(d["batches"])
+    nb = N_WARM + PAR_TIMED
+    words = [np.stack([frames_words(np.roll(d["batches"][(b + 3 * a) % n],
+                                            10 * a, axis=0))
+                       for a in range(PAR_APAS)]) for b in range(nb)]
+    det = DetectorPipeline(
+        PAR_APAS, N_LINKS, d["cfg"], backend="pallas",
+        mesh=make_apa_link_mesh(PAR_APAS, PAR_APA_SHARDS, device=dev))
+    det.init_state(first_adcs(words[0]), rs_memory_factor=d["rmf"])
+    tpg.reset_launches()
+    outs, ms = [], []
+    for b, w in enumerate(words):
+        if b == N_WARM:
+            t_steady = time.perf_counter()
+        t1 = time.perf_counter()
+        before = det.dropped_hits.copy()
+        hits, n_hits, totals = det.process(w)
+        outs.append((np.asarray(hits), np.asarray(n_hits), totals,
+                     det.dropped_hits - before))
+        ms.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t_steady
+    launched = dict(tpg.process_window.function_launches)
+    launches = dict(tpg.process_window.kernel_launches)
+    tally()
+    want = {k: 0 for k in KERNELS}
+    want["K2"] = PAR_APAS * PAR_APA_SHARDS * nb
+    if launched != want:
+        raise AssertionError(f"detector pipeline: launches {launched}, "
+                             f"want {want}")
+    data_s = PAR_APAS * PAR_TIMED * BATCH_S
+    state = det.state
+    for a in range(PAR_APAS):
+        ref = new_pipeline(dev, d["cfg"], d["rmf"], words[0][a], 1)
+        for b, w in enumerate(words):
+            got = outs[b]
+            if not np.array_equal(got[2][a], got[1][a].sum()):
+                raise AssertionError(f"detector APA {a} batch {b}: total "
+                                     f"{got[2][a]} != sum of n_hits")
+            same_step(f"detector APA {a} batch {b} vs APAPipeline",
+                      (got[0][a], got[1][a], got[2][a], got[3][a]),
+                      step_out(ref, w[a]))
+        same_state(f"detector APA {a}",
+                   {k: np.asarray(v)[a] for k, v in state.items()},
+                   ref.state)
+    per_apa = [int(sum(o[2][a] for o in outs)) for a in range(PAR_APAS)]
+    print(f"  detector pipeline: {PAR_APAS} APAs x {N_LINKS} links on a "
+          f"({PAR_APAS}, {PAR_APA_SHARDS}) mesh on {dev}, canonical (K2), "
+          f"warm-up {ms[0]:.3f} ms; ms per batch p50 "
+          f"{statistics.median(ms[N_WARM:]):.4f} (max "
+          f"{max(ms[N_WARM:]):.4f}), aggregate_rtf {data_s / wall:.4f}; "
+          f"per-APA hits {per_apa}, dropped "
+          f"{[int(x) for x in det.dropped_hits]}; each APA == an "
+          "APAPipeline of its own batches, totals == sums of n_hits",
+          "launches", json.dumps({k: v for k, v in launches.items() if v}))
+    return launches
+
+
+def parallel_slice(dev, apa_data: dict) -> dict:
+    """Phase 11, on phase 4's data.  Returns the datapath launches of its
+    counted runs."""
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    cfg, rmf = apa_data["cfg"], apa_data["rmf"]
+    words = [frames_words(f) for f in
+             apa_data["batches"][:N_WARM + PAR_TIMED]]
+    t0 = time.perf_counter()
+    plain = list(plain_pipeline_hits(words[:N_CHECKED], rmf, cfg, dev))
+    print(f"  plain version of batches 0-{N_CHECKED - 1} (tc "
+          f"{tpg.auto_tc(T_APA)}, K {PAR_K}, cap {PAR_CAP} a link) in "
+          f"{time.perf_counter() - t0:.3f} s: hits "
+          f"{[p[2] for p in plain]}, dropped {[p[3] for p in plain]}")
+    runs, summary = {}, {}
+    for ingest, (_, kern) in PAR_INGESTS.items():
+        for n in PAR_SHARDS:
+            r = runs[(ingest, n)] = pipeline_run(dev, words, cfg, rmf,
+                                                 ingest, n)
+            add(r["launches"])
+            for b, want in enumerate(plain):
+                same_step(f"pipeline {ingest} x {n} batch {b} vs the plain "
+                          "version", r["outs"][b], want)
+            first = runs[("canonical", 1)]
+            for b, (got, want) in enumerate(zip(r["outs"], first["outs"])):
+                same_step(f"pipeline {ingest} x {n} batch {b} vs canonical "
+                          "x 1", got, want)
+            same_state(f"pipeline {ingest} x {n}", r["state"],
+                       first["state"])
+            split = pipeline_stage_split(r["pipe"],
+                                         apa_data["batches"][N_WARM])
+            p50 = statistics.median(r["ms"][N_WARM:])
+            rtf = PAR_TIMED * BATCH_S / r["wall"]
+            summary[f"{ingest} x {n}"] = {
+                "ms_per_batch_p50": round(p50, 4), "rtf": round(rtf, 4),
+                "split_ms": {k: round(v, 4) for k, v in split.items()}}
+            print(f"  APAPipeline {ingest} ({kern}), {n} shard(s) of "
+                  f"{N_LINKS // n} links on {dev}: warm-up "
+                  f"{r['ms'][0]:.3f} ms; ms per batch p50 {p50:.4f} (max "
+                  f"{max(r['ms'][N_WARM:]):.4f}), rtf {rtf:.4f}; hits "
+                  f"{sum(o[2] for o in r['outs'])}, dropped "
+                  f"{r['pipe'].dropped_hits}; batches 0-{N_CHECKED - 1} == "
+                  "plain, every batch and the state == canonical x 1; "
+                  "stage split (ms, medians of 5, each stage synced):",
+                  json.dumps(summary[f"{ingest} x {n}"]["split_ms"]),
+                  flush=True)
+    print("  APAPipeline, 1 shard vs 8 shards of one APA on one card:",
+          json.dumps(summary))
+    add(resume_run(dev, words, cfg, rmf, runs[("canonical", 8)]["outs"][2]))
+    del runs
+    add(detector_pipeline_run(dev, apa_data))
+    tpg.reset_launches()
+    dryrun_multichip(8)
+    launches = dict(tpg.process_window.kernel_launches)
+    tally()
+    add(launches)
+    print("  dryrun_multichip(8) launches",
+          json.dumps({k: v for k, v in launches.items() if v}))
+    for ingest in soak.INGESTS:
+        tpg.reset_launches()
+        rec = soak.run(SOAK_WINDOWS, SOAK_TICKS, C_APA, "AbsRS", ingest, dev)
+        print(" ", json.dumps(rec))
+        soak.check(rec)
+        launched = dict(tpg.process_window.function_launches)
+        kern = {"plain": "K2", "time2": "K1"}.get(ingest, "K4")
+        if launched[kern] != 2 * SOAK_WINDOWS or \
+                sum(launched.values()) != 2 * SOAK_WINDOWS:
+            raise AssertionError(f"soak {ingest}: launches {launched}")
+        add(dict(tpg.process_window.kernel_launches))
+        tally()
+        print(f"  SOAK OK ({ingest}, {kern} x {2 * SOAK_WINDOWS})")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2484,6 +2837,9 @@ def main() -> int:
     with phase("10 modules slice"):
         mods = modules_slice(dev, apa_data)
 
+    with phase("11 parallel slice"):
+        par = parallel_slice(dev, apa_data)
+
     # launches on the main paths: the APA app's feeds, the WIB2 and the
     # ProtoWIB processors' runs, the kernel entries, the detector slice,
     # the modules slice (scheduler, entry(), CLI, resume).  A row counts its
@@ -2498,7 +2854,7 @@ def main() -> int:
         "K4": app_launches["fused"] + app_launches["words14"] + det["K4"],
         "K5": pw["K5"],
         **{k: entries[k] for k in ("K2b", "K3b", "K4b-slab", "K4b-gather")}}
-    for k, v in mods.items():
+    for k, v in list(mods.items()) + list(par.items()):
         datapath[k] += v
     print("  launches on the main paths, per kernel function:",
           json.dumps(function_launches), "per datapath:", json.dumps(datapath))

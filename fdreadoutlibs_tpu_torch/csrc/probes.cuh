@@ -22,6 +22,8 @@
 #include <type_traits>
 #include <utility>
 
+#include "device_scope.cuh"
+
 // Launch `kern` (a pointer to a __global__ function) on blocks x threads.
 #ifdef TPG_HOST_EMULATION
 // host build for the CPU tests (tests/cuda_host/cuda_runtime.h): no probe

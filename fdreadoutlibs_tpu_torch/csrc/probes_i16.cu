@@ -183,8 +183,9 @@ cudaError_t launch_mix(const void* a, void* out, int n_iters, int blocks,
 // out int16 (int32 for widen_i32, mul_widen and the word ops).
 extern "C" int probe_i16_op_launch(const void* a, const void* b, void* out,
                                    int op, int n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess)
+    return static_cast<int>(scope.error());
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       dispatch_op(op, a, b, out, n, static_cast<cudaStream_t>(stream),
@@ -196,8 +197,9 @@ extern "C" int probe_i16_op_launch(const void* a, const void* b, void* out,
 extern "C" int probe_i16_mix_launch(const void* a, void* out, int arm,
                                     int n_iters, int blocks, int threads,
                                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess)
+    return static_cast<int>(scope.error());
   if (n_iters < 0 || bad_geometry(blocks, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

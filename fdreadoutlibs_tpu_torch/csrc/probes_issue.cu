@@ -66,8 +66,9 @@ cudaError_t launch_issue(const int32_t* x, int32_t* out, int n_iters,
 extern "C" int probe_issue_launch(const void* x, void* out, int ilp,
                                   int n_iters, int blocks, int threads,
                                   int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess)
+    return static_cast<int>(scope.error());
   if (n_iters < 0 || bad_geometry(blocks, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   const int32_t* xi = static_cast<const int32_t*>(x);

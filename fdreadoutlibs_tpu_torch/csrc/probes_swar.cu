@@ -120,8 +120,9 @@ cudaError_t launch_frugal(const int32_t* adc, int stride, int n_ticks,
 extern "C" int probe_swar_launch(const void* adc, int stride, int n_ticks,
                                  void* m, void* acc, int n, int arm,
                                  int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess)
+    return static_cast<int>(scope.error());
   if (n <= 0 || n_ticks < 0 || stride < n)
     return static_cast<int>(cudaErrorInvalidValue);
   const int32_t* a = static_cast<const int32_t*>(adc);

@@ -4,6 +4,7 @@
 // so the units build in parallel and link into one library
 // (ops/_build.py; tpg_fir_staged.cu and tpg_threshold_staged.cu the
 // pipeline's staged arms).
+#include "device_scope.cuh"
 #include "tpg.cuh"
 
 namespace {
@@ -86,8 +87,9 @@ extern "C" int tpg_launch(const void* feed, int feed_stride, int encoding,
                           int thr_mult, int int16, int fir_packed,
                           int rs_float, int slot_word_carry, int device,
                           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess)
+    return static_cast<int>(scope.error());
   Params p;
   if (family < kSimpleThreshold || family > kFIR ||
       (fir_packed && (family != kFIR || int16)) ||
@@ -146,8 +148,9 @@ extern "C" int tpg_fir2_launch(
   (void)charge_floor;
   (void)rs_float;
   (void)slot_word_carry;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess)
+    return static_cast<int>(scope.error());
   Params p;
   if (family != kFIR || int16 || fir_packed ||
       !make_params(p, feed, feed_stride, encoding, groups_per_row,
@@ -187,8 +190,9 @@ extern "C" int tpg_fir_staged_launch(
     int rs_scale_factor_x10, const int* taps, int tap_exponent, int adc_max,
     int sigma_cap, int thr_mult, int int16, int fir_packed, int rs_float,
     int slot_word_carry, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess)
+    return static_cast<int>(scope.error());
   Params p;
   if (family != kFIR || int16 || fir_packed || slot_word_carry ||
       (encoding != kPlain && encoding != kTime2) ||
@@ -217,8 +221,9 @@ extern "C" int tpg_threshold_staged_launch(
     int rs_scale_factor_x10, const int* taps, int tap_exponent, int adc_max,
     int sigma_cap, int thr_mult, int int16, int fir_packed, int rs_float,
     int slot_word_carry, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess)
+    return static_cast<int>(scope.error());
   Params p;
   if (family < kSimpleThreshold || family >= kFIR || fir_packed ||
       slot_word_carry ||

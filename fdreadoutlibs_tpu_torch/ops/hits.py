@@ -82,35 +82,41 @@ _INVALID = torch.iinfo(torch.int64).max
 
 def compact_slot_words(w0, w1, w2, max_hits: int, channel_base: int = 0,
                        tick_offset: int = 0):
-    """K-slot record words -> ((max_hits, 6) int32 hits [channel, end_tick,
-    charge, tover, peak_adc, peak_time] in canonical (end_tick, channel)
-    order, valid count as a 0-d tensor).
+    """K-slot record words -> ((..., max_hits, 6) int32 hits [channel,
+    end_tick, charge, tover, peak_adc, peak_time] in canonical (end_tick,
+    channel) order, valid count (...,)), each leading index on its own.
 
-    w0/w2: (K, C) packed words ([charge<<16|tover], [end_tick+1]); ``w1``
-    may be None (no-peak record layout) — peak fields emit as zero.
+    w0/w2: (..., K, C) packed words ([charge<<16|tover], [end_tick+1]);
+    ``w1`` may be None (no-peak record layout) — peak fields emit as zero.
+    Leading axes are compacted apart in one pass (the per-link compaction
+    of ``parallel/apa.py``, the counterpart of the JAX package's ``vmap``).
     """
-    K, C = w2.shape
+    *lead, K, C = w2.shape
     dev = w2.device
-    valid = (w2 != 0).reshape(-1)
-    chan = torch.arange(C, dtype=torch.int32, device=dev).repeat(K)
-    end = (w2 - 1).reshape(-1)
+    valid = (w2 != 0).reshape(*lead, K * C)
+    chan = torch.arange(C, dtype=torch.int32, device=dev).repeat(K) \
+        .expand(*lead, K * C)
+    end = (w2 - 1).reshape(*lead, K * C)
     if w1 is None:
         w1 = torch.zeros_like(w0)
     # valid keys are unique (a hit closes once per channel per tick), so
     # ties only ever occur among the invalid keys, whose rows are zeroed
     key = torch.where(valid, end.long() * C + chan.long(), _INVALID)
     take = min(max_hits, K * C)
-    order = torch.topk(key, take, largest=False, sorted=True).indices
-    valid_t = valid[order]
-    w0o = w0.reshape(-1)[order]
-    w1o = w1.reshape(-1)[order]
-    fields = torch.stack([chan[order] + channel_base,
-                          end[order] + tick_offset,
+    order = torch.topk(key, take, dim=-1, largest=False, sorted=True).indices
+
+    def pick(x):
+        return torch.gather(x.reshape(*lead, K * C), -1, order)
+
+    valid_t = pick(valid)
+    w0o, w1o = pick(w0), pick(w1)
+    fields = torch.stack([pick(chan) + channel_base,
+                          pick(end) + tick_offset,
                           w0o >> 16, w0o & 0xFFFF,
                           w1o >> 16, w1o & 0xFFFF], dim=-1)
-    n = valid.sum(dtype=torch.int32)
-    out = torch.zeros((max_hits, 6), dtype=torch.int32, device=dev)
-    out[:take] = torch.where(valid_t[:, None], fields, 0)
+    n = valid.sum(dim=-1, dtype=torch.int32)
+    out = torch.zeros((*lead, max_hits, 6), dtype=torch.int32, device=dev)
+    out[..., :take, :] = torch.where(valid_t[..., None], fields, 0)
     return out, torch.clamp(n, max=max_hits)
 
 

@@ -77,29 +77,35 @@ def process_window_scan(adcs: torch.Tensor, state: dict, cfg: TPGConfig):
 
 def compact_hits_device(closed: torch.Tensor, records: dict,
                         max_hits: int = 1024):
-    """Device-side compaction of dense (T, C) hit outputs to fixed capacity
-    (:51-75): a prefix sum gives each closed (t, c) its slot in close order,
-    which is the canonical (end_tick, channel) order; the overflow beyond
-    ``max_hits`` is dropped and counted.  Issues no host sync.
+    """Device-side compaction of dense (..., T, C) hit outputs to fixed
+    capacity (:51-75): a prefix sum gives each closed (t, c) its slot in
+    close order, which is the canonical (end_tick, channel) order; the
+    overflow beyond ``max_hits`` is dropped and counted.  Leading axes are
+    compacted apart in one pass (the JAX package ``vmap``s it per link,
+    ``parallel/apa.py:180-183``).  Issues no host sync.
 
-    Returns (hits (max_hits, 6) int32 [channel, end_tick, charge, tover,
-    peak_adc, peak_time], n_hits, n_dropped), the counts as 0-d tensors."""
-    T, C = closed.shape
+    Returns (hits (..., max_hits, 6) int32 [channel, end_tick, charge,
+    tover, peak_adc, peak_time], n_hits (...,), n_dropped (...,))."""
+    *lead, T, C = closed.shape
     dev = closed.device
-    flat = closed.reshape(-1)
+    flat = closed.reshape(*lead, T * C)
     ones = flat.to(torch.int32)
-    pos = torch.cumsum(ones, 0, dtype=torch.int32) - 1
-    n = ones.sum(dtype=torch.int32)
-    idx = torch.arange(T * C, dtype=torch.int32, device=dev)
-    fields = [idx % C, idx // C] + [records[f].reshape(-1).to(torch.int32)
-                                    for f in RECORD_FIELDS]
+    pos = torch.cumsum(ones, -1, dtype=torch.int32) - 1
+    n = ones.sum(dim=-1, dtype=torch.int32)
+    idx = torch.arange(T * C, dtype=torch.int32, device=dev) \
+        .expand(*lead, T * C)
+    fields = [idx % C, idx // C] + [
+        records[f].reshape(*lead, T * C).to(torch.int32)
+        for f in RECORD_FIELDS]
     # a row that is not kept goes to the spare row max_hits, then dropped
     dest = torch.where(flat & (pos < max_hits), pos,
                        torch.full_like(pos, max_hits)).long()
-    out = torch.zeros((max_hits + 1, 6), dtype=torch.int32, device=dev)
-    out[dest] = torch.stack(fields, dim=-1)
+    vals = torch.stack(fields, dim=-1)
+    out = torch.zeros((*lead, max_hits + 1, 6), dtype=torch.int32,
+                      device=dev)
+    out.scatter_(-2, dest[..., None].expand(*lead, T * C, 6), vals)
     n_kept = torch.clamp(n, max=max_hits)
-    return out[:max_hits], n_kept, n - n_kept
+    return out[..., :max_hits, :], n_kept, n - n_kept
 
 
 def compact_to_numpy(hits_arr, n_hits) -> np.ndarray:

@@ -11,6 +11,10 @@ library "probes") and its plain PyTorch version beside it:
 * :mod:`.slots_ab` — ``scripts/bench_stepform_ab.py --mode slots``: the
   direct store against the ``SLOT_WORD_CARRY`` emission layout.
 
+:mod:`.soak` (``scripts/soak_hardware.py``) has no kernel of its own: it
+runs the TPG kernels (K2, K4, K1) over a long carried-state stream with a
+mid-stream resume and checks the exact hit count.
+
 Each runs as ``python -m fdreadoutlibs_tpu_torch.probes.<name>`` on the card
 and prints one JSON line.  A kernel entry takes tensors: on CUDA tensors it
 launches the kernel (or raises), on CPU tensors it runs the plain version.

@@ -38,7 +38,25 @@ inline thread_local HostDim3 threadIdx;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 
-inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+// the calling thread's current device, as the runtime keeps it; the CPU
+// tests read it after a C entry through cuda_host_current_device
+inline thread_local int host_current_device = 0;
+inline cudaError_t cudaSetDevice(int device) {
+  host_current_device = device;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = host_current_device;
+  return cudaSuccess;
+}
+extern "C" __attribute__((weak, visibility("default"))) int
+cuda_host_current_device() {
+  return host_current_device;
+}
+extern "C" __attribute__((weak, visibility("default"))) void
+cuda_host_set_device(int device) {
+  host_current_device = device;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 template <class T>

@@ -17,7 +17,12 @@ against the same on the CPU; for the modules slice, ``MultiAPAScheduler``
 at 4 APAs x 4 links against single-APA ``StreamingIngest`` and its CPU run,
 ``entry()``, the CLI's ``tpg-emulator -i pallas``, ``compare-backends`` and
 ``profile`` (the trace names the kernel), and checkpoint/resume with the
-state on the card.  Marked ``cuda``:
+state on the card; for the parallel slice, ``APAPipeline`` on 8 shards of
+the card against 1 shard and a CPU mesh in each ingest,
+``DetectorPipeline`` on the card against the CPU, the sharded resume from
+the card onto the card and the CPU, ``dryrun_multichip`` on the card
+against its CPU line, and the C entries leaving the caller's device as
+they found it (needs 2 cards).  Marked ``cuda``:
 each test skips where torch finds no card.  This file imports no JAX, so on
 the machine with the card (which has none) run it without the suite's
 conftest:
@@ -1081,3 +1086,142 @@ def test_checkpoint_resume_with_state_on_card(card, tmp_path):
     got = np.concatenate(part1 + p2.tp_sink.drain())
     assert len(want) == 3
     np.testing.assert_array_equal(got, want)
+
+
+# ---- the parallel slice: link-axis sharding on the card --------------------
+
+def _pipeline_words(n_links: int, n_batches: int, seed: int) -> list:
+    """Batches of (L, T, 28) uint32 frame words of 16 frames a link."""
+    from fdreadoutlibs_tpu_torch.formats import wibeth
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(n_batches):
+        frames = make_batch(rng, n_links, 16, b, 0x1000000 + 32768 * b,
+                            signal_rate=0.5)[0]
+        out.append(wibeth.frames_bytes_to_u32(frames.reshape(
+            -1, wibeth.FRAME_SIZE)).reshape(n_links, -1, 28))
+    return out
+
+
+def _pipeline_steps(pipe, batches) -> list:
+    outs = []
+    for w in batches:
+        hits, n_hits, total = pipe.process(w)
+        outs.append((np.asarray(hits), np.asarray(n_hits), total,
+                     pipe.dropped_hits))
+    outs.append({k: np.asarray(v) for k, v in pipe.state.items()})
+    return outs
+
+
+def _assert_steps_equal(got, want):
+    for g, w in zip(got[:-1], want[:-1]):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    assert got[-1].keys() == want[-1].keys()
+    for k in want[-1]:
+        np.testing.assert_array_equal(got[-1][k], want[-1][k], err_msg=k)
+
+
+@pytest.mark.parametrize("flags,kern", [({}, "K2"),
+                                        ({"fused_unpack": True}, "K4"),
+                                        ({"time2_feed": True}, "K1")],
+                         ids=["canonical", "fused", "time2"])
+def test_pipeline_shards_on_card_match_one_shard_and_cpu(card, flags, kern):
+    """8 links: 8 shards on one card (each on its own stream) equal 1
+    shard on the card and 2 shards on the CPU (the plain versions), two
+    steps: hits, n_hits, totals, dropped and state; the 8-shard run
+    launches the kernel once a shard a step."""
+    from fdreadoutlibs_tpu_torch.parallel import APAPipeline, make_link_mesh
+    cfg = TPGConfig.from_raw("AbsRS", threshold=150)
+    batches = _pipeline_words(8, 2, seed=41)
+    got = {}
+    for dev, n in (("cuda", 8), ("cuda", 1), ("cpu", 2)):
+        pipe = APAPipeline(8, cfg, mesh=make_link_mesh(n, device=dev),
+                           backend="pallas", **flags)
+        tpg.reset_launches()
+        got[(dev, n)] = _pipeline_steps(pipe, batches)
+        launched = dict(tpg.process_window.function_launches)
+        assert launched[kern] == (n * 2 if dev == "cuda" else 0)
+        assert sum(launched.values()) == launched[kern]
+    assert sum(o[2] for o in got[("cpu", 2)][:-1]) > 0
+    _assert_steps_equal(got[("cuda", 8)], got[("cpu", 2)])
+    _assert_steps_equal(got[("cuda", 1)], got[("cpu", 2)])
+
+
+def test_detector_pipeline_on_card_matches_cpu(card):
+    from fdreadoutlibs_tpu_torch.parallel import (DetectorPipeline,
+                                                  make_apa_link_mesh)
+    cfg = TPGConfig.from_raw("AbsRS", threshold=150)
+    words = [np.stack([w[:4], w[4:]]) for w in _pipeline_words(8, 2, 43)]
+    got = {}
+    for dev, n in (("cuda", 2), ("cpu", 1)):
+        det = DetectorPipeline(2, 4, cfg, backend="pallas",
+                               mesh=make_apa_link_mesh(2, n, device=dev))
+        outs = []
+        for w in words:
+            hits, n_hits, totals = det.process(w)
+            np.testing.assert_array_equal(totals,
+                                          np.asarray(n_hits).sum(axis=1))
+            outs.append((np.asarray(hits), np.asarray(n_hits), totals,
+                         det.dropped_hits.copy()))
+        outs.append({k: np.asarray(v) for k, v in det.state.items()})
+        got[dev] = outs
+    _assert_steps_equal(got["cuda"], got["cpu"])
+
+
+def test_sharded_resume_on_card(card, tmp_path):
+    """An 8-shard state on the card checkpointed after batch 1 restores
+    into a fresh 1-shard pipeline on the card and a 2-shard one on the CPU:
+    batch 2 and the state equal the uninterrupted run."""
+    from fdreadoutlibs_tpu_torch.parallel import APAPipeline, make_link_mesh
+    from fdreadoutlibs_tpu_torch.utils.checkpoint import (
+        load_sharded_state, save_sharded_state)
+    cfg = TPGConfig.from_raw("AbsRS", threshold=150)
+    batches = _pipeline_words(8, 3, seed=47)
+    cont = APAPipeline(8, cfg, mesh=make_link_mesh(8, device="cuda"),
+                       backend="pallas", time2_feed=True)
+    _pipeline_steps(cont, batches[:2])
+    save_sharded_state(tmp_path / "ckpt", cont.state)
+    before = cont.dropped_hits
+    want = _pipeline_steps(cont, batches[2:])
+    for dev, n in (("cuda", 1), ("cpu", 2)):
+        p = APAPipeline(8, cfg, mesh=make_link_mesh(n, device=dev),
+                        backend="pallas", time2_feed=True)
+        p.init_state(np.zeros((8, 64), np.int32))
+        p.state = load_sharded_state(tmp_path / "ckpt", p.state)
+        assert all(t.device.type == dev for v in p.state.values()
+                   for t in v.shards.flat)
+        p.dropped_hits = before
+        _assert_steps_equal(_pipeline_steps(p, batches[2:]), want)
+
+
+def test_dryrun_multichip_on_card_matches_cpu(card, capsys):
+    from fdreadoutlibs_tpu_torch.entry import dryrun_multichip
+    dryrun_multichip(2)
+    on_card = capsys.readouterr().out.strip().splitlines()[-1]
+    dryrun_multichip(2, device="cpu")
+    on_cpu = capsys.readouterr().out.strip().splitlines()[-1]
+    assert on_card.startswith("dryrun_multichip OK") and on_card == on_cpu
+
+
+def test_kernel_leaves_the_callers_device(card):
+    """A launch on another card leaves the calling thread's current device
+    as it was (the C entries restore it, ``csrc/device_scope.cuh``)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards: a launch on a card other than the "
+                    "current one")
+    cfg = TPGConfig.from_raw("AbsRS", threshold=150)
+    adcs, rmf = tpg_stream(256, 64, 64, 2, seed=5)
+    state = tpg.pack_state(seed_chanstate(init_chanstate(64), adcs[0], rmf),
+                           64)
+    torch.cuda.set_device(0)
+    other = torch.device("cuda", 1)
+    got = tpg.process_window(torch.from_numpy(adcs).to(other),
+                             state.to(other), cfg, 64, 2, time_packed=False)
+    assert torch.cuda.current_device() == 0
+    want = tpg.process_window_plain(torch.from_numpy(adcs), state, cfg, 64, 2,
+                                    time_packed=False)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    x = roofline.chains_input(1, 128, other)
+    roofline.issue_chains(x, 3, 1, 128)
+    assert torch.cuda.current_device() == 0

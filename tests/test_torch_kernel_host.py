@@ -687,3 +687,33 @@ def test_frugal_probe_source_matches_plain(host_probes, arm):
     wide = torch.nn.functional.pad(adc, (0, 5)).contiguous()
     again = swar_frugal.frugal_launch(host_probes, wide, m0, a0, arm)
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("current", [0, 2])
+def test_c_entries_restore_the_callers_device(host_lib, host_kernel,
+                                              host_probes, current):
+    """Every C entry launches on the device it is given and leaves the
+    calling thread's current device as it found it (``csrc/
+    device_scope.cuh``): the stand-in runtime keeps the current device as
+    the CUDA runtime does, and a launch on device 3 must not move it."""
+    set_device = host_lib.cuda_host_set_device
+    set_device.argtypes = [ctypes.c_int]
+    get_device = host_lib.cuda_host_current_device
+    get_device.restype = ctypes.c_int
+    set_device(current)
+    cfg = CONFIGS["AbsRS"]
+    feeds, state = _inputs(cfg, 64, 128, 64, 2)
+    feed, time2, packed14 = feeds[0]
+    got = tpg._launch(host_kernel, feed, state, cfg, 64, 2, time2, packed14,
+                      3, None)
+    assert get_device() == current
+    want = tpg.process_window_plain(feed, state, cfg, 64, 2, time2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    x = roofline.chains_input(1, 128, "cpu")
+    roofline.issue_launch(host_probes, x, 3, 1, 128, device=3)
+    get_probe_device = host_probes.cuda_host_current_device
+    get_probe_device.restype = ctypes.c_int
+    host_probes.cuda_host_set_device.argtypes = [ctypes.c_int]
+    host_probes.cuda_host_set_device(current)
+    roofline.issue_launch(host_probes, x, 3, 1, 128, device=3)
+    assert get_probe_device() == current

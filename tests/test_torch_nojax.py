@@ -126,6 +126,39 @@ with tempfile.TemporaryDirectory() as td:
     assert cli.main(["compare-backends", "-f", patt, "-b", "reference",
                      "scan", "pallas", "--device", "cpu"]) == 0
 
+# the third module slice: link-axis sharding, the sharded checkpoint, the
+# dry run and the soak, on meshes of the CPU
+from fdreadoutlibs_tpu_torch.entry import dryrun_multichip
+from fdreadoutlibs_tpu_torch.parallel import (APAPipeline, DetectorPipeline,
+                                              make_apa_link_mesh,
+                                              make_link_mesh)
+from fdreadoutlibs_tpu_torch.probes import soak
+from fdreadoutlibs_tpu_torch.utils.checkpoint import (load_sharded_state,
+                                                      save_sharded_state)
+from fdreadoutlibs_tpu_torch.formats import wibeth
+frames = make_batch(np.random.default_rng(5), 4, 2, 0, 0x1000000)[0]
+words = wibeth.frames_bytes_to_u32(
+    frames.reshape(-1, wibeth.FRAME_SIZE)).reshape(4, 128, 28)
+pipe = APAPipeline(4, TPGConfig(threshold=150),
+                   mesh=make_link_mesh(2, device="cpu"), backend="pallas",
+                   fused_unpack=True)
+_, n_p, total = pipe.process(words)
+assert total == int(np.asarray(n_p).sum()) and total > 0
+with tempfile.TemporaryDirectory() as td:
+    save_sharded_state(td + "/s", pipe.state)
+    one = APAPipeline(4, TPGConfig(threshold=150),
+                      mesh=make_link_mesh(1, device="cpu"), backend="pallas")
+    one.init_state(np.zeros((4, 64), np.int32))
+    one.state = load_sharded_state(td + "/s", one.state)
+    assert np.array_equal(np.asarray(one.state["pedestals"]),
+                          np.asarray(pipe.state["pedestals"]))
+det = DetectorPipeline(2, 2, TPGConfig(threshold=150),
+                       mesh=make_apa_link_mesh(2, 2, device="cpu"))
+_, n_d, tot_d = det.process(words.reshape(2, 2, -1, 28))
+assert list(tot_d) == list(np.asarray(n_d).sum(axis=1))
+dryrun_multichip(2, device="cpu")
+soak.check(soak.run(2, 1024, 64, "AbsRS", "time2", "cpu"))
+
 # the probes' entries on CPU tensors run their plain versions
 from fdreadoutlibs_tpu_torch import probes
 from fdreadoutlibs_tpu_torch.probes import (i16_ops, roofline, slots_ab,
@@ -162,7 +195,12 @@ if not torch.cuda.is_available():
                              "not raise")
     for make in (lambda: MultiAPAScheduler(TPGConfig(), 1, 1),
                  lambda: entry(), lambda: cli.main(
-                     ["profile", "--channels", "64", "--ticks", "64"])):
+                     ["profile", "--channels", "64", "--ticks", "64"]),
+                 lambda: make_link_mesh(), lambda: make_apa_link_mesh(2),
+                 lambda: APAPipeline(2, TPGConfig()),
+                 lambda: DetectorPipeline(1, 1, TPGConfig()),
+                 lambda: dryrun_multichip(2),
+                 lambda: soak.main(["--windows", "1"])):
         try:      # "cuda", the default, never carries on without a card
             make()
         except RuntimeError:
@@ -274,7 +312,8 @@ def test_no_port_module_imports_the_jax_package():
             "fragment.py", "wire.py", "daphne.py", "tde.py", "ssp.py",
             "recorder.py", "scheduler.py", "cli.py", "entry.py", "scan.py",
             "config.py", "checkpoint.py", "emulator.py", "patterns.py",
-            "simulation.py", "variable.py"} <= {p.name for p in paths}
+            "simulation.py", "variable.py", "mesh.py", "apa.py",
+            "soak.py"} <= {p.name for p in paths}
     for path in paths:
         roots = _import_roots(path)
         assert not roots & {"fdreadoutlibs_tpu", "jax", "jaxlib",

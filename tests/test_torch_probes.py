@@ -354,14 +354,15 @@ def test_preflight():
 def test_library_keys_are_per_library(tmp_path, monkeypatch):
     """A probe source is no part of the tpg library's key (and the other
     way round); a header is part of the key of the units that include
-    it."""
+    it, the C entries' shared ``device_scope.cuh`` of both."""
     tpg_src = {p.name for p in _build.sources("tpg")}
     probe_src = {p.name for p in _build.sources("probes")}
     assert "tpg.cuh" in tpg_src and "probes.cuh" in probe_src
-    assert not tpg_src & probe_src
+    assert tpg_src & probe_src == {"device_scope.cuh"}
     assert {"tpg_carry_plain.cu", "tpg_plain.cu", "tpg.cu"} <= tpg_src
     assert {"probes_issue.cu", "probes_i16.cu",
-            "probes_swar.cu"} == probe_src - {"probes.cuh"}
+            "probes_swar.cu"} == probe_src - {"probes.cuh",
+                                              "device_scope.cuh"}
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for p in _build.CSRC_DIR.glob("*.cu*"):
@@ -375,3 +376,8 @@ def test_library_keys_are_per_library(tmp_path, monkeypatch):
     with open(csrc / "tpg.cuh", "a") as f:
         f.write("// edited\n")
     assert _build.library_path("tpg").name != before["tpg"]
+    edited = {n: _build.library_path(n).name for n in ("tpg", "probes")}
+    with open(csrc / "device_scope.cuh", "a") as f:
+        f.write("// edited\n")
+    assert all(_build.library_path(n).name != edited[n]
+               for n in ("tpg", "probes"))
