@@ -146,6 +146,25 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    total the sum of its n_hits); ``dryrun_multichip(8)`` on the card; and
    ``probes.soak`` at 2560 channels x 4096 ticks, 40 windows, in its four
    ingests (K2, K4 frames, K4 words14, K1), each ``SOAK OK``.
+12. tool slice — the fuzzers and the knob tuner on the card, while the tpg
+   library of one non-shipped geometry (``group`` 16, ``stage_ticks`` 64,
+   ``stages`` 4: ``probes.autotune.QUICK_GEOMETRY``) builds beside them:
+   ``probes.fuzz_sweep`` over 20 seeds (K2, K3 on every case, the time2
+   feed and FIR's lifted two-pass schedule, K1 and K5, on every second;
+   bit-equal to the plain version and the oracle), ``probes.fuzz_frames``
+   with 3 seeds for each of its 7 rigs (corrupt payloads through every
+   processor's "pallas" backend on the card: no exception, the seq/ts
+   errors seen, the TPs equal to the plain version's and to the
+   reference's under the kernel's contract), ``probes.fuzz_tp_path`` (20
+   host cases and a hammer); the registers and spills of both geometries'
+   libraries; then ``probes.autotune --quick --confirm 2`` on the four
+   families at 2560 x 8192 (the time2 feed: K1, and K3 / K5 for FIR),
+   every candidate bit-equal to the plain version at its tc and k and the
+   geometry to the shipped library, its table (ms per window per
+   candidate, the confirmed entry per family); and the written file, read
+   back through ``kernel_knobs`` (``FDREADOUT_TUNED`` restored after),
+   drives one APA batch of phase 4's data on the time2 feed, equal to the
+   plain app at those knobs.
 
 Phase 2 also builds the port's native host codecs (``native/``) and fails
 if they do not load, so no host stage is timed on the numpy fallback.
@@ -168,7 +187,7 @@ version.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels (each with the launches of its kernel function on the main
-paths, phases 9-11 included, ``tpg.kernel_of``, and beside them
+paths, phases 9-12 included, ``tpg.kernel_of``, and beside them
 ``datapath_launches``, every
 launch whose datapath holds it, ``tpg.kernels_of``; its error against
 the plain version, its time, the plain version's, and its bound: the
@@ -181,6 +200,8 @@ the port.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -217,8 +238,10 @@ from fdreadoutlibs_tpu_torch.parallel import (APAPipeline, DetectorPipeline,
                                               make_apa_link_mesh,
                                               make_link_mesh)
 from fdreadoutlibs_tpu_torch.parallel import apa as par_apa
-from fdreadoutlibs_tpu_torch.probes import (fir_pipe, i16_ops, roofline,
-                                            slots_ab, soak, swar_frugal)
+from fdreadoutlibs_tpu_torch.probes import (autotune, fir_pipe, fuzz_frames,
+                                            fuzz_sweep, fuzz_tp_path,
+                                            i16_ops, roofline, slots_ab, soak,
+                                            swar_frugal)
 from fdreadoutlibs_tpu_torch.probes.roofline import (DECODE_OPS, INT32_LANES,
                                                      OPS_PER_TICK)
 from fdreadoutlibs_tpu_torch.stream import WIB2FrameProcessor, \
@@ -2725,6 +2748,146 @@ def parallel_slice(dev, apa_data: dict) -> dict:
     return total
 
 
+# ---- phase 12: the tool slice ----------------------------------------------
+
+TUNE_GEOMETRY = autotune.QUICK_GEOMETRY    # the one non-shipped geometry
+TUNE_C, TUNE_T = C_APA, T_APA              # the JAX tuner's 2560 x 8192
+TUNE_WINDOWS, TUNE_TRIALS, TUNE_CONFIRM, TUNE_CONFIRM_TRIALS = 4, 2, 2, 2
+FUZZ_SWEEP_SEEDS, FUZZ_SWEEP_START, FUZZ_KERNEL_EVERY = 20, 20_000, 2
+FUZZ_FRAMES_PER_RIG, FUZZ_FRAMES_START = 3, 50_000
+FUZZ_TP_CASES, FUZZ_TP_START = 20, 56_000
+
+
+def tuned_apa_batch(dev, d: dict, tuned: dict) -> dict:
+    """The tuned file written by the tuner, read back through
+    ``kernel_knobs``, drives one APA batch of phase 4's data on the time2
+    feed (K1); its hits equal the plain app's at those knobs.  The file is
+    the phase's own: ``FDREADOUT_TUNED`` is restored after.  Returns the
+    batch's datapath launches."""
+    old = os.environ.get("FDREADOUT_TUNED")
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "tuned.json")
+        with open(path, "w") as f:
+            json.dump(tuned, f)
+        os.environ["FDREADOUT_TUNED"] = path
+        try:
+            knobs = kernel_knobs(d["cfg"])
+            entry = tuned["AbsRS"]
+            got = (knobs["tc"], knobs["k_slots"], tuple(knobs["geometry"]))
+            want = (entry["tc"], entry["k"],
+                    tuple(entry[f] for f in ("group", "stage_ticks",
+                                             "stages")))
+            if got != want:
+                raise AssertionError(f"kernel_knobs read {got} from the "
+                                     f"tuned file, not {want}")
+            app = APAReadoutApp(n_links=N_LINKS, algorithm="AbsRS",
+                                threshold=150, threshold_on_collection=True,
+                                device=dev, time2_feed=True)
+            fetched = []
+            fetch = app._fetch_hits
+            app._fetch_hits = lambda packed: fetched.append(
+                fetch(packed)) or fetched[-1]
+            tpg.reset_launches()
+            app.process_batch(d["batches"][0])
+            app.flush()
+            launched = dict(tpg.process_window.kernel_launches)
+            tally()
+            plain = next(plain_app_hits([batch_adcs(d["batches"][0])],
+                                        d["rmf"], d["cfg"], app.k_slots,
+                                        dev))
+            same_hits("APA batch 0 under the tuned file vs the plain app",
+                      fetched[0], plain)
+            print(f"  tuned file -> kernel_knobs {json.dumps(got)}: APA "
+                  f"batch 0 (time2, K1 x {launched['K1']}) "
+                  f"{len(plain[0])} hits, {plain[1]} dropped == plain")
+        finally:
+            if old is None:
+                os.environ.pop("FDREADOUT_TUNED", None)
+            else:
+                os.environ["FDREADOUT_TUNED"] = old
+    return launched
+
+
+def tool_slice(dev, apa_data: dict) -> dict:
+    """Phase 12.  Returns the datapath launches of its main paths: the
+    fuzzers, the tuner and the tuned APA batch."""
+    add = collections.Counter()
+    # the geometry's library builds while the fuzzers run on the shipped one
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        build = pool.submit(_build.build, "tpg",
+                            tpg.geometry_defines(TUNE_GEOMETRY))
+        fuzzers(dev, add)
+        lib = build.result()
+    print(f"  built {lib.name} (geometry {tuple(TUNE_GEOMETRY)}) in "
+          f"{time.perf_counter() - t0:.1f} s, beside the fuzzers")
+
+    t0 = time.perf_counter()
+    tpg.reset_launches()
+    tuned = autotune.run(dev, quick=True, geometries=[TUNE_GEOMETRY],
+                         C=TUNE_C, T=TUNE_T, windows=TUNE_WINDOWS,
+                         trials=TUNE_TRIALS, confirm=TUNE_CONFIRM,
+                         confirm_trials=TUNE_CONFIRM_TRIALS, check=True,
+                         log=lambda line: None)
+    add.update(tpg.process_window.kernel_launches)
+    tally()
+    print(f"  autotune --quick --confirm {TUNE_CONFIRM} ({TUNE_C} x "
+          f"{TUNE_T}, {TUNE_WINDOWS} windows, {TUNE_TRIALS} trials; every "
+          "candidate == the plain version at its tc and k, the geometry == "
+          f"the shipped one) in {time.perf_counter() - t0:.1f} s")
+    print("  ptxas per geometry (group, stage_ticks, stages; the shipped "
+          "one first):", json.dumps(tuned["ptxas"]))
+    for alg, rows in tuned["sweep"].items():
+        print(f"  autotune {alg} ms per window:", json.dumps(
+            [{k: r[k] for k in ("tc", "k", "twopass", "group",
+                                "stage_ticks", "stages", "ms") if k in r}
+             for r in sorted(rows, key=lambda r: r["ms"])]))
+    for alg, entry in tuned["tuned"].items():
+        print(f"  autotune {alg} entry:", json.dumps(
+            {k: v for k, v in entry.items() if k != "confirm"}),
+            "confirm ms per pass:", json.dumps(
+                [[r[k] for k in ("tc", "k", "twopass", "group",
+                                 "stage_ticks", "stages") if k in r]
+                 + [r["ms_passes"]] for r in entry.get("confirm", [])]))
+    if set(tuned["tuned"]) != set(autotune.ALGS):
+        raise AssertionError(f"tuned {sorted(tuned['tuned'])}")
+    add.update(tuned_apa_batch(dev, apa_data, tuned["tuned"]))
+    return dict(add)
+
+
+def fuzzers(dev, add) -> None:
+    """The three fuzzers of phase 12, their datapath launches into
+    ``add``; raises on any mismatch."""
+    launched = {}
+    tpg.reset_launches()
+    sweep = fuzz_sweep.sweep(FUZZ_SWEEP_SEEDS, FUZZ_SWEEP_START, dev,
+                             FUZZ_KERNEL_EVERY)
+    add.update(tpg.process_window.kernel_launches)
+    launched["fuzz_sweep"] = dict(tpg.process_window.function_launches)
+    tally()
+    print("  fuzz_sweep:", json.dumps(sweep))
+    tpg.reset_launches()
+    frames = fuzz_frames.sweep(0, FUZZ_FRAMES_START, dev,
+                               per_rig=FUZZ_FRAMES_PER_RIG)
+    add.update(tpg.process_window.kernel_launches)
+    launched["fuzz_frames"] = dict(tpg.process_window.function_launches)
+    tally()
+    print("  fuzz_frames:", json.dumps(frames))
+    print("  fuzzers' launches per kernel function:", json.dumps(
+        {k: {f: n for f, n in v.items() if n} for k, v in launched.items()}))
+    tp_path = fuzz_tp_path.sweep(FUZZ_TP_CASES, FUZZ_TP_START, hammer=1)
+    print("  fuzz_tp_path (host):", json.dumps(tp_path))
+    for name, res, n in (("fuzz_sweep", sweep, "failures"),
+                         ("fuzz_frames", frames, "failures"),
+                         ("fuzz_tp_path", tp_path, "failures"),
+                         ("fuzz_tp_path hammer", tp_path,
+                          "hammer_failures")):
+        if res[n]:
+            raise AssertionError(f"{name}: {res[n]} mismatches")
+    if not all(sum(v.values()) for v in launched.values()):
+        raise AssertionError(f"a fuzzer launched no kernel: {launched}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2839,6 +3002,11 @@ def main() -> int:
 
     with phase("11 parallel slice"):
         par = parallel_slice(dev, apa_data)
+    print("  launches on the main paths of phases 1-11, per kernel "
+          "function:", json.dumps(function_launches))
+
+    with phase("12 tool slice"):
+        tools = tool_slice(dev, apa_data)
 
     # launches on the main paths: the APA app's feeds, the WIB2 and the
     # ProtoWIB processors' runs, the kernel entries, the detector slice,
@@ -2854,7 +3022,7 @@ def main() -> int:
         "K4": app_launches["fused"] + app_launches["words14"] + det["K4"],
         "K5": pw["K5"],
         **{k: entries[k] for k in ("K2b", "K3b", "K4b-slab", "K4b-gather")}}
-    for k, v in list(mods.items()) + list(par.items()):
+    for k, v in list(mods.items()) + list(par.items()) + list(tools.items()):
         datapath[k] += v
     print("  launches on the main paths, per kernel function:",
           json.dumps(function_launches), "per datapath:", json.dumps(datapath))

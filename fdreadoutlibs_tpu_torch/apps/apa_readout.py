@@ -238,13 +238,15 @@ class APAReadoutApp:
                                   for p in self.procs])
             state = seed_chanstate(init_chanstate(C), first, rmf)
             self._state = pack_state(state, C, device=self.device)
-        tc = auto_tc(T, cap=kernel_knobs(self.cfg)["tc"])
+        knobs = kernel_knobs(self.cfg)
+        tc = auto_tc(T, cap=knobs["tc"])
         t_codec = time.perf_counter()
         fed, fn = self._host_feed(words)
         self._codec_ms = (time.perf_counter() - t_codec) * 1e3
         dev_in = torch.from_numpy(fed).to(self.device)
         slots, nclose, self._state = fn(
-            dev_in, self._state, self.cfg, C, tc=tc, k_slots=self.k_slots)
+            dev_in, self._state, self.cfg, C, tc=tc, k_slots=self.k_slots,
+            geometry=knobs["geometry"])
         # device-side compaction: only the hit list crosses to the host;
         # overflow beyond max_hits is counted in the trailer's dropped field
         return compact_on_device(slots, nclose, 0, C, max(2048, 2 * C))

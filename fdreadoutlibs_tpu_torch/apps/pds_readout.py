@@ -150,7 +150,8 @@ class PDSReadoutApp:
             np.ascontiguousarray(words).view(np.int32)).to(self.device)
         slots, nclose, self._stack = process_packed_daphne(
             dev_words, self._stack, self.cfg, C, tc=tc,
-            k_slots=self.k_slots, fir_twopass=knobs["fir_twopass"])
+            k_slots=self.k_slots, fir_twopass=knobs["fir_twopass"],
+            geometry=knobs["geometry"])
         return compact_on_device(slots, nclose, 0, C, max(2048, 2 * C))
 
     def process_batch(self, superchunks: np.ndarray):

@@ -70,9 +70,10 @@ class MultiAPAScheduler:
         self.n_channels = n_links * wibeth.N_CHANNELS
         # explicit args win; else tuned file (FDREADOUT_TUNED); else
         # the shipped per-algorithm table
-        knobs = kernel_knobs(cfg)
-        self.tc = tc if tc is not None else knobs["tc"]
+        knobs = kernel_knobs(cfg, tc)
+        self.tc = knobs["tc"]
         self.fir_twopass = knobs["fir_twopass"]
+        self.geometry = knobs["geometry"]
         self.k_slots = k_slots
         self._stacks = [None] * n_apas          # per-APA device state
         self._pending = [None] * n_apas         # (slots, nclose, tick_off)
@@ -113,7 +114,7 @@ class MultiAPAScheduler:
         slots, nclose, self._stacks[apa] = process_packed_frames(
             feed, self._stacks[apa], self.cfg, self.n_channels,
             tc=auto_tc(T, cap=self.tc), k_slots=self.k_slots,
-            fir_twopass=self.fir_twopass)
+            fir_twopass=self.fir_twopass, geometry=self.geometry)
         self._pending[apa] = (slots, nclose, self._tick_offset[apa])
         self._tick_offset[apa] += T
         self._batches[apa] += 1

@@ -52,7 +52,7 @@
 // buffer must arrive zeroed (an empty slot is a zero end word).  State is
 // read once and written back once, in place; rows outside the family's live
 // set pass through.  The FIR ring of the previous 8 samples is 8 registers
-// addressed by constant indices: tick u of a group of kGroup = 16 ticks
+// addressed by constant indices: tick u of a group of kGroup ticks
 // (expanded at compile time) reads ring[(u + j) % 8] oldest-first and
 // overwrites ring[u % 8] with its sample, so nothing moves per tick, as the
 // Pallas kernel's tuple rotation; kGroup is a multiple of 8, so the ring is
@@ -78,8 +78,9 @@
 //
 // K4b-slab (kSlab14): the pipeline's loader stages the words14 rows as
 // K4's does; warp 0 unpacks each staged stage in one pass into a time2 slab
-// of the ring (16 rows x 32 words) and runs K1's front (K3's for FIR) on
-// it, so shared memory does not grow with tc.  tc % 16 == 0.
+// of the ring (kPipeTicks / 2 rows x 32 words) and runs K1's front (K3's
+// for FIR) on it, so shared memory does not grow with tc.  tc % 16 == 0
+// and a multiple of kGroup.
 //
 // K2b (kI16 channel types, encoding kPlain16): the I16Fx arithmetic.  CUDA
 // promotes short to int, so every op that I16Fx does in int16 and that can
@@ -138,8 +139,25 @@
 
 namespace tpg {
 
-constexpr int kGroup = 16;   // ticks per unrolled group; a multiple of kTaps
+// The pipeline's geometry, one library per geometry: ticks per unrolled
+// group (TPG_GROUP), ticks per ring stage (TPG_PIPE_TICKS) and stages in
+// the ring (TPG_PIPE_STAGES).  None changes a hit.  The shipped geometry
+// (16, 32, 4) passes no define; ops/_build.py builds another one under its
+// own keyed name (utils/tuning.py::kernel_knobs, probes/autotune.py).
+#ifndef TPG_GROUP
+#define TPG_GROUP 16
+#endif
+#ifndef TPG_PIPE_TICKS
+#define TPG_PIPE_TICKS 32
+#endif
+#ifndef TPG_PIPE_STAGES
+#define TPG_PIPE_STAGES 4
+#endif
+
+constexpr int kGroup = TPG_GROUP;   // ticks per unrolled group
 constexpr int kTaps = 8;
+static_assert(kGroup > 0 && kGroup % kTaps == 0,
+              "a group is whole turns of the FIR ring");
 
 // Input encodings (the C entry's `encoding`; kPlain16 is kPlain on an int16
 // state).
@@ -1081,13 +1099,14 @@ __device__ __forceinline__ size_t group_base(const Params& p, int g) {
 // keep up (~3 SM cycles each on an H100, above the loop-carried chain;
 // PERF.md); the ring's barriers cost a few waits per stage of 32 ticks.
 constexpr int kPipeLanes = 32;    // channels per block
-constexpr int kPipeTicks = 32;    // ticks per stage, a multiple of kGroup
-constexpr int kPipeStages = 4;    // stages in the ring
+constexpr int kPipeTicks = TPG_PIPE_TICKS;    // ticks per stage
+constexpr int kPipeStages = TPG_PIPE_STAGES;  // stages in the ring
 constexpr int kStageWords = kPipeTicks * kPipeLanes;   // one slab
 constexpr int kPipeBars = 5 * kPipeStages;   // full, ready, s_empty,
                                              // filtered, f_empty
 constexpr int kMbarrierBytes = 8;
 static_assert(kPipeTicks % kGroup == 0, "a stage is whole groups");
+static_assert(kPipeStages >= 2, "the loader runs a stage ahead");
 
 enum PipeMode : int {
   kPipeStaged = 0,     // one warp: the staged feed and the whole tick

@@ -116,13 +116,15 @@ def run_model(adcs: np.ndarray, cfg: TPGConfig, backend: str = "scan",
         state.update(state_to_numpy(st))
         return decode_dense(closed, records), state
     st = pack_state(state, C, device=dev)
-    twopass = kernel_knobs(cfg)["fir_twopass"]
+    knobs = kernel_knobs(cfg)
+    twopass = knobs["fir_twopass"]
     parts = []
     for t0 in range(0, T, WINDOW):
         w = min(WINDOW, T - t0)
         slots, nclose, st = process_window(
             x[t0:t0 + w], st, cfg, tc=w, k_slots=K_SLOTS,
-            time_packed=False, fir_twopass=twopass)
+            time_packed=False, fir_twopass=twopass,
+            geometry=knobs["geometry"])
         parts.append(decode_slots(slots, nclose, C, tick_offset=t0)[0])
     from ..ops.hits import concat_hits
     state.update(unpack_state(st))

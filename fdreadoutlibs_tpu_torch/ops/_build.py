@@ -7,7 +7,10 @@ shared library with a plain C interface that ``ctypes`` loads — no PyTorch
 headers, so a unit takes seconds.  Libraries go to
 ``fdreadoutlibs_tpu_torch/_build/`` (gitignored) at first use, under a file
 name keyed on a hash of the sources and flags, so an edited source or flag
-rebuilds and a stale library is never loaded.
+rebuilds and a stale library is never loaded.  A library may take
+preprocessor defines (the pipeline's geometry, ``ops/tpg.py::
+geometry_defines``): each set of defines is a library of its own, keyed on
+them too; no define keys as the library always has.
 
 Only the CUDA path calls :func:`load`; importing this module needs no
 compiler and no card.
@@ -32,9 +35,10 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 # ptxas resource report (registers, spills) of each library built by this
-# process, by kernel library name
+# process, by log_key(name, defines): the kernel library name without
+# defines
 build_log: dict[str, str] = {}
 
 
@@ -83,11 +87,24 @@ def sources(name: str) -> list[Path]:
     return sorted(seen.values())
 
 
-def library_path(name: str) -> Path:
+def define_flags(defines=()) -> tuple:
+    """``-DNAME=value`` for each (name, value) pair, in name order."""
+    return tuple(f"-D{k}={v}" for k, v in sorted(defines))
+
+
+def log_key(name: str, defines=()) -> str:
+    """The :data:`build_log` key of library ``name`` built with
+    ``defines``: the name alone without defines."""
+    return " ".join((name,) + define_flags(defines))
+
+
+def library_path(name: str, defines=()) -> Path:
     """Where the library ``name`` lives, keyed on the contents of its own
-    sources (:func:`sources`) and on the flags: an edit to another
-    library's unit or header rebuilds nothing here."""
-    return keyed_path(name, sources(name), NVCC_FLAGS + LINK_FLAGS)
+    sources (:func:`sources`), on the flags and on the defines: an edit to
+    another library's unit or header rebuilds nothing here, and no define
+    keys as before there were defines."""
+    return keyed_path(name, sources(name),
+                      NVCC_FLAGS + LINK_FLAGS + define_flags(defines))
 
 
 def compile_units(compile_cmd, sources, out_dir: Path) -> tuple[list, str]:
@@ -117,18 +134,19 @@ def compile_units(compile_cmd, sources, out_dir: Path) -> tuple[list, str]:
                 proc.wait()
 
 
-def build(name: str) -> Path:
-    """Compile and link the units of ``name`` unless its keyed library
-    exists."""
-    out = library_path(name)
+def build(name: str, defines=()) -> Path:
+    """Compile and link the units of ``name`` with ``defines`` unless its
+    keyed library exists."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc = _nvcc()
+    flags = NVCC_FLAGS + define_flags(defines)
     with tempfile.TemporaryDirectory(prefix=f"{name}_",
                                      dir=BUILD_DIR) as tmp_dir:
         objs, log = compile_units(
-            lambda src, obj: [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+            lambda src, obj: [nvcc, *flags, "-c", "-o", str(obj),
                               str(src)], units(name), Path(tmp_dir))
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         res = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
@@ -136,7 +154,7 @@ def build(name: str) -> Path:
                              text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed for {name}:\n{res.stderr}")
-    build_log[name] = log
+    build_log[log_key(name, defines)] = log
     os.replace(tmp, out)               # atomic: readers never see a partial file
     return out
 
@@ -155,10 +173,12 @@ def sass(name: str) -> str:
     return res.stdout
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build if needed, then load (once per process) the kernel library."""
-    lib = _loaded.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """Build if needed, then load (once per process) the kernel library
+    ``name`` with ``defines``."""
+    key = (name, tuple(sorted(defines)))
+    lib = _loaded.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _loaded[name] = lib
+        lib = ctypes.CDLL(str(build(name, defines)))
+        _loaded[key] = lib
     return lib

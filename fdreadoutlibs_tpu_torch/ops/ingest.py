@@ -52,7 +52,7 @@ def _check_channels(state: torch.Tensor, n_channels: int) -> None:
 
 def process_time2_feed(W2: torch.Tensor, state: torch.Tensor,
                        cfg: TPGConfig, n_channels: int, tc: int = 512,
-                       k_slots: int = 2, fir_twopass: int = 0):
+                       k_slots: int = 2, fir_twopass: int = 0, geometry=None):
     """Time-paired feed (T/2, S, 128) or (T/2, W) int32 -> (slots, nclose,
     new_state) like ``tpg.process_window``.  ``state`` is the (KSTATE, C)
     tensor of ``tpg.pack_state`` on the feed's device.  ``fir_twopass``
@@ -62,12 +62,13 @@ def process_time2_feed(W2: torch.Tensor, state: torch.Tensor,
         W2 = W2.reshape(W2.shape[0], -1)
     _check_channels(state, n_channels)
     return process_window(W2, state, cfg, tc=tc, k_slots=k_slots,
-                          time_packed=True, fir_twopass=fir_twopass)
+                          time_packed=True, fir_twopass=fir_twopass,
+                          geometry=geometry)
 
 
 def process_packed_frames(words: torch.Tensor, state: torch.Tensor,
                           cfg: TPGConfig, n_channels: int, tc: int = 512,
-                          k_slots: int = 2, fir_twopass: int = 0):
+                          k_slots: int = 2, fir_twopass: int = 0, geometry=None):
     """WIBEth packed ingest: words (L, T, 28) int32 packed rows for L links
     of 64 channels -> device unpack -> (T, L*64) samples (channel =
     link*64 + c) -> the plain-sample datapath.  Returns (slots, nclose,
@@ -77,7 +78,7 @@ def process_packed_frames(words: torch.Tensor, state: torch.Tensor,
     adcs = wibeth.unpack_frames(words.transpose(0, 1))      # (T, L, 64)
     return process_window(adcs.reshape(T, L * wibeth.N_CHANNELS), state,
                           cfg, tc=tc, k_slots=k_slots, time_packed=False,
-                          fir_twopass=fir_twopass)
+                          fir_twopass=fir_twopass, geometry=geometry)
 
 
 def _as_int32(words: torch.Tensor) -> torch.Tensor:
@@ -87,7 +88,7 @@ def _as_int32(words: torch.Tensor) -> torch.Tensor:
 def process_packed_frames_fused(words: torch.Tensor, state: torch.Tensor,
                                 cfg: TPGConfig, n_channels: int,
                                 tc: int = 512, k_slots: int = 2,
-                                fir_twopass: int = 0):
+                                fir_twopass: int = 0, geometry=None):
     """WIBEth packed ingest with the in-kernel unpack (K4): words (L, T, 28)
     int32 packed rows for L links of 64 channels (channel = link*64 + c)
     go to the kernel as they are.  State, slots and nclose stay in
@@ -100,13 +101,14 @@ def process_packed_frames_fused(words: torch.Tensor, state: torch.Tensor,
                          f"channels are not {n_channels} channels")
     return process_window(_as_int32(words), state, cfg, tc=tc,
                           k_slots=k_slots, time_packed=False,
-                          packed14="frames", fir_twopass=fir_twopass)
+                          packed14="frames", fir_twopass=fir_twopass,
+                          geometry=geometry)
 
 
 def process_words14_feed(W: torch.Tensor, state: torch.Tensor,
                          cfg: TPGConfig, n_channels: int, tc: int = 512,
                          k_slots: int = 2, slab: bool = False,
-                         fir_twopass: int = 0):
+                         fir_twopass: int = 0, geometry=None):
     """Direct words14 feed (K4): W is (T, WR, 7, 128) int32 rows from
     ``native.relayout_words14`` (or :func:`pack_words14`), unpacked
     in-register by the kernel.  ``slab=True`` selects the two-stage slab
@@ -119,7 +121,8 @@ def process_words14_feed(W: torch.Tensor, state: torch.Tensor,
     _check_channels(state, n_channels)
     return process_window(W, state, cfg, tc=tc, k_slots=k_slots,
                           time_packed=False, packed14="words14",
-                          fir_twopass=fir_twopass, words14_slab=slab)
+                          fir_twopass=fir_twopass, words14_slab=slab,
+                          geometry=geometry)
 
 
 def pack_words14(words: torch.Tensor) -> torch.Tensor:
@@ -138,7 +141,7 @@ def pack_words14(words: torch.Tensor) -> torch.Tensor:
 
 def process_packed_wib2(words: torch.Tensor, state: torch.Tensor,
                         cfg: TPGConfig, n_channels: int, tc: int = 512,
-                        k_slots: int = 4, fir_twopass: int = 0):
+                        k_slots: int = 4, fir_twopass: int = 0, geometry=None):
     """WIB2 packed ingest: words (L, T, 112) int32 packed rows (each WIB2
     frame is ONE tick of 256 channels) -> device unpack -> (T, L*256)
     samples (channel = link*256 + c) -> the plain-sample datapath."""
@@ -147,13 +150,13 @@ def process_packed_wib2(words: torch.Tensor, state: torch.Tensor,
     adcs = wib2.unpack_frames(words.transpose(0, 1))        # (T, L, 256)
     return process_window(adcs.reshape(T, L * wib2.N_CHANNELS), state, cfg,
                           tc=tc, k_slots=k_slots, time_packed=False,
-                          fir_twopass=fir_twopass)
+                          fir_twopass=fir_twopass, geometry=geometry)
 
 
 def process_packed_protowib(words: torch.Tensor, coll_state: torch.Tensor,
                             ind_state: torch.Tensor, coll_cfg: TPGConfig,
                             ind_cfg: TPGConfig, tc: int = 12,
-                            k_slots: int = 4, fir_twopass: int = 0):
+                            k_slots: int = 4, fir_twopass: int = 0, geometry=None):
     """ProtoWIB packed ingest (ingest.py:244-276): words (T, 116) int32
     whole frames (one tick of 256 channels each) -> ONE device decode of
     the 12-bit codec -> the collection and induction planes as column
@@ -170,7 +173,7 @@ def process_packed_protowib(words: torch.Tensor, coll_state: torch.Tensor,
         idx = torch.as_tensor(plane_idx, device=adcs.device)
         return process_window(adcs.index_select(1, idx), state, cfg, tc=tc,
                               k_slots=k_slots, time_packed=False,
-                              fir_twopass=fir_twopass)
+                              fir_twopass=fir_twopass, geometry=geometry)
 
     return (run(protowib.COLLECTION_INDEX_TO_CHAN, coll_state, coll_cfg),
             run(protowib.INDUCTION_INDEX_TO_CHAN, ind_state, ind_cfg))
@@ -178,7 +181,7 @@ def process_packed_protowib(words: torch.Tensor, coll_state: torch.Tensor,
 
 def process_packed_daphne(words: torch.Tensor, state: torch.Tensor,
                           cfg: TPGConfig, n_channels: int, tc: int = 512,
-                          k_slots: int = 4, fir_twopass: int = 0):
+                          k_slots: int = 4, fir_twopass: int = 0, geometry=None):
     """DAPHNE-stream packed ingest (:213-237): words (L, N, 112) int32
     packed rows — each stream frame is 64 ticks of 4 channels, time-major
     — for L links -> device unpack -> (T, L*4) samples (channel = link*4 +
@@ -195,7 +198,8 @@ def process_packed_daphne(words: torch.Tensor, state: torch.Tensor,
     flat = adcs.reshape(L, T, daphne.STREAM_N_CHANNELS).transpose(0, 1) \
         .reshape(T, C)
     return process_window(flat, state, cfg, tc=tc, k_slots=k_slots,
-                          time_packed=False, fir_twopass=fir_twopass)
+                          time_packed=False, fir_twopass=fir_twopass,
+                          geometry=geometry)
 
 
 def compact_on_device(slots, nclose, tick_offset: int, n_channels: int,
@@ -330,10 +334,12 @@ class StreamingIngest:
         self.n_channels = n_links * self._ch_per_link
         # explicit arguments win; else the tuned file (FDREADOUT_TUNED);
         # else the shipped table (ingest.py:398-407)
-        knobs = kernel_knobs(cfg)
-        self.tc = tc if tc is not None else knobs["tc"]
+        knobs = kernel_knobs(cfg, tc)
+        self.tc = knobs["tc"]
         self.fir_twopass = fir_twopass if fir_twopass is not None \
             else knobs["fir_twopass"]
+        # the pipeline's geometry (the JAX class's unroll and block_sublanes)
+        self.geometry = knobs["geometry"]
         self.k_slots = k_slots
         self.device_compact = device_compact
         self.max_hits = max_hits
@@ -392,7 +398,7 @@ class StreamingIngest:
         slots, nclose, self.state = self._fn(
             self._to_device(words), self.state, self.cfg, self.n_channels,
             tc=auto_tc(T, cap=self.tc), k_slots=self.k_slots,
-            fir_twopass=self.fir_twopass)
+            fir_twopass=self.fir_twopass, geometry=self.geometry)
         self._enqueue(slots, nclose, T)
         return out
 
@@ -410,7 +416,7 @@ class StreamingIngest:
         slots, nclose, self.state = process_words14_feed(
             self._to_device(W), self.state, self.cfg, self.n_channels,
             tc=auto_tc(T, cap=self.tc), k_slots=self.k_slots,
-            fir_twopass=self.fir_twopass)
+            fir_twopass=self.fir_twopass, geometry=self.geometry)
         self._enqueue(slots, nclose, T)
         return out
 
@@ -457,7 +463,8 @@ class StreamingIngest:
         slots, nclose, self.state = process_time2_feed(
             torch.from_numpy(np.ascontiguousarray(W2)).to(self.device),
             self.state, self.cfg, self.n_channels, tc=tc,
-            k_slots=self.k_slots, fir_twopass=self.fir_twopass)
+            k_slots=self.k_slots, fir_twopass=self.fir_twopass,
+            geometry=self.geometry)
         self._enqueue(slots, nclose, T)
         return out
 

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..formats import wibeth
+from ..utils.tuning import SHIPPED_GEOMETRY, Geometry, geometry_problem
 from . import _build
 from .chanstate import FIELDS, NSTATE
 from .config import Algorithm, TPGConfig
@@ -678,6 +679,41 @@ def reset_launches() -> None:
     process_window.function_launches = {k: 0 for k in KERNELS}
 
 
+def geometry_defines(geometry: Geometry | None = None) -> tuple:
+    """The ``csrc/tpg.cuh`` defines of a pipeline geometry
+    (``utils.tuning.Geometry``): one (name, value) pair for each field
+    that differs from the shipped geometry, so the shipped one (or None)
+    builds with no define, under the library's usual key."""
+    g = SHIPPED_GEOMETRY if geometry is None else Geometry(*geometry)
+    return tuple((name, v) for name, v, s in zip(
+        ("TPG_GROUP", "TPG_PIPE_TICKS", "TPG_PIPE_STAGES"), g,
+        SHIPPED_GEOMETRY) if v != s)
+
+
+def library(geometry: Geometry | None = None):
+    """The tpg kernel library of ``geometry`` (None: the shipped one),
+    built at first use (needs nvcc)."""
+    return _build.load("tpg", geometry_defines(geometry))
+
+
+def _check_geometry(geometry, cfg: TPGConfig, tc: int, fir_twopass: int,
+                    words14_slab: bool) -> None:
+    """The rules a geometry's build and launch hold it to
+    (``utils.tuning.geometry_problem``: ``csrc/tpg.cuh``'s static_asserts
+    and the ring's shared memory, for every encoding of the family), and
+    the slab unpack's chunk of whole groups (``make_params``)."""
+    if geometry is None:
+        return
+    g = Geometry(*geometry)
+    why = geometry_problem(g, cfg.algorithm, None, cfg.track_peaks,
+                           fir_twopass)
+    if why is not None:
+        raise ValueError(f"geometry {tuple(g)}: {why}")
+    if words14_slab and tc % g.group:
+        raise ValueError(f"words14_slab unpacks whole groups: tc={tc} is "
+                         f"not a multiple of group={g.group}")
+
+
 def carry_shared_bytes(cfg: TPGConfig, tc: int, k_slots: int,
                        encoding: int = _PLAIN, lib=None) -> tuple:
     """(bytes, most): the shared memory one block of a fused launch takes
@@ -689,8 +725,9 @@ def carry_shared_bytes(cfg: TPGConfig, tc: int, k_slots: int,
     staging of the slots above the register ceiling in columns of 32
     channels, no more than a chunk of tc ticks can close, ceil(tc / 2) per
     channel; its mbarriers).  ``encoding`` is the launch's csrc/tpg.cuh
-    code (``_PLAIN16`` for int16 samples)."""
-    fn = (_build.load("tpg") if lib is None else lib).tpg_shared_bytes
+    code (``_PLAIN16`` for int16 samples).  A geometry's own library
+    (:func:`library`) counts its own ring."""
+    fn = (library() if lib is None else lib).tpg_shared_bytes
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_longlong
     most = ctypes.c_int(0)
@@ -708,8 +745,8 @@ _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 8
 _FIR2_ARGTYPES = _ARGTYPES[:-2] + [ctypes.c_int] + _ARGTYPES[-2:]
 
 
-def _kernel_fn(fir_twopass: int = 0):
-    lib = _build.load("tpg")
+def _kernel_fn(fir_twopass: int = 0, lib=None):
+    lib = library() if lib is None else lib
     fn = lib.tpg_fir2_launch if fir_twopass else lib.tpg_launch
     fn.argtypes = _FIR2_ARGTYPES if fir_twopass else _ARGTYPES
     fn.restype = ctypes.c_int
@@ -807,11 +844,13 @@ def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                   tc: int, k_slots: int, time_packed: bool = True,
                   packed14: str | None = None, fir_twopass: int = 0,
                   fir_packed=None, words14_gather: bool = False,
-                  words14_slab: bool = False):
+                  words14_slab: bool = False,
+                  geometry: Geometry | None = None):
     """Launch ``csrc/tpg*.cu`` on CUDA tensors (the wrapper's CUDA route):
-    K1-K4 and their variants, or K5 when ``fir_twopass`` is 1 or 2.
-    ``state`` is not modified: the kernel updates a copy in place and
-    returns it.  Raises on anything the kernel does not take."""
+    K1-K4 and their variants, or K5 when ``fir_twopass`` is 1 or 2, from
+    the library of ``geometry`` (None: the shipped one).  ``state`` is not
+    modified: the kernel updates a copy in place and returns it.  Raises on
+    anything the kernel does not take."""
     check_supported(cfg, state)
     if not (feed.is_cuda and state.is_cuda and feed.device == state.device):
         raise ValueError("the tpg kernel needs feed and state on one CUDA "
@@ -821,13 +860,15 @@ def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
     fir_packed, words14_gather, words14_slab = _options(
         cfg, state, tc, packed14, fir_twopass, fir_packed, words14_gather,
         words14_slab)
+    _check_geometry(geometry, cfg, tc, fir_twopass, words14_slab)
     dev = state.device
-    out = _launch(_kernel_fn(fir_twopass), feed, state, cfg, tc, k_slots,
-                  time_packed, packed14,
+    lib = library(geometry)
+    out = _launch(_kernel_fn(fir_twopass, lib), feed, state, cfg, tc,
+                  k_slots, time_packed, packed14,
                   dev.index if dev.index is not None
                   else torch.cuda.current_device(),
                   torch.cuda.current_stream(dev).cuda_stream, fir_twopass,
-                  fir_packed, words14_gather, words14_slab)
+                  fir_packed, words14_gather, words14_slab, lib)
     count_launch(cfg, time_packed, packed14, fir_twopass,
                  int16=state.dtype == torch.int16, fir_packed=fir_packed,
                  words14_gather=words14_gather, words14_slab=words14_slab)
@@ -852,7 +893,8 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                    tc: int, k_slots: int, time_packed: bool = True,
                    packed14: str | None = None, fir_twopass: int = 0,
                    fir_packed=None, words14_gather: bool = False,
-                   words14_slab: bool = False):
+                   words14_slab: bool = False,
+                   geometry: Geometry | None = None):
     """Run the TPG over one window, carrying state.
 
     Args:
@@ -878,10 +920,16 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
         words before the tick (K4b-slab; tc % 16 == 0, not with
         fir_twopass).  Both take packed14="words14" only; the gather is
         ignored for the unpacked encodings, as in the JAX package.
+      geometry: the pipeline's compile-time shape (``utils.tuning.
+        Geometry``; ``kernel_knobs(cfg)["geometry"]``), a kernel library
+        of its own; None is the shipped one.  It changes no output: the
+        plain version checks its rules and otherwise ignores it.
 
     Returns (slots (T/tc, K, nw, C), nclose (T/tc, C), new_state).
     """
     if feed.device.type == "cpu" and state.device.type == "cpu":
+        _check_geometry(geometry, cfg, tc, fir_twopass,
+                        bool(words14_slab) and packed14 == "words14")
         if fir_twopass:
             return process_window_twopass_plain(feed, state, cfg, tc,
                                                 k_slots, fir_twopass,
@@ -893,7 +941,7 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
                                     words14_gather, words14_slab)
     return launch_kernel(feed, state, cfg, tc, k_slots, time_packed,
                          packed14, fir_twopass, fir_packed, words14_gather,
-                         words14_slab)
+                         words14_slab, geometry)
 
 
 # CUDA kernel launches (never the plain path): in all, per kernel, per

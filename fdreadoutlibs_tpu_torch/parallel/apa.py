@@ -77,9 +77,12 @@ class _ShardBody:
     def __init__(self, cfg: TPGConfig, max_hits_per_link: int, backend: str,
                  k_slots: int, fused_unpack: bool, time2_feed: bool,
                  fir_twopass: int | None):
+        knobs = kernel_knobs(cfg)
         if fir_twopass is None:
             # tuned-file/shipped FIR schedule choice (utils.tuning)
-            fir_twopass = kernel_knobs(cfg)["fir_twopass"]
+            fir_twopass = knobs["fir_twopass"]
+        # the pipeline's geometry, as the JAX body takes unroll
+        self.geometry = knobs["geometry"]
         self.cfg = cfg
         self.max_hits = max_hits_per_link
         self.backend = backend
@@ -107,7 +110,8 @@ class _ShardBody:
             process_packed_frames
         slots, nclose, new = fn(feed, stack, self.cfg, C, tc=auto_tc(T),
                                 k_slots=self.k_slots,
-                                fir_twopass=self.fir_twopass)
+                                fir_twopass=self.fir_twopass,
+                                geometry=self.geometry)
         return (slots, nclose), new
 
     def compact(self, out, n_links: int):

@@ -13,7 +13,12 @@ library "probes") and its plain PyTorch version beside it:
 
 :mod:`.soak` (``scripts/soak_hardware.py``) has no kernel of its own: it
 runs the TPG kernels (K2, K4, K1) over a long carried-state stream with a
-mid-stream resume and checks the exact hit count.
+mid-stream resume and checks the exact hit count.  Nor have the tools:
+:mod:`.autotune` (``scripts/autotune.py``: the launch knobs and the
+pipeline's geometry swept on the card, written as a tuned file),
+:mod:`.fuzz_sweep`, :mod:`.fuzz_frames` and :mod:`.fuzz_tp_path`
+(``scripts/fuzz_*.py``: random configurations, corrupt payloads and the
+host TP path).
 
 Each runs as ``python -m fdreadoutlibs_tpu_torch.probes.<name>`` on the card
 and prints one JSON line.  A kernel entry takes tensors: on CUDA tensors it

@@ -246,8 +246,8 @@ def summarize(probes: dict, kernel_ms: dict, T: int, C: int) -> dict:
 def measure_family(cfg, device, C: int = 2560, T: int = 8192,
                    n: int = 20) -> float:
     """ms per launch of the family's kernel on the plain datapath at the
-    tuned tc (``roofline.py::measure_family``'s data: 900 + normal(0, 30)
-    and 100 pulses)."""
+    tuned tc, k and geometry (``roofline.py::measure_family``'s data: 900 +
+    normal(0, 30) and 100 pulses)."""
     from ..ops import init_chanstate, seed_chanstate, tpg
     from ..utils.tuning import kernel_knobs
     rng = np.random.default_rng(0)
@@ -262,9 +262,10 @@ def measure_family(cfg, device, C: int = 2560, T: int = 8192,
     feed = torch.from_numpy(adcs).to(device)
 
     def run():
-        return tpg.process_window(feed, state, cfg, knobs["tc"], 1,
-                                  time_packed=False,
-                                  fir_twopass=knobs["fir_twopass"])
+        return tpg.process_window(feed, state, cfg, knobs["tc"],
+                                  knobs["k_slots"], time_packed=False,
+                                  fir_twopass=knobs["fir_twopass"],
+                                  geometry=knobs["geometry"])
     run()
     return event_ms(run, n)
 

@@ -128,7 +128,8 @@ def run(device=None, C: int = 2560, T: int = 8192, k_slots: int = 1,
             with slot_word_carry(carry):
                 return tpg.process_window(
                     feed, state, cfg, tpg.auto_tc(T, cap=knobs["tc"]),
-                    k_slots, fir_twopass=knobs["fir_twopass"], **kw)
+                    k_slots, fir_twopass=knobs["fir_twopass"],
+                    geometry=knobs["geometry"], **kw)
         first = {arm: window(arm == "B_word_carry")
                  for arm in ("A_stacked", "B_word_carry")}
         for a, b, what in zip(*first.values(), ("slots", "nclose", "state")):

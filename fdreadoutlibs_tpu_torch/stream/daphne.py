@@ -232,7 +232,7 @@ class DAPHNEStreamFrameProcessor(TaskRawDataProcessor):
             torch.from_numpy(words.view(np.int32)).to(self.device),
             self._pallas_stack, self.tpg_cfg, C,
             tc=auto_tc(T, cap=knobs["tc"]), k_slots=self.k_slots,
-            fir_twopass=knobs["fir_twopass"])
+            fir_twopass=knobs["fir_twopass"], geometry=knobs["geometry"])
         hits, dropped = collect_hits(slots, nclose, C,
                                      max_hits=self._max_hits,
                                      device=self._device_compact)

@@ -289,7 +289,8 @@ class WIBFrameProcessor(TaskRawDataProcessor):
             return process_time2_feed(
                 torch.from_numpy(feed).to(self.device), stack, cfg, C,
                 tc=tc, k_slots=self.k_slots,
-                fir_twopass=knobs["fir_twopass"])
+                fir_twopass=knobs["fir_twopass"],
+                geometry=knobs["geometry"])
 
         c_slots, c_n, self._coll_stack = run(
             protowib.COLLECTION_INDEX_TO_CHAN, self._t2_buf_coll,
@@ -317,7 +318,8 @@ class WIBFrameProcessor(TaskRawDataProcessor):
                                     self._coll_stack, self._ind_stack,
                                     self.coll_cfg, self.ind_cfg, tc=tc,
                                     k_slots=self.k_slots,
-                                    fir_twopass=knobs["fir_twopass"])
+                                    fir_twopass=knobs["fir_twopass"],
+                                    geometry=knobs["geometry"])
         return self._collect(c_slots, c_n, i_slots, i_n)
 
     def _emit_tps(self, hits: np.ndarray, offlines: np.ndarray,

@@ -351,7 +351,8 @@ class WIBEthFrameProcessor(TaskRawDataProcessor):
         # 391; wib2.py:151): K5 when a tuned file names twopass 1 or 2
         slots, nclose, self._dev_state = ingest(
             feed, self._dev_state, self.tpg_cfg, C, tc=tc,
-            k_slots=self.k_slots, fir_twopass=knobs["fir_twopass"])
+            k_slots=self.k_slots, fir_twopass=knobs["fir_twopass"],
+            geometry=knobs["geometry"])
         hits, dropped = collect_hits(slots, nclose, C,
                                      max_hits=self._max_hits,
                                      device=self._device_compact)

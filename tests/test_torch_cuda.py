@@ -22,7 +22,9 @@ the card against 1 shard and a CPU mesh in each ingest,
 ``DetectorPipeline`` on the card against the CPU, the sharded resume from
 the card onto the card and the CPU, ``dryrun_multichip`` on the card
 against its CPU line, and the C entries leaving the caller's device as
-they found it (needs 2 cards).  Marked ``cuda``:
+they found it (needs 2 cards); for the tool slice, the tpg library of a
+non-shipped geometry against the shipped one and the plain version, the
+tuner, the semantic fuzz and the malformed-frame fuzz on the card.  Marked ``cuda``:
 each test skips where torch finds no card.  This file imports no JAX, so on
 the machine with the card (which has none) run it without the suite's
 conftest:
@@ -53,6 +55,7 @@ from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
 from fdreadoutlibs_tpu_torch.testing import fir_stream, frame_words, \
     protowib_superchunks, time2_words, tpg_stream, wib2_superchunks
 from fdreadoutlibs_tpu_torch.tp.wib_tp_handler import WIBTPHandler
+from fdreadoutlibs_tpu_torch.utils.tuning import Geometry
 
 pytestmark = pytest.mark.cuda
 
@@ -1225,3 +1228,90 @@ def test_kernel_leaves_the_callers_device(card):
     x = roofline.chains_input(1, 128, other)
     roofline.issue_chains(x, 3, 1, 128)
     assert torch.cuda.current_device() == 0
+
+
+# ---- the tool slice: the geometry, the tuner and the fuzzers on the card ---
+
+_GEOMETRY = Geometry(16, 64, 4)       # chip_smoke.py phase 12's
+
+
+@pytest.mark.parametrize("name,cfg,time2,twopass,packed", [
+    ("K1-AbsRS", TPGConfig.from_raw("AbsRS", threshold=150), True, 0, None),
+    ("K2-Simple", CONFIGS[1], False, 0, None),
+    ("K3-FIR", _FIR, False, 0, None),
+    ("K5-FIR-lift", dataclasses.replace(_FIR, track_peaks=False), True, 2,
+     None),
+    ("K4-AbsRS-frames", CONFIGS[2], False, 0, "frames"),
+])
+def test_geometry_library_matches_shipped_and_plain(card, name, cfg, time2,
+                                                    twopass, packed):
+    """The tpg library of a non-shipped geometry (stages of 64 ticks) on
+    the card, chunks of 96 ticks (a stage of 64 and a ragged one of 32),
+    two windows carrying state: slots, nclose and state equal the shipped
+    library's and the plain version's, bit for bit."""
+    C, T, tc, k = 256, 1152, 96, 2
+    fir = cfg.algorithm == Algorithm.FIR
+    adcs, rmf = (fir_stream(2 * T, C, tc, k, 5), 0) if fir else \
+        tpg_stream(2 * T, C, tc, k, seed=5)
+    state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], rmf),
+                           C)
+    states = {"plain": state, "shipped": state.to(card),
+              "geometry": state.to(card)}
+    closes = 0
+    for w in range(2):
+        win = adcs[w * T:(w + 1) * T]
+        feed = torch.from_numpy(
+            frame_words(win).view(np.int32) if packed else
+            time2_words(win) if time2
+            else win)
+        kw = dict(time_packed=time2, packed14=packed, fir_twopass=twopass)
+        outs = {}
+        for arm, geometry in (("plain", None), ("shipped", None),
+                              ("geometry", _GEOMETRY)):
+            dev = "cpu" if arm == "plain" else card
+            outs[arm] = tpg.process_window(feed.to(dev), states[arm], cfg,
+                                           tc, k, geometry=geometry, **kw)
+            states[arm] = outs[arm][2]
+        for arm in ("shipped", "geometry"):
+            for got, want in zip(outs[arm], outs["plain"]):
+                assert torch.equal(got.cpu(), want), (name, w, arm)
+        closes = max(closes, int(outs["plain"][1].max()))
+    assert closes > k                       # drops exercised
+
+
+def test_autotune_quick_on_card(card, tmp_path):
+    """The tuner on the card, small: every candidate equals the plain
+    version at its tc and k and the geometry the shipped library; the
+    written file reads back through ``kernel_knobs``."""
+    from fdreadoutlibs_tpu_torch.probes import autotune
+    from fdreadoutlibs_tpu_torch.utils import tuning
+    res = autotune.run(card, algs=["AbsRS", "FIR"], quick=True,
+                       geometries=[_GEOMETRY], C=256, T=2048, windows=2,
+                       trials=2, confirm=2, confirm_trials=2,
+                       log=lambda line: None)
+    assert all(r["ms"] > 0 for rows in res["sweep"].values() for r in rows)
+    path = tmp_path / "tuned.json"
+    path.write_text(json.dumps(res["tuned"]))
+    for alg, entry in res["tuned"].items():
+        knobs = tuning.kernel_knobs(TPGConfig.from_raw(alg, threshold=5),
+                                    path=str(path))
+        assert (knobs["tc"], knobs["k_slots"]) == (entry["tc"], entry["k"])
+        assert tuple(knobs["geometry"]) == tuple(
+            entry[f] for f in Geometry._fields)
+
+
+def test_fuzz_sweep_on_card(card):
+    """Random configurations, uneven batches: the kernels (K2, K3; K1 and
+    K5 on every case here) equal their plain version and the oracle."""
+    from fdreadoutlibs_tpu_torch.probes import fuzz_sweep
+    res = fuzz_sweep.sweep(8, 30_000, card, kernel_every=1)
+    assert res["failures"] == 0 and res["launches"] > 0
+
+
+def test_fuzz_frames_on_card(card):
+    """Corrupt payloads through every rig's "pallas" backend on the card:
+    nothing escapes, the seq/ts errors are seen, the TPs equal the plain
+    version's and the reference's under the kernel's contract."""
+    from fdreadoutlibs_tpu_torch.probes import fuzz_frames
+    res = fuzz_frames.sweep(0, 60_000, card, per_rig=1)
+    assert res["failures"] == 0 and res["launches"]

@@ -170,13 +170,16 @@ def test_twopass_refuses_other_families_and_values():
 @pytest.mark.parametrize("tuned", [None, {"FIR": {"twopass": 1}},
                                    {"FIR": {"twopass": 2, "tc": 64}},
                                    {"FIR": {"twopass": "x", "tc": 0}},
-                                   {"AbsRS": {"twopass": 2}}],
+                                   {"AbsRS": {"twopass": 2}},
+                                   {"AbsRS": {"k": 4, "sub": 8,
+                                              "unroll": 8}}],
                          ids=["shipped", "tp1", "tp2-tc", "malformed",
-                              "other-family"])
+                              "other-family", "k-tpu-knobs"])
 def test_kernel_knobs_match_jax(tuned, tmp_path, monkeypatch):
     """The port's ``kernel_knobs`` reads the tuned file the JAX package
-    reads (FDREADOUT_TUNED), with the same per-field fallback: equal tc
-    and fir_twopass for every family."""
+    reads (FDREADOUT_TUNED), with the same per-field fallback: equal tc,
+    k_slots and fir_twopass for every family; the TPU's sub and unroll
+    leave the port's geometry shipped."""
     if tuned is None:
         monkeypatch.delenv("FDREADOUT_TUNED", raising=False)
     else:
@@ -188,8 +191,9 @@ def test_kernel_knobs_match_jax(tuned, tmp_path, monkeypatch):
         jcfg = JTPGConfig(algorithm=JAlgorithm(alg.value), threshold=5)
         want = jtuning.kernel_knobs(jcfg, 2560)
         got = tuning.kernel_knobs(cfg)
-        assert got == {"tc": want["tc"],
-                       "fir_twopass": want["fir_twopass"]}, alg
+        keys = ("tc", "k_slots", "fir_twopass")
+        assert {k: got[k] for k in keys} == {k: want[k] for k in keys}, alg
+        assert got["geometry"] == tuning.SHIPPED_GEOMETRY, alg
 
 
 @pytest.mark.parametrize("fir_twopass", [1, 2])
