@@ -255,7 +255,8 @@ from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
 from fdreadoutlibs_tpu_torch.tp.recorder import FragmentRecorder
 from fdreadoutlibs_tpu_torch.tp.wib_tp_handler import WIBTPHandler
 from fdreadoutlibs_tpu_torch.utils import checkpoint
-from fdreadoutlibs_tpu_torch.utils.logging import device_trace
+from fdreadoutlibs_tpu_torch.utils.logging import (device_records,
+                                                   device_trace, trace_counts)
 from fdreadoutlibs_tpu_torch.utils.preflight import (device_preflight,
                                                      nvidia_smi, sm_clock_mhz)
 from fdreadoutlibs_tpu_torch.utils.tuning import kernel_knobs
@@ -2267,6 +2268,15 @@ def run_cli(argv) -> tuple:
     return rc, buf.getvalue().splitlines()
 
 
+def trace_records(trace: str) -> dict:
+    """A profile trace's device records beside the host calls that asked
+    for them (kernels against launches, copies against copy calls) and
+    the tpg kernel's records."""
+    return {**device_records(trace),
+            "pipe_kernel": sum(n for name, n in trace_counts(trace)[1].items()
+                               if "pipe_kernel" in name)}
+
+
 def cli_run(dev, td: str) -> dict:
     """The CLI on the card.  Returns its datapath launches."""
     def path(name):
@@ -2324,18 +2334,27 @@ def cli_run(dev, td: str) -> dict:
                   str(T_APA), "--windows", "4", "-o", trace, "--top",
                   "20"] + extra)
         launched = dict(tpg.process_window.function_launches)
-        if launched[kern] != 5:
+        # a capture CUPTI delivered short of device records is taken again
+        retakes = [ln for ln in out[1:] if ln.startswith("# capture ")]
+        if launched[kern] != 1 + 4 * (1 + len(retakes)):
             raise AssertionError(f"cli profile {alg} {extra}: launches "
-                                 f"{launched}")
+                                 f"{launched}, retakes {retakes}")
         count()
         rep = json.loads(out[0])
         names = [ln for ln in out[1:] if "pipe_kernel" in ln]
         if not names:
             raise AssertionError(f"cli profile {alg} {extra}: the trace "
                                  "summary names no kernel: " + "\n".join(out))
+        recorded = trace_records(trace)
+        if recorded["kernel"] != recorded["launched"] or \
+                recorded["gpu_memcpy"] != recorded["copied"] or \
+                recorded["pipe_kernel"] != 4:
+            raise AssertionError(f"cli profile {alg} {extra}: the trace "
+                                 f"lacks device records: {recorded}")
         print(f"  cli profile -a {alg} {' '.join(extra)}: {kern} x 4 windows "
               f"of {T_APA} x {C_APA}, wall {rep['wall_s']} s, gsps_wall "
-              f"{rep['gsps_wall']}, backend {rep['backend']}; trace row: "
+              f"{rep['gsps_wall']}, backend {rep['backend']}; device records "
+              f"{recorded}, retakes {len(retakes)}; trace row: "
               f"{names[0].strip()[:160]}")
     return launches
 

@@ -18,7 +18,8 @@ mid-stream resume and checks the exact hit count.  Nor have the tools:
 pipeline's geometry swept on the card, written as a tuned file),
 :mod:`.fuzz_sweep`, :mod:`.fuzz_frames` and :mod:`.fuzz_tp_path`
 (``scripts/fuzz_*.py``: random configurations, corrupt payloads and the
-host TP path).
+host TP path). :mod:`.trace_capture` counts the device records of
+successive profiler captures (``cli profile``'s retake).
 
 Each runs as ``python -m fdreadoutlibs_tpu_torch.probes.<name>`` on the card
 and prints one JSON line.  A kernel entry takes tensors: on CUDA tensors it

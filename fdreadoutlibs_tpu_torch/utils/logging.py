@@ -13,7 +13,9 @@ wall-clock rate computations the reference does in get_info
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import logging
 import os
 import tempfile
@@ -62,7 +64,13 @@ def device_trace(dirname: str | None = None):
     """``torch.profiler`` trace around a block, written as a Chrome trace
     to ``dirname/trace.json`` (open with Perfetto or chrome://tracing).
     ``dirname`` defaults to ``fdreadout_trace`` under the temporary
-    directory.  CUDA activity is recorded when a card is present."""
+    directory.  CUDA activity is recorded when a card is present.
+
+    With a card, CUPTI is kept up between captures (``TEARDOWN_CUPTI=0``
+    in the process environment, unless the caller set it): torch tears it
+    down after each capture by default, and the next capture's lazy
+    re-initialisation loses the device records of its first launches,
+    now and then of all of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     dirname = dirname or os.path.join(tempfile.gettempdir(),
@@ -70,9 +78,35 @@ def device_trace(dirname: str | None = None):
     os.makedirs(dirname, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
+        os.environ.setdefault("TEARDOWN_CUPTI", "0")
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(dirname, TRACE_FILE))
+
+
+def trace_counts(dirname: str) -> tuple:
+    """The complete events of a ``device_trace`` capture under ``dirname``,
+    counted by category and by name: on a card, the ``kernel`` and
+    ``gpu_memcpy`` records beside the runtime calls that asked for them
+    (``cudaLaunchKernel``, ``cudaMemcpyAsync``)."""
+    with open(os.path.join(dirname, TRACE_FILE)) as f:
+        events = [ev for ev in json.load(f).get("traceEvents", [])
+                  if ev.get("ph") == "X"]
+    return (collections.Counter(ev.get("cat") for ev in events),
+            collections.Counter(ev.get("name") for ev in events))
+
+
+def device_records(dirname: str) -> dict:
+    """A ``device_trace`` capture's device records beside the host calls
+    that asked for them: kernel records and kernel launches, copy records
+    and copy calls.  On a card the pairs are equal when CUPTI delivered
+    the whole capture."""
+    by_cat, by_name = trace_counts(dirname)
+    return {"kernel": by_cat["kernel"],
+            "launched": sum(n for name, n in by_name.items()
+                            if name.startswith(("cudaLaunch", "cuLaunch"))),
+            "gpu_memcpy": by_cat["gpu_memcpy"],
+            "copied": by_name["cudaMemcpyAsync"]}

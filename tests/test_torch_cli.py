@@ -8,6 +8,7 @@ the written files byte for byte, and the exit codes equal.  Inputs are
 made by numpy from a seed; tolerance 0 throughout."""
 
 import json
+import os
 import shutil
 from pathlib import Path
 
@@ -270,6 +271,22 @@ def test_profile(algorithm, extra, tmp_path, capsys, monkeypatch):
     assert len(lines) == 2 + 1 + 3
 
 
+def test_trace_counts_on_cpu(tmp_path, monkeypatch):
+    """A CPU capture counts its host ops, holds no device record and
+    leaves CUPTI's teardown setting alone."""
+    from fdreadoutlibs_tpu_torch.utils.logging import (device_records,
+                                                       device_trace,
+                                                       trace_counts)
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    with device_trace(str(tmp_path)):
+        torch.arange(64).reshape(8, 8).sum(0)
+    by_cat, by_name = trace_counts(str(tmp_path))
+    assert by_cat["cpu_op"] > 0 and by_name["aten::sum"] == 1
+    assert device_records(str(tmp_path)) == {
+        "kernel": 0, "launched": 0, "gpu_memcpy": 0, "copied": 0}
+    assert "TEARDOWN_CUPTI" not in os.environ
+
+
 # ---- what the commands run on ---------------------------------------------
 
 def test_patterns_match_jax():
@@ -335,3 +352,23 @@ def test_channel_map_tools_match_jax(tmp_path):
         np.testing.assert_array_equal(
             channel_map.register_map_via_expansion(geo, *args),
             jchannel_map.register_map_via_expansion(jgeo, *args))
+
+
+def test_trace_capture_probe_on_cpu(capsys):
+    """``probes.trace_capture`` on the plain version: every capture is
+    whole (no device record, no launch); an unknown gap and a missing
+    card raise."""
+    from fdreadoutlibs_tpu_torch.probes import trace_capture
+    res = trace_capture.captures(3, "cli", device="cpu", channels=64,
+                                 ticks=64, windows=2)
+    assert (res["captures"], res["whole"], res["short"], res["empty"]) == \
+        (3, 3, 0, 0)
+    assert trace_capture.main(["--n", "1", "--gap", "none", "--device",
+                               "cpu", "--channels", "64", "--ticks", "64"]) \
+        == 0
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["whole"] == 1
+    with pytest.raises(ValueError):
+        trace_capture.captures(1, "wait", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            trace_capture.captures(1)

@@ -1054,7 +1054,30 @@ def test_cli_profile_trace_names_the_kernel(card, tmp_path, alg, extra):
     assert (tmp_path / "tr" / "trace.json").is_file()
     assert any("pipe_kernel" in ln for ln in out[1:]), out
     kern = {"AbsRS": "K2", "FIR": "K5" if extra[2:] else "K3"}[alg]
-    assert tpg.process_window.function_launches[kern] == 3
+    retakes = [ln for ln in out[1:] if ln.startswith("# capture ")]
+    assert tpg.process_window.function_launches[kern] == \
+        1 + 2 * (1 + len(retakes))
+
+
+def test_successive_profiles_record_every_launch(card, tmp_path):
+    """Profiles after the first in a process leave a trace with a device
+    record for every kernel launch and copy, at one APA's size, as
+    ``chip_smoke.py`` profiles them (CUPTI is not torn down between
+    captures, and a capture delivered short is taken again)."""
+    from fdreadoutlibs_tpu_torch.utils.logging import (device_records,
+                                                       trace_counts)
+    for i in range(9):
+        alg, extra = [("AbsRS", []), ("FIR", ["-t", "5"]),
+                      ("FIR", ["-t", "5", "--fir-twopass", "2"])][i % 3]
+        rc, _ = _cli(["profile", "-a", alg, "--channels", "2560", "--ticks",
+                      "8192", "--windows", "4", "-o", str(tmp_path / f"{i}")]
+                     + extra)
+        assert rc == 0
+        rec = device_records(str(tmp_path / f"{i}"))
+        assert (rec["kernel"], rec["gpu_memcpy"]) == \
+            (rec["launched"], rec["copied"]), (i, rec)
+        assert sum(n for name, n in trace_counts(str(tmp_path / f"{i}"))[1]
+                   .items() if "pipe_kernel" in name) == 4, i
 
 
 def test_checkpoint_resume_with_state_on_card(card, tmp_path):
