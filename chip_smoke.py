@@ -165,6 +165,16 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    back through ``kernel_knobs`` (``FDREADOUT_TUNED`` restored after),
    drives one APA batch of phase 4's data on the time2 feed, equal to the
    plain app at those knobs.
+13. bench — ``fdreadoutlibs_tpu_torch.bench.run`` at reduced counts
+   through its own parameters (1 trial, 2 windows a chain, the app's 1 +
+   2 batches, the latency arm's 1 + 2, 0.25 s a host codec): the headline
+   and the four families at 2560 x 8192, the six production variants, the
+   host codecs and TP path, the latency cell on each feed, the four
+   frontends (DAPHNE-stream with one traced chain), the app's RTF (time2,
+   fused and packed feeds, its transfer timed) and the compaction A/B.
+   The line must round-trip as JSON with every key of ``bench.py``'s line, no
+   ``*_error``, ``"parity": true`` (each family's and variant's first
+   window equal to the plain version on the card) and every RTF above 0.
 
 Phase 2 also builds the port's native host codecs (``native/``) and fails
 if they do not load, so no host stage is timed on the numpy fallback.
@@ -187,7 +197,7 @@ version.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels (each with the launches of its kernel function on the main
-paths, phases 9-12 included, ``tpg.kernel_of``, and beside them
+paths, phases 9-13 included, ``tpg.kernel_of``, and beside them
 ``datapath_launches``, every
 launch whose datapath holds it, ``tpg.kernels_of``; its error against
 the plain version, its time, the plain version's, and its bound: the
@@ -217,7 +227,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from fdreadoutlibs_tpu_torch import cli, native, probes
+from fdreadoutlibs_tpu_torch import bench, cli, native, probes
 from fdreadoutlibs_tpu_torch import entry as entry_mod
 from fdreadoutlibs_tpu_torch.apps import detector_readout, pds_readout
 from fdreadoutlibs_tpu_torch.apps.apa_readout import APAReadoutApp, make_batch
@@ -2907,6 +2917,46 @@ def fuzzers(dev, add) -> None:
         raise AssertionError(f"a fuzzer launched no kernel: {launched}")
 
 
+# ---- phase 13: the bench ----------------------------------------------------
+
+# the bench's own parameters, cut: trials, windows a chain, the app's timed
+# and warm-up batches, the latency arm's timed batches, seconds a codec
+BENCH_COUNTS = {"trials": 1, "n_windows": 2, "timed": 2, "warm": 1,
+                "batches": 2, "seconds": 0.25}
+
+
+def bench_phase(dev) -> dict:
+    """Phase 13.  Returns the datapath launches of the bench's run."""
+    tpg.reset_launches()
+    line = bench.run(dev, **BENCH_COUNTS)
+    launched = dict(tpg.process_window.kernel_launches)
+    tally()
+    text = json.dumps(line)
+    line = json.loads(text)
+    print("  bench line:", text)
+    missing = [k for k in bench.KEYS if k not in line]
+    if missing or bench.failures(line) or line["parity"] is not True:
+        raise AssertionError(f"bench: missing {missing}, failed "
+                             f"{bench.failures(line)}, parity "
+                             f"{line['parity']}")
+    app = line["app_rtf"]
+    rtfs = {"value": line["value"], **line["algorithms"],
+            **line["production_variants"],
+            "app_rtf": app["rtf_pipelined"],
+            "app_rtf unpipelined": app["rtf_unpipelined"],
+            **{f"app_rtf {f} {m}": v[m] for f, v in app["feeds"].items()
+               for m in ("rtf_pipelined", "rtf_unpipelined")},
+            **{f"frontends {a}": v["rtf"]
+               for a, v in line["frontends"].items()}}
+    if min(rtfs.values()) <= 0:
+        raise AssertionError(f"bench: an RTF is not above 0: {rtfs}")
+    print(f"  bench: parity over {len(line['parity_cells'])} cells, "
+          f"headline {line['value']}, app_rtf pipelined "
+          f"{app['rtf_pipelined']}, {line['wall_s']} s; launches per "
+          "datapath:", json.dumps({k: v for k, v in launched.items() if v}))
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3027,6 +3077,9 @@ def main() -> int:
     with phase("12 tool slice"):
         tools = tool_slice(dev, apa_data)
 
+    with phase("13 bench"):
+        bench_launches = bench_phase(dev)
+
     # launches on the main paths: the APA app's feeds, the WIB2 and the
     # ProtoWIB processors' runs, the kernel entries, the detector slice,
     # the modules slice (scheduler, entry(), CLI, resume).  A row counts its
@@ -3041,7 +3094,8 @@ def main() -> int:
         "K4": app_launches["fused"] + app_launches["words14"] + det["K4"],
         "K5": pw["K5"],
         **{k: entries[k] for k in ("K2b", "K3b", "K4b-slab", "K4b-gather")}}
-    for k, v in list(mods.items()) + list(par.items()) + list(tools.items()):
+    for k, v in (list(mods.items()) + list(par.items()) + list(tools.items())
+                 + list(bench_launches.items())):
         datapath[k] += v
     print("  launches on the main paths, per kernel function:",
           json.dumps(function_launches), "per datapath:", json.dumps(datapath))

@@ -57,6 +57,7 @@ positions, so both packages can start from one state.
 from __future__ import annotations
 
 import ctypes
+import warnings
 
 import numpy as np
 import torch
@@ -697,21 +698,30 @@ def library(geometry: Geometry | None = None):
 
 
 def _check_geometry(geometry, cfg: TPGConfig, tc: int, fir_twopass: int,
-                    words14_slab: bool) -> None:
-    """The rules a geometry's build and launch hold it to
-    (``utils.tuning.geometry_problem``: ``csrc/tpg.cuh``'s static_asserts
-    and the ring's shared memory, for every encoding of the family), and
-    the slab unpack's chunk of whole groups (``make_params``)."""
+                    words14_slab: bool) -> Geometry | None:
+    """The geometry a launch takes: ``geometry`` held to the rules of its
+    build and launch (``utils.tuning.geometry_problem``: ``csrc/tpg.cuh``'s
+    static_asserts and the ring's shared memory, for every encoding of the
+    family; raises where it breaks one), or None, the shipped one, when the
+    slab unpacks a chunk that is no whole number of its groups
+    (``make_params``): a knob that does not fit the launch is adjusted with
+    a warning, as the JAX package adjusts ``unroll``
+    (``fdreadoutlibs_tpu/ops/ingest.py:132-136``).  The geometry changes no
+    hit."""
     if geometry is None:
-        return
+        return None
     g = Geometry(*geometry)
     why = geometry_problem(g, cfg.algorithm, None, cfg.track_peaks,
                            fir_twopass)
     if why is not None:
         raise ValueError(f"geometry {tuple(g)}: {why}")
     if words14_slab and tc % g.group:
-        raise ValueError(f"words14_slab unpacks whole groups: tc={tc} is "
-                         f"not a multiple of group={g.group}")
+        warnings.warn(f"words14_slab unpacks whole groups: tc={tc} is not a "
+                      f"multiple of group={g.group} of geometry {tuple(g)}; "
+                      f"launching with the shipped geometry "
+                      f"{tuple(SHIPPED_GEOMETRY)}", stacklevel=3)
+        return None
+    return g
 
 
 def carry_shared_bytes(cfg: TPGConfig, tc: int, k_slots: int,
@@ -860,9 +870,9 @@ def launch_kernel(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
     fir_packed, words14_gather, words14_slab = _options(
         cfg, state, tc, packed14, fir_twopass, fir_packed, words14_gather,
         words14_slab)
-    _check_geometry(geometry, cfg, tc, fir_twopass, words14_slab)
+    lib = library(_check_geometry(geometry, cfg, tc, fir_twopass,
+                                  words14_slab))
     dev = state.device
-    lib = library(geometry)
     out = _launch(_kernel_fn(fir_twopass, lib), feed, state, cfg, tc,
                   k_slots, time_packed, packed14,
                   dev.index if dev.index is not None
@@ -923,7 +933,9 @@ def process_window(feed: torch.Tensor, state: torch.Tensor, cfg: TPGConfig,
       geometry: the pipeline's compile-time shape (``utils.tuning.
         Geometry``; ``kernel_knobs(cfg)["geometry"]``), a kernel library
         of its own; None is the shipped one.  It changes no output: the
-        plain version checks its rules and otherwise ignores it.
+        plain version checks its rules and otherwise ignores it.  With
+        ``words14_slab`` at a tc that is no multiple of its group, the
+        shipped one is launched instead, with a warning.
 
     Returns (slots (T/tc, K, nw, C), nclose (T/tc, C), new_state).
     """

@@ -24,7 +24,10 @@ the card onto the card and the CPU, ``dryrun_multichip`` on the card
 against its CPU line, and the C entries leaving the caller's device as
 they found it (needs 2 cards); for the tool slice, the tpg library of a
 non-shipped geometry against the shipped one and the plain version, the
-tuner, the semantic fuzz and the malformed-frame fuzz on the card.  Marked ``cuda``:
+tuner, the semantic fuzz and the malformed-frame fuzz on the card; for the
+bench, its kernel cells at 2560 x 8192 (parity with the plain version), a
+failing cell's exit code, and the slab at a tuned group that does not
+divide tc (the shipped library, with a warning).  Marked ``cuda``:
 each test skips where torch finds no card.  This file imports no JAX, so on
 the machine with the card (which has none) run it without the suite's
 conftest:
@@ -55,6 +58,7 @@ from fdreadoutlibs_tpu_torch.stream.transport import QueueSender
 from fdreadoutlibs_tpu_torch.testing import fir_stream, frame_words, \
     protowib_superchunks, time2_words, tpg_stream, wib2_superchunks
 from fdreadoutlibs_tpu_torch.tp.wib_tp_handler import WIBTPHandler
+from fdreadoutlibs_tpu_torch.utils import tuning
 from fdreadoutlibs_tpu_torch.utils.tuning import Geometry
 
 pytestmark = pytest.mark.cuda
@@ -1338,3 +1342,66 @@ def test_fuzz_frames_on_card(card):
     from fdreadoutlibs_tpu_torch.probes import fuzz_frames
     res = fuzz_frames.sweep(0, 60_000, card, per_rig=1)
     assert res["failures"] == 0 and res["launches"]
+
+
+def test_bench_kernel_cells_report_parity(card):
+    """The bench's kernel cells at 2560 x 8192 with one trial: every
+    family's first window and every production variant's equal the plain
+    version on the card, and each reads a positive RTF."""
+    from fdreadoutlibs_tpu_torch import bench
+    adcs = bench.make_adcs(bench.T_CARD, bench.C_APA)
+    plain = None
+    for name, cfg in bench.configs().items():
+        knobs = tuning.kernel_knobs(cfg)
+        rmf = bench.mixed_rmf(cfg, bench.C_APA) \
+            if name == "AbsRS_production" else cfg.rs_memory_factor_x10
+        res = bench.bench_algorithm(cfg, knobs["tc"], knobs["k_slots"], adcs,
+                                    rmf, 2, 1, knobs["fir_twopass"],
+                                    knobs["geometry"], card)
+        assert res["rtf"] > 0 and res["plain"] is not None, name
+        if name == "AbsRS_production":
+            plain, prod, prod_knobs, prod_rmf = res["plain"], cfg, knobs, rmf
+    out, parity = bench.bench_fresh_and_ingest(
+        prod, prod_knobs["tc"], prod_knobs["k_slots"], adcs, prod_rmf, 2, 1,
+        geometry=prod_knobs["geometry"], device=card, plain=plain)
+    assert parity == {v: True for v in bench.VARIANTS}, out
+    assert all(out[v] > 0 for v in bench.VARIANTS), out
+
+
+def test_bench_failing_cell_exits_nonzero(card, monkeypatch, capsys):
+    """On the card a cell that raises leaves its ``*_error`` key in the line
+    and the bench exits 1 (the headline at 256 channels x 1024 ticks: the
+    exit code is the point)."""
+    from fdreadoutlibs_tpu_torch import bench
+    from fdreadoutlibs_tpu_torch.bench import app_rtf
+
+    def boom(*args, **kw):
+        raise RuntimeError("cell failed")
+    monkeypatch.setattr(bench, "C_APA", 256)
+    monkeypatch.setattr(bench, "T_CARD", 1024)
+    monkeypatch.setattr(app_rtf, "bench_app_rtf", boom)
+    assert bench.main([]) == 1
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "cell failed" in line["app_rtf_error"]
+    assert line["parity"] is True and "frontends" in line
+
+
+def test_slab_at_a_tuned_group_that_does_not_divide_tc(card):
+    """The slab at a tuned geometry of group 32 with tc = 48 launches the
+    shipped library with a warning: the hits, nclose and state of
+    ``geometry=None``."""
+    from fdreadoutlibs_tpu_torch.ops.ingest import process_words14_feed
+    cfg = TPGConfig.from_raw("AbsRS", threshold=150)
+    C, T, tc = 128, 144, 48
+    adcs, rmf = tpg_stream(T, C, tc, 2, seed=31)
+    state = tpg.pack_state(seed_chanstate(init_chanstate(C), adcs[0], rmf),
+                           C, device=card)
+    feed = pack_words14(torch.from_numpy(frame_words(adcs).view(np.int32))
+                        .to(card))
+    with pytest.warns(UserWarning, match="shipped geometry"):
+        got = process_words14_feed(feed, state, cfg, C, tc=tc, k_slots=2,
+                                   slab=True, geometry=Geometry(32, 32, 4))
+    want = process_words14_feed(feed, state, cfg, C, tc=tc, k_slots=2,
+                                slab=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int((want[0][:, :, -1] != 0).sum()) > 0

@@ -32,9 +32,11 @@ from fdreadoutlibs_tpu.ops import pallas_tpg as jtpg
 from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
 from fdreadoutlibs_tpu.ops.reference import process_window_reference
 from fdreadoutlibs_tpu_torch.ops import tpg
-from fdreadoutlibs_tpu_torch.ops.ingest import decode_slots, pack_words14
+from fdreadoutlibs_tpu_torch.ops.ingest import (decode_slots, pack_words14,
+                                                process_words14_feed)
 from fdreadoutlibs_tpu_torch.testing import (fir_stream, frame_words,
                                              time2_words, tpg_stream)
+from fdreadoutlibs_tpu_torch.utils.tuning import Geometry
 from test_torch_tpg import jax_outputs_to_port
 from torch_host_lib import host_library
 
@@ -98,6 +100,10 @@ K4B_RUNS = [(sched, n, False, T // 2, TC) for sched in ("gather", "slab")
     [("gather", "AbsRS", True, T // 2, TC), ("slab", "FIR", True, T // 2, TC),
      ("slab", "AbsRS", False, 144, 48), ("slab", "StandardRS", True, 144, 48),
      ("slab", "AbsRS", False, 1024, 1024)]
+
+# the slab at a tuned geometry whose group does not divide its chunk: group
+# 32 (a candidate of the tuner) at tc = 48
+SLAB_GEOMETRY, SLAB_TC = Geometry(32, 32, 4), 48
 
 
 @pytest.fixture(scope="module")
@@ -325,4 +331,49 @@ def test_k4b_pipeline_matches_pallas(host_lib, host_kernel, sched, name,
                                       jstate.numpy()[:, ok])
         assert int((js[:, :, -1] != 0).sum()) > 0
         closes = max(closes, int(jn.max()))
+    assert closes > K                              # drops exercised
+
+
+def test_slab_at_a_group_that_does_not_divide_tc(monkeypatch):
+    """The slab at a tuned geometry of group 32 with tc = 48, a chunk of one
+    and a half groups: the launch warns, naming both geometries, and takes
+    the shipped geometry's library (``host_library("tpg",
+    geometry_defines(None))``, no define) instead of refusing.  Over two
+    windows carrying state its slots, nclose and state equal the plain
+    version's, and ``ingest.process_words14_feed(slab=True)`` on the CPU
+    gives the same with the tuned geometry (warning too) as with none."""
+    asked = []
+
+    def lib_of(geometry=None):
+        asked.append(geometry)
+        return host_library("tpg", tpg.geometry_defines(geometry))
+    monkeypatch.setattr(tpg, "library", lib_of)
+    cfg, C, n = K4B_CASES["AbsRS"], 128, 3 * SLAB_TC
+    adcs, st = _seeded(C, seed=C + 29, n=n, tc=SLAB_TC)
+    state = plain = tpg.pack_state(st, C)
+    warned = (r"group=32 of geometry \(32, 32, 4\); launching with the "
+              r"shipped geometry \(16, 32, 4\)")
+    closes = 0
+    for w in range(2):
+        feed = pack_words14(torch.from_numpy(
+            frame_words(adcs[w * n:(w + 1) * n]).view(np.int32)))
+        with pytest.warns(UserWarning, match=warned):
+            lib = tpg.library(tpg._check_geometry(SLAB_GEOMETRY, cfg,
+                                                  SLAB_TC, 0, True))
+        assert asked == [None] * (w + 1)
+        slots, nclose, state = tpg._launch(
+            tpg._kernel_fn(0, lib), feed, state, cfg, SLAB_TC, K, False,
+            "words14", 0, None, words14_slab=True, lib=lib)
+        with pytest.warns(UserWarning, match=warned):
+            tuned = process_words14_feed(feed, plain, cfg, C, tc=SLAB_TC,
+                                         k_slots=K, slab=True,
+                                         geometry=SLAB_GEOMETRY)
+        want = process_words14_feed(feed, plain, cfg, C, tc=SLAB_TC,
+                                    k_slots=K, slab=True)
+        for what, got, t, exp in zip(("slots", "nclose", "state"),
+                                     (slots, nclose, state), tuned, want):
+            assert torch.equal(got, exp) and torch.equal(t, exp), (w, what)
+        plain = want[2]
+        assert int((slots[:, :, -1] != 0).sum()) > 0
+        closes = max(closes, int(nclose.max()))
     assert closes > K                              # drops exercised
