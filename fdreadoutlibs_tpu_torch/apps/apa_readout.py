@@ -26,6 +26,16 @@ copied otherwise); only the device seam differs:
 card; ``device="cpu"`` runs the kernel's plain version (the CPU tests).
 Nothing falls back from one to the other.
 
+Each batch's ``batch_timings`` row is built from its stages' spans
+(``utils.logging.span``: host milliseconds, and ``apa.*`` ranges while a
+torch profiler records): ``apa.preprocess``, ``apa.retention``,
+``apa.words`` (the frames' words copy, and its page's release at the
+submit's end), ``apa.codec`` (the feed's host stage), ``apa.h2d`` (the
+pageable copy; the host waits in it), ``apa.tpg`` (the kernel's knobs
+and launch), ``apa.compact`` (the compaction's launches), ``apa.fetch``
+(the one sync and the decode), ``apa.assembly`` and ``apa.handler``.  On a card two CUDA-event pairs a
+batch time the TPG launch and the compaction on the device.
+
 Run:  python -m fdreadoutlibs_tpu_torch.apps.apa_readout --time2-feed \\
           --algorithm AbsRS --threshold-on-collection --frames-per-batch 128
       (or --fused-unpack, --words14-feed, or neither for the packed feed)
@@ -55,6 +65,7 @@ from ..stream.wibeth import WIBEthFrameProcessor, assemble_tps
 from ..tp.latency_buffer import make_latency_buffer
 from ..tp.readout_buffer import ReadoutRequestHandler
 from ..tp.request_handler import TPRequestHandler
+from ..utils.logging import span
 from ..utils.metrics import MetricsCollector
 from ..utils.tuning import kernel_knobs
 
@@ -176,7 +187,6 @@ class APAReadoutApp:
 
         # per-batch stage latencies (ms), bounded history (see the JAX app)
         self.batch_timings = deque(maxlen=4096)
-        self._codec_ms = 0.0
 
         # pipelined (depth-2) batching: process_batch SUBMITS this batch's
         # device work (CUDA launches are asynchronous) and then finishes
@@ -185,6 +195,16 @@ class APAReadoutApp:
         # never overwritten while it may still be in use.
         self.pipelined = bool(pipelined)
         self._pending = None
+        # on a card, the device time of the TPG launch and of the
+        # compaction: (tpg start, tpg end, compact start, compact end) for
+        # each of the pipeline's two batches in flight, reused; a slot's
+        # times are read after its batch's fetch, before it is recorded
+        # again
+        self._events = None
+        if self.device.type == "cuda":
+            self._events = [tuple(torch.cuda.Event(enable_timing=True)
+                                  for _ in range(4)) for _ in range(2)]
+        self._slot = 0
 
     # ---- the fused hot path over all links ------------------------------
     def _fetch_hits(self, packed):
@@ -216,15 +236,23 @@ class APAReadoutApp:
             process_packed_frames_fused if self.fused_unpack
             else process_packed_frames)
 
-    def _device_submit(self, frames_links: np.ndarray):
+    def _record(self, events, i: int) -> None:
+        if events is not None:
+            events[i].record(torch.cuda.current_stream(self.device))
+
+    def _device_submit(self, frames_links: np.ndarray, row: dict,
+                       events=None):
         """Enqueue one batch's device work and return the (not yet
         fetched) packed compact-hit device tensor; the carried state
-        chains on the device between submits."""
+        chains on the device between submits.  The stages' spans go into
+        ``row``; ``events`` (a card's pipeline slot, or None) are recorded
+        around the TPG launch and the compaction."""
         L, N, _ = frames_links.shape
         T = N * wibeth.N_TIME_SAMPLES
         C = L * wibeth.N_CHANNELS
-        words = wibeth.frames_bytes_to_u32(
-            frames_links.reshape(-1, wibeth.FRAME_SIZE)).reshape(L, T, 28)
+        with span("apa.words", row):
+            words = wibeth.frames_bytes_to_u32(
+                frames_links.reshape(-1, wibeth.FRAME_SIZE)).reshape(L, T, 28)
         if self._state is None:
             # seed from each channel's first sample (the JAX app decodes
             # the same tick with its jnp unpack)
@@ -238,18 +266,29 @@ class APAReadoutApp:
                                   for p in self.procs])
             state = seed_chanstate(init_chanstate(C), first, rmf)
             self._state = pack_state(state, C, device=self.device)
-        knobs = kernel_knobs(self.cfg)
-        tc = auto_tc(T, cap=knobs["tc"])
-        t_codec = time.perf_counter()
-        fed, fn = self._host_feed(words)
-        self._codec_ms = (time.perf_counter() - t_codec) * 1e3
-        dev_in = torch.from_numpy(fed).to(self.device)
-        slots, nclose, self._state = fn(
-            dev_in, self._state, self.cfg, C, tc=tc, k_slots=self.k_slots,
-            geometry=knobs["geometry"])
+        with span("apa.codec", row):
+            fed, fn = self._host_feed(words)
+        with span("apa.h2d", row, "h2d_host_ms"):
+            dev_in = torch.from_numpy(fed).to(self.device)
+        with span("apa.tpg", row, "tpg_launch_ms"):
+            knobs = kernel_knobs(self.cfg)
+            tc = auto_tc(T, cap=knobs["tc"])
+            self._record(events, 0)
+            slots, nclose, self._state = fn(
+                dev_in, self._state, self.cfg, C, tc=tc,
+                k_slots=self.k_slots, geometry=knobs["geometry"])
+            self._record(events, 1)
         # device-side compaction: only the hit list crosses to the host;
         # overflow beyond max_hits is counted in the trailer's dropped field
-        return compact_on_device(slots, nclose, 0, C, max(2048, 2 * C))
+        with span("apa.compact", row, "compact_launch_ms"):
+            self._record(events, 2)
+            packed = compact_on_device(slots, nclose, 0, C, max(2048, 2 * C))
+            self._record(events, 3)
+        # the words page is the copy's: its release (tens of MB) is timed
+        # with it, not left to the return
+        with span("apa.words", row):
+            del words, fed
+        return packed
 
     def _batched_preprocess(self, frames_links: np.ndarray):
         """All-links sequence/timestamp validation in one vectorized pass.
@@ -297,29 +336,35 @@ class APAReadoutApp:
             raise ValueError(
                 f"raw_capacity_frames={self.raw_capacity_frames} must be "
                 f">= 2x frames per batch ({N}) — raise --raw-capacity")
+        row = {}
         t0 = time.perf_counter()
-        ts_mat, _ = self._batched_preprocess(frames_links)
-        ts0 = ts_mat[:, 0].astype(np.int64)
-        t1 = time.perf_counter()
-        for l in range(L):
-            p = self.procs[l]
-            frames = frames_links[l]
-            if p._first_hit:
-                p._first_frame_setup(frames, wibeth.get_adcs(frames[:1])
-                                     .reshape(-1, 64)[0].astype(np.int32))
-            # raw payloads stay available for trigger data requests
-            # (keys precomputed: one header decode already ran above)
-            self.readout[l].insert_payloads(frames, keys=ts_mat[l])
-            self.readout[l].cleanup(
-                max_occupancy=self.raw_capacity_frames // 2)
-        t2 = time.perf_counter()
+        with span("apa.preprocess", row):
+            ts_mat, _ = self._batched_preprocess(frames_links)
+            ts0 = ts_mat[:, 0].astype(np.int64)
+        with span("apa.retention", row):
+            for l in range(L):
+                p = self.procs[l]
+                frames = frames_links[l]
+                if p._first_hit:
+                    p._first_frame_setup(
+                        frames, wibeth.get_adcs(frames[:1])
+                        .reshape(-1, 64)[0].astype(np.int32))
+                # raw payloads stay available for trigger data requests
+                # (keys precomputed: one header decode already ran above)
+                self.readout[l].insert_payloads(frames, keys=ts_mat[l])
+                self.readout[l].cleanup(
+                    max_occupancy=self.raw_capacity_frames // 2)
 
         # submit this batch's device work (asynchronous launches — the
         # sync point is the compact-hit fetch in _finish_batch)
-        packed = self._device_submit(frames_links)
-        entry = {"packed": packed, "ts0": ts0, "L": L, "N": N,
-                 "t0": t0, "t1": t1, "t2": t2,
-                 "codec_ms": self._codec_ms}
+        events = None
+        if self._events is not None:
+            events = self._events[self._slot]
+            self._slot ^= 1
+        packed = self._device_submit(frames_links, row, events)
+        entry = {"packed": packed, "ts0": ts0, "L": L, "N": N, "t0": t0,
+                 "row": row, "events": events,
+                 "submit_ms": (time.perf_counter() - t0) * 1e3}
         if self.pipelined:
             prev, self._pending = self._pending, entry
             return self._finish_batch(prev) if prev is not None else 0
@@ -330,47 +375,46 @@ class APAReadoutApp:
         sync) and run the host TP tail: assembly, handler insert /
         heartbeat / TPSet windowing / cleanup.  Returns the batch's
         dropped count; appends its batch_timings row."""
-        L, N, ts0 = e["L"], e["N"], e["ts0"]
-        t_fetch = time.perf_counter()
-        hits, dropped = self._fetch_hits(e["packed"])
-        t3 = time.perf_counter()
-        self._dropped_total += dropped
-        link = hits["channel"] >> 6                 # 64 channels per link
-        self._hits_link[:L] += np.bincount(link, minlength=L)
-        if self.batched_assembly:
-            self._assemble_batch(hits, link, ts0, L)
-        else:
-            for l in range(L):
-                in_link = link == l
-                h = hits[in_link].copy()
-                h["channel"] -= l * 64
-                self.procs[l].process_swtpg_hits(h, int(ts0[l]))
-        t4 = time.perf_counter()
-        # drain TPs into the latency buffer, emit TPSets; the newest frame
-        # timestamp anchors the heartbeat clock so zero-TP batches still
-        # advance downstream trigger aggregation
-        for batch in self.tp_q.drain():
-            self.handler.insert_tps(batch)
-        self.handler.note_stream_time(
-            int(ts0.max()) + (N - 1) * wibeth.EXPECTED_TICK_DIFFERENCE)
-        self.handler.send_tp_sets_once()
-        self.handler.cleanup(max_occupancy=self.handler_max_occupancy)
-        t5 = time.perf_counter()
-        # device_ms: unpipelined = submit+fetch wall (host codec excluded:
-        # H2D + kernel + compaction + D2H); pipelined = only the observed
-        # fetch wait
-        dev_ms = (t3 - (t_fetch if self.pipelined else e["t2"])) * 1e3
-        if not self.pipelined:
-            dev_ms -= e["codec_ms"]
-        self.batch_timings.append({
-            "preprocess_ms": (e["t1"] - e["t0"]) * 1e3,
-            "retention_ms": (e["t2"] - e["t1"]) * 1e3,
-            "codec_ms": e["codec_ms"],
-            "device_ms": dev_ms,
-            "assembly_ms": (t4 - t3) * 1e3,
-            "handler_ms": (t5 - t4) * 1e3,
-            "total_ms": (t5 - e["t0"]) * 1e3,
-        })
+        L, N, ts0, row = e["L"], e["N"], e["ts0"], e["row"]
+        t_finish = time.perf_counter()
+        with span("apa.fetch", row):
+            hits, dropped = self._fetch_hits(e["packed"])
+        events = e["events"]
+        if events is not None:
+            # the fetch synchronised the stream past both end events
+            row["tpg_device_ms"] = events[0].elapsed_time(events[1])
+            row["compact_device_ms"] = events[2].elapsed_time(events[3])
+        with span("apa.assembly", row):
+            self._dropped_total += dropped
+            link = hits["channel"] >> 6             # 64 channels per link
+            self._hits_link[:L] += np.bincount(link, minlength=L)
+            if self.batched_assembly:
+                self._assemble_batch(hits, link, ts0, L)
+            else:
+                for l in range(L):
+                    in_link = link == l
+                    h = hits[in_link].copy()
+                    h["channel"] -= l * 64
+                    self.procs[l].process_swtpg_hits(h, int(ts0[l]))
+        with span("apa.handler", row):
+            # drain TPs into the latency buffer, emit TPSets; the newest
+            # frame timestamp anchors the heartbeat clock so zero-TP
+            # batches still advance downstream trigger aggregation
+            for batch in self.tp_q.drain():
+                self.handler.insert_tps(batch)
+            self.handler.note_stream_time(
+                int(ts0.max()) + (N - 1) * wibeth.EXPECTED_TICK_DIFFERENCE)
+            self.handler.send_tp_sets_once()
+            self.handler.cleanup(max_occupancy=self.handler_max_occupancy)
+        t_end = time.perf_counter()
+        # step_ms: the host wall of this batch's own share of the calls,
+        # its submit (from its process_batch's start) and this finish, so
+        # the row's spans fit inside it; unpipelined that is the whole
+        # call, pipelined the halves of two.  total_ms: from its
+        # preprocess to its TPSet emission, across both calls pipelined.
+        row["step_ms"] = e["submit_ms"] + (t_end - t_finish) * 1e3
+        row["total_ms"] = (t_end - e["t0"]) * 1e3
+        self.batch_timings.append(row)
         return dropped
 
     def flush(self) -> int:
@@ -437,7 +481,13 @@ class APAReadoutApp:
 
     def latency_info(self, frames_per_batch: int | None = None) -> dict:
         """Data-arrival -> TP-available latency summary over the recorded
-        batch history (batch_timings); see the JAX app for the model."""
+        batch history (batch_timings); see the JAX app for the model.
+
+        ``stages_ms_p50`` holds each stage's median: the host spans
+        ``preprocess_ms``, ``retention_ms``, ``words_ms``, ``codec_ms``,
+        ``h2d_host_ms``, ``tpg_launch_ms``, ``compact_launch_ms``,
+        ``fetch_ms``, ``assembly_ms``, ``handler_ms``, and on a card the
+        device times ``tpg_device_ms`` and ``compact_device_ms``."""
         if not self.batch_timings:
             return {}
         rows = list(self.batch_timings)
@@ -449,7 +499,7 @@ class APAReadoutApp:
                "stages_ms_p50": {
                    k: round(float(np.percentile(
                        [r[k] for r in rows], 50)), 3)
-                   for k in rows[0] if k != "total_ms"}}
+                   for k in rows[0] if k not in ("step_ms", "total_ms")}}
         if frames_per_batch:
             span_ms = frames_per_batch * wibeth.EXPECTED_TICK_DIFFERENCE \
                 * 16e-6                      # 16 ns / DTS tick

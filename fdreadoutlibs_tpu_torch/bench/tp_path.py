@@ -319,7 +319,7 @@ def bench_apa_host_loop(trials: int, rng, n_batches: int = 12,
     # _fetch_hits turns it into (hits, dropped)
     it = {"i": 0}
 
-    def fake_device_submit(frames_links):
+    def fake_device_submit(frames_links, row, events=None):
         h = hit_batches[it["i"] % n_batches]
         it["i"] += 1
         return h, 0

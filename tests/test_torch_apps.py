@@ -131,9 +131,10 @@ def test_latency_info_and_cli(capsys):
         app.process_batch(frames)
     lat = app.latency_info(frames_per_batch=N)
     assert lat["batches"] == 2 and lat["min_latency_ticks"] > 0
-    assert set(lat["stages_ms_p50"]) == {"preprocess_ms", "retention_ms",
-                                         "codec_ms", "device_ms",
-                                         "assembly_ms", "handler_ms"}
+    assert set(lat["stages_ms_p50"]) == {
+        "preprocess_ms", "retention_ms", "words_ms", "codec_ms",
+        "h2d_host_ms", "tpg_launch_ms", "compact_launch_ms", "fetch_ms",
+        "assembly_ms", "handler_ms"}
     assert main(["--links", "2", "--frames-per-batch", "2", "--batches",
                  "2", "--time2-feed", "--algorithm", "AbsRS",
                  "--threshold-on-collection", "--device", "cpu"]) == 0

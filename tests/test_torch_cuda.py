@@ -7,7 +7,8 @@ and the machine code's kernel names; K5: fir_twopass 1 and 2 on every
 encoding, also against K3, and through the words14 gather; K2b, K3b,
 K4b-gather, K4b-slab (K3b and K4b-slab also at a 1024-tick chunk) and
 the float running sum; the ``SLOT_WORD_CARRY`` layout on every one of those
-datapaths; the probes' kernels P1-P3), and the APA app (every feed),
+datapaths; the probes' kernels P1-P3), and the APA app (every feed; its
+CUDA-event spans, read complete after the fetch),
 ``StreamingIngest``, the WIB2 and
 ProtoWIB processors and ``run_model`` on the card against the same on the
 CPU; for the detector slice, K2 at the PDS and TDE widths (40, 64 and 62
@@ -242,6 +243,34 @@ def test_app_on_card_matches_cpu(card, feed):
         np.testing.assert_array_equal(ha, hb)
         assert da == db
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+
+
+def test_app_device_spans_on_card(card):
+    """The pipelined app's CUDA-event spans: each row's TPG launch and
+    compaction read positive device times, and every event had completed
+    when its time was read (right after the fetch, no sync of its own)."""
+    read = []
+
+    class Checked(torch.cuda.Event):
+        def elapsed_time(self, end_event):
+            read.append(self.query() and end_event.query())
+            return super().elapsed_time(end_event)
+
+    rng = np.random.default_rng(6)
+    app = APAReadoutApp(n_links=4, algorithm="AbsRS", threshold=150,
+                        threshold_on_collection=True, time2_feed=True,
+                        pipelined=True, device="cuda")
+    app._events = [tuple(Checked(enable_timing=True) for _ in range(4))
+                   for _ in range(2)]
+    for b in range(5):
+        app.process_batch(make_batch(rng, 4, 16, b,
+                                     0x1000000 + b * 16 * 2048)[0])
+    app.flush()
+    rows = list(app.batch_timings)
+    assert len(rows) == 5 and len(read) == 10 and all(read)
+    for row in rows:
+        assert row["tpg_device_ms"] > 0 and row["compact_device_ms"] > 0
+        assert "device_ms" not in row
 
 
 @pytest.mark.parametrize("mode", ["packed", "fused", "words14", "time2"])
