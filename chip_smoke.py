@@ -40,8 +40,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    (timed apart, as set-up), a steady window of 16 batches for the
    end-to-end RTF and ``latency_info``, the feed's kernel launched once per
    batch, the first 2 batches' hits equal to one shared plain result (the
-   kernel's plain version plus the same compaction on the same ADCs), and
-   a per-stage split of one batch;
+   kernel's plain version plus the same compaction on the same ADCs), the
+   bytes copied into words pages (``words_copy_bytes``: none on the time2
+   feed, whose codec reads the frames in place), and a per-stage split of
+   one batch;
 5. wib2 slice — 10 WIB2 links (2560 channels) through 10 per-link
    ``WIB2FrameProcessor``s, FIR threshold 5, batches of 512 superchunks
    per link (T = 6144 ticks = 3.146 ms), once with the packed ingest (device
@@ -898,10 +900,12 @@ def apa_stage_split(app, frames, feed: str, n_rep: int = 5):
     reps = []
     for _ in range(n_rep):
         r = {}
-        words, r["words copy"] = clock(lambda: wibeth.frames_bytes_to_u32(
-            frames.reshape(-1, wibeth.FRAME_SIZE)).reshape(L, T, 28))
+        words = None
+        if feed != "time2":   # the time2 codec reads the frames in place
+            words, r["words copy"] = clock(lambda: wibeth.frames_bytes_to_u32(
+                frames.reshape(-1, wibeth.FRAME_SIZE)).reshape(L, T, 28))
         # the app's own host stage (a view for the fused and packed feeds)
-        (host, _), r["codec"] = clock(lambda: app._host_feed(words))
+        (host, _), r["codec"] = clock(lambda: app._host_feed(frames, words))
         dev_in, r["H2D"] = clock(lambda: torch.from_numpy(host).to(
             app.device))
         if feed == "time2":
@@ -975,7 +979,8 @@ def apa_slice(dev) -> tuple:
               f"end_to_end_rtf {rtf:.4f}")
         print(f"  {feed} feed info:", json.dumps({k: info[k] for k in (
             "total_hits", "total_tps_sent", "ts_errors", "hits_dropped",
-            "tpsets_queued", "raw_buffered")}), "launches",
+            "tpsets_queued", "raw_buffered", "words_copy_bytes")}),
+            "launches",
             json.dumps(launches))
         print(f"  {feed} feed latency_info:", json.dumps(lat))
         want = {k: 0 for k in launches}
@@ -986,6 +991,13 @@ def apa_slice(dev) -> tuple:
         if not (info["total_hits"] > 0 and info["ts_errors"] == 0
                 and info["tpsets_queued"] > 0):
             raise AssertionError(f"{feed} feed: slice output wrong: {info}")
+        # the time2 feed makes no words copy; the others copy L x N x 7168
+        # bytes a batch
+        copied = 0 if feed == "time2" else \
+            len(batches) * N_LINKS * FRAMES * wibeth.N_TIME_SAMPLES * 28 * 4
+        if info["words_copy_bytes"] != copied:
+            raise AssertionError(f"{feed} feed: words_copy_bytes "
+                                 f"{info['words_copy_bytes']}, want {copied}")
         if plain is None:
             # one plain result for every feed: the same frames give the
             # same function

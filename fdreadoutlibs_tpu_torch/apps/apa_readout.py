@@ -8,8 +8,9 @@ copied otherwise); only the device seam differs:
     -> per-link preprocess (sequence/timestamp checks, vectorized)
     -> raw payloads into per-link readout buffers (zero-copy retention)
     -> the feed, by flag:
-       time2_feed: host codec native.relayout_time2(pad8=False), 14-bit
-         unpack + time pairing, (T/2, ceil(C/128), 128) int32 -> K1;
+       time2_feed: host codec native.relayout_time2_frames(pad8=False),
+         14-bit unpack + time pairing read from the frames in place,
+         (T/2, ceil(C/128), 128) int32 -> K1;
        fused_unpack: the (L, T, 28) packed frame words as they are -> K4
          (the kernel unpacks in-register);
        words14_feed: host relayout native.relayout_words14 to
@@ -30,7 +31,9 @@ Each batch's ``batch_timings`` row is built from its stages' spans
 (``utils.logging.span``: host milliseconds, and ``apa.*`` ranges while a
 torch profiler records): ``apa.preprocess``, ``apa.retention``,
 ``apa.words`` (the frames' words copy, and its page's release at the
-submit's end), ``apa.codec`` (the feed's host stage), ``apa.h2d`` (the
+submit's end; on the time2 feed, which reads the frames in place, only
+the view of tick 0 that seeds the first batch), ``apa.codec`` (the
+feed's host stage), ``apa.h2d`` (the
 pageable copy; the host waits in it), ``apa.tpg`` (the kernel's knobs
 and launch), ``apa.compact`` (the compaction's launches), ``apa.fetch``
 (the one sync and the decode), ``apa.assembly`` and ``apa.handler``.  On a card two CUDA-event pairs a
@@ -167,6 +170,7 @@ class APAReadoutApp:
         self._state = None               # (KSTATE, C) on self.device
         self._dropped_total = 0
         self._feed_buf = native.FeedBuffer()  # host feed output reuse
+        self._words_copy_bytes = 0       # bytes copied into words pages
         self.codec_threads = max(1, int(codec_threads))
 
         # batched whole-APA TP assembly; lookup tables are built lazily
@@ -212,9 +216,19 @@ class APAReadoutApp:
         (canonical hit array, dropped)."""
         return unpack_compact(packed)
 
-    def _host_feed(self, words: np.ndarray):
-        """The feed's host stage: (L, T, 28) packed words -> (int32 host
+    def _host_feed(self, frames_links: np.ndarray, words: np.ndarray | None):
+        """The feed's host stage: the batch's (L, N, 7200) frames, or on
+        every feed but time2 their (L, T, 28) packed words -> (int32 host
         array to ship, the ingest function that takes it on the device)."""
+        if self.time2_feed:
+            # the codec reads each frame's ADC region where it lies;
+            # pad8=False: only the ceil(C/128) data rows, which the kernel
+            # reads with that row stride, nothing padded on the device
+            L, N, _ = frames_links.shape
+            return native.relayout_time2_frames(
+                frames_links, out=self._feed_buf.get(native.time2_feed_shape(
+                    L, N * wibeth.N_TIME_SAMPLES, pad8=False)),
+                nthreads=self.codec_threads, pad8=False), process_time2_feed
         L, T, _ = words.shape
         if self.words14_feed:
             # host relayout into the kernel's words14 rows (reused output
@@ -223,13 +237,6 @@ class APAReadoutApp:
                 words, out=self._feed_buf.get(
                     native.words14_feed_shape(L, T)),
                 nthreads=self.codec_threads), process_words14_feed
-        if self.time2_feed:
-            # pad8=False: only the ceil(C/128) data rows; the kernel reads
-            # them with that row stride, nothing is padded on the device
-            return native.relayout_time2(
-                words, out=self._feed_buf.get(
-                    native.time2_feed_shape(L, T, pad8=False)),
-                nthreads=self.codec_threads, pad8=False), process_time2_feed
         # the packed frame words as they are: K4 (fused) or the device
         # unpack and K2
         return words.view(np.int32), (
@@ -251,12 +258,21 @@ class APAReadoutApp:
         T = N * wibeth.N_TIME_SAMPLES
         C = L * wibeth.N_CHANNELS
         with span("apa.words", row):
-            words = wibeth.frames_bytes_to_u32(
-                frames_links.reshape(-1, wibeth.FRAME_SIZE)).reshape(L, T, 28)
+            if self.time2_feed:
+                # no words copy: the codec reads the frames in place; tick
+                # 0's words are a view, for the first batch's seeding
+                words = None
+                tick0 = wibeth.adc_region_u32(frames_links[:, 0])[:, 0]
+            else:
+                words = wibeth.frames_bytes_to_u32(
+                    frames_links.reshape(-1, wibeth.FRAME_SIZE)) \
+                    .reshape(L, T, 28)
+                self._words_copy_bytes += words.nbytes
+                tick0 = words[:, 0]
         if self._state is None:
             # seed from each channel's first sample (the JAX app decodes
             # the same tick with its jnp unpack)
-            first = wibeth.unpack_14bit(words[:, 0], wibeth.N_CHANNELS,
+            first = wibeth.unpack_14bit(tick0, wibeth.N_CHANNELS,
                                         wibeth.ADC_BITS) \
                 .reshape(-1).astype(np.int32)
             # per-channel memory factors from each link's channel map
@@ -267,7 +283,7 @@ class APAReadoutApp:
             state = seed_chanstate(init_chanstate(C), first, rmf)
             self._state = pack_state(state, C, device=self.device)
         with span("apa.codec", row):
-            fed, fn = self._host_feed(words)
+            fed, fn = self._host_feed(frames_links, words)
         with span("apa.h2d", row, "h2d_host_ms"):
             dev_in = torch.from_numpy(fed).to(self.device)
         with span("apa.tpg", row, "tpg_launch_ms"):
@@ -286,8 +302,9 @@ class APAReadoutApp:
             self._record(events, 3)
         # the words page is the copy's: its release (tens of MB) is timed
         # with it, not left to the return
-        with span("apa.words", row):
-            del words, fed
+        if words is not None:
+            with span("apa.words", row):
+                del words, fed
         return packed
 
     def _batched_preprocess(self, frames_links: np.ndarray):
@@ -547,6 +564,9 @@ class APAReadoutApp:
                                 for p in self.procs)
         # per-channel closes beyond the K-slot capacity per time chunk
         info["hits_dropped"] = self._dropped_total
+        # bytes copied into words pages: 0 on the time2 feed, which reads
+        # the frames in place
+        info["words_copy_bytes"] = self._words_copy_bytes
         if self.batched_assembly:
             info["apa_top_channels"] = self.metrics.top_channels()
             info["tps_suppressed_too_long"] = self.metrics.count(

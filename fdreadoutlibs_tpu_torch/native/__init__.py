@@ -2,8 +2,9 @@
 
 Copied from ``fdreadoutlibs_tpu/native/__init__.py:1-472`` (the entry
 points the port calls; :475-503's DAPHNE relayout with its numpy codec
-only); the sources ``framecodec.cpp`` and
-``latency_buffer.cpp`` are copies of that package's.  The library is built
+only); the sources ``framecodec.cpp`` and ``latency_buffer.cpp`` are
+copies of that package's, but for the time2 relayout straight from WIBEth
+frames (``relayout_time2_frames``), the port's own.  The library is built
 from them at first use with ``g++`` into ``fdreadoutlibs_tpu_torch/_build/``
 (gitignored), under a name keyed on the sources and flags, so an edited
 source rebuilds and a stale library is never loaded.  Without a compiler
@@ -111,6 +112,15 @@ def load():
                                        ctypes.c_uint64, ctypes.c_uint64,
                                        ctypes.c_uint64, ctypes.c_char_p,
                                        ctypes.c_uint64]),
+        ("wibeth_relayout_time2_frames", [ctypes.c_char_p, ctypes.c_uint64,
+                                          ctypes.c_uint64, ctypes.c_int64,
+                                          ctypes.c_int64, ctypes.c_uint64,
+                                          ctypes.c_char_p]),
+        ("wibeth_relayout_time2_frames_mt", [ctypes.c_char_p,
+                                             ctypes.c_uint64, ctypes.c_uint64,
+                                             ctypes.c_int64, ctypes.c_int64,
+                                             ctypes.c_uint64, ctypes.c_char_p,
+                                             ctypes.c_uint64]),
         ("protowib_relayout_time2", [ctypes.c_char_p, ctypes.c_uint64,
                                      ctypes.c_char_p, ctypes.c_uint64,
                                      ctypes.c_uint64, ctypes.c_char_p]),
@@ -368,6 +378,47 @@ def relayout_time2(words: np.ndarray, ch_per_link: int = 64,
         _check_out(out, res.shape)[...] = res
         return out
     return res
+
+
+def relayout_time2_frames(frames: np.ndarray, out: np.ndarray = None,
+                          nthreads: int = 1, pad8: bool = True) -> np.ndarray:
+    """:func:`relayout_time2` of WIBEth frames' packed words, read where
+    they lie: (L, N, 7200) uint8 frames -> (N*32, S, 128) int32.  Any
+    such array whose last axis is contiguous is read in place (a batch
+    sliced from a larger buffer too); no words copy is made.  Anything
+    else raises ValueError.  Uses the native codec when available,
+    :func:`relayout_time2` on the frames' words otherwise."""
+    if (not isinstance(frames, np.ndarray) or frames.dtype != np.uint8
+            or frames.ndim != 3 or frames.shape[2] != 7200
+            or frames.strides[2] != 1):
+        raise ValueError(
+            f"expected (L, N, 7200) uint8 WIBEth frames with a contiguous "
+            f"last axis, got {getattr(frames, 'dtype', type(frames))} "
+            f"{getattr(frames, 'shape', None)} strides "
+            f"{getattr(frames, 'strides', None)}")
+    L, N, _ = frames.shape
+    T = 64 * N
+    lib = load()
+    if lib is None:
+        from ..formats import wibeth
+        return relayout_time2(
+            wibeth.frames_bytes_to_u32(frames).reshape(L, T, 28), out=out,
+            nthreads=nthreads, pad8=pad8)
+    shape = time2_feed_shape(L, T, pad8=pad8)
+    S = shape[1]
+    if out is None:
+        out = _aligned_empty(shape, np.int32)
+    else:
+        _check_out(out, shape)
+    link_stride, frame_stride = frames.strides[:2]
+    if nthreads > 1:
+        lib.wibeth_relayout_time2_frames_mt(
+            _ptr(frames), L, N, link_stride, frame_stride, S, _ptr(out),
+            int(nthreads))
+    else:
+        lib.wibeth_relayout_time2_frames(_ptr(frames), L, N, link_stride,
+                                         frame_stride, S, _ptr(out))
+    return out
 
 
 def relayout_time2_protowib(frames: np.ndarray, chan_list,

@@ -1,4 +1,7 @@
-// Copied from fdreadoutlibs_tpu/native/framecodec.cpp:1-519; the code is unchanged.
+// Copied from fdreadoutlibs_tpu/native/framecodec.cpp:1-519.  The port's
+// own: the time2 worker stages each 64-tick block from an address rule
+// (Time2Source), so wibeth_relayout_time2_frames(_mt) read the ADC
+// regions of (L, N, 7200) frames where they lie, with no words copy.
 //
 // Native frame codec: host-side WIBEth framing at streaming rates.
 //
@@ -187,7 +190,7 @@ void wibeth_relayout_words14(const uint32_t* in, uint64_t L, uint64_t T,
   relayout_words14_range(in, L, T, out, 0, T);
 }
 
-// Multithreaded variant; see relayout_time2_chmajor_mt.
+// Multithreaded variant; see relayout_time2_run.
 void wibeth_relayout_words14_mt(const uint32_t* in, uint64_t L, uint64_t T,
                                 int32_t* out, uint64_t nthreads) {
   const uint64_t blocks = (T + 63) / 64;
@@ -327,15 +330,33 @@ void wibeth_relayout_time2(const uint32_t* in, uint64_t L, uint64_t T,
 }
 
 namespace {
+// Where the time2 worker stages from: block k (ticks [64k, 64k + 64)) of
+// link l is nb*nw contiguous words at base + l*link_stride +
+// k*block_stride bytes.  Packed (L, T, nw) words: link_stride T*nw*4,
+// block_stride 64*nw*4.  WIBEth frames: base at the first frame's ADC
+// region (byte 32), a frame's 64 ticks x 28 words being one block, so
+// block_stride is the frame stride.  Signed strides: any numpy view.
+struct Time2Source {
+  const uint8_t* base;
+  int64_t link_stride;
+  int64_t block_stride;
+};
+
+Time2Source words_source(const uint32_t* in, uint64_t T, uint64_t nw) {
+  return {reinterpret_cast<const uint8_t*>(in),
+          static_cast<int64_t>(T * nw * sizeof(uint32_t)),
+          static_cast<int64_t>(64 * nw * sizeof(uint32_t))};
+}
+
 // Tick-range worker for the channel-major time2 relayout: processes
-// absolute ticks [t_begin, t_end) of the full (L, T, nw) input into the
-// full (T/2, S, 128) output.  t_begin must be a multiple of the 64-tick
-// staging block so pairing and block staging stay aligned; ranges are
-// disjoint in both input reads and output rows, so threads need no
-// synchronization beyond join.
-void relayout_time2_range(const uint32_t* in, uint64_t L, uint64_t T,
-                          uint64_t cpl, uint64_t S, int32_t* out,
-                          uint64_t t_begin, uint64_t t_end) {
+// absolute ticks [t_begin, t_end) of the source into the full (T/2, S,
+// 128) output.  t_begin must be a multiple of the 64-tick staging block
+// so pairing and block staging stay aligned; ranges are disjoint in both
+// input reads and output rows, so threads need no synchronization
+// beyond join.
+void relayout_time2_range(Time2Source src, uint64_t L, uint64_t cpl,
+                          uint64_t S, int32_t* out, uint64_t t_begin,
+                          uint64_t t_end) {
   const uint64_t row = S * 128;
   const uint64_t C = cpl * L;
   const uint64_t nw = cpl * 7 / 16;  // words per tick row
@@ -347,8 +368,11 @@ void relayout_time2_range(const uint32_t* in, uint64_t L, uint64_t T,
   stage[L * B * nw] = 0;
   for (uint64_t t0 = t_begin; t0 < t_end; t0 += B) {
     const uint64_t nb = (t0 + B <= t_end) ? B : (t_end - t0);
+    const uint8_t* block =
+        src.base + static_cast<int64_t>(t0 / B) * src.block_stride;
     for (uint64_t l = 0; l < L; ++l) {
-      std::memcpy(stage + l * B * nw, in + (l * T + t0) * nw,
+      std::memcpy(stage + l * B * nw,
+                  block + static_cast<int64_t>(l) * src.link_stride,
                   nb * nw * sizeof(uint32_t));
     }
 #if defined(__AVX512F__)
@@ -390,28 +414,18 @@ void relayout_time2_range(const uint32_t* in, uint64_t L, uint64_t T,
   _mm_sfence();  // drain the streaming stores before the caller reads
 #endif
 }
-}  // namespace
 
-// Generic channel-major variant: each tick row of link l is cpl
-// channels x 14 bit = cpl*7/16 uint32 words in channel order (WIBEth
-// cpl=64, WIB2 cpl=256); channel c = cpl*link + ch.
-void relayout_time2_chmajor(const uint32_t* in, uint64_t L, uint64_t T,
-                            uint64_t cpl, uint64_t S, int32_t* out) {
-  relayout_time2_range(in, L, T, cpl, S, out, 0, T);
-}
-
-// Multithreaded variant for production hosts (an APA's 8.75 GB/s raw
-// rate needs ~2 cores at the measured 6.3 GB/s/core): ticks are split
-// into 64-aligned contiguous ranges, one std::thread each — ranges are
+// The time2 relayout of T ticks from src: ticks are split into
+// 64-aligned contiguous ranges, one std::thread each — ranges are
 // disjoint in input reads and output rows, so the only synchronization
 // is the join.  nthreads <= 1 runs inline.
-void relayout_time2_chmajor_mt(const uint32_t* in, uint64_t L, uint64_t T,
-                               uint64_t cpl, uint64_t S, int32_t* out,
-                               uint64_t nthreads) {
+void relayout_time2_run(Time2Source src, uint64_t L, uint64_t T,
+                        uint64_t cpl, uint64_t S, int32_t* out,
+                        uint64_t nthreads) {
   const uint64_t blocks = (T + 63) / 64;
   if (nthreads > blocks) nthreads = blocks;
   if (nthreads <= 1) {
-    relayout_time2_range(in, L, T, cpl, S, out, 0, T);
+    relayout_time2_range(src, L, cpl, S, out, 0, T);
     return;
   }
   std::vector<std::thread> workers;
@@ -421,10 +435,50 @@ void relayout_time2_chmajor_mt(const uint32_t* in, uint64_t L, uint64_t T,
     const uint64_t t0 = i * per * 64;
     const uint64_t t1 = (i + 1) * per * 64 < T ? (i + 1) * per * 64 : T;
     if (t0 >= t1) break;
-    workers.emplace_back(relayout_time2_range, in, L, T, cpl, S, out,
-                         t0, t1);
+    workers.emplace_back(relayout_time2_range, src, L, cpl, S, out, t0, t1);
   }
   for (auto& w : workers) w.join();
+}
+}  // namespace
+
+// Generic channel-major variant: each tick row of link l is cpl
+// channels x 14 bit = cpl*7/16 uint32 words in channel order (WIBEth
+// cpl=64, WIB2 cpl=256); channel c = cpl*link + ch.
+void relayout_time2_chmajor(const uint32_t* in, uint64_t L, uint64_t T,
+                            uint64_t cpl, uint64_t S, int32_t* out) {
+  relayout_time2_run(words_source(in, T, cpl * 7 / 16), L, T, cpl, S, out,
+                     1);
+}
+
+// Multithreaded variant for production hosts (an APA's 8.75 GB/s raw
+// rate needs ~2 cores at the measured 6.3 GB/s/core).
+void relayout_time2_chmajor_mt(const uint32_t* in, uint64_t L, uint64_t T,
+                               uint64_t cpl, uint64_t S, int32_t* out,
+                               uint64_t nthreads) {
+  relayout_time2_run(words_source(in, T, cpl * 7 / 16), L, T, cpl, S, out,
+                     nthreads);
+}
+
+// WIBEth time2 relayout straight from the frames: (L, N, 7200) bytes with
+// link_stride and frame_stride bytes between links and frames (the last
+// axis contiguous) -> the (N*32, S, 128) output of wibeth_relayout_time2
+// on the frames' packed words.  A frame's ADC region (byte 32 on, 64
+// ticks x 28 words) is one staging block, so each block is one memcpy
+// from the frame where it lies.
+void wibeth_relayout_time2_frames(const uint8_t* frames, uint64_t L,
+                                  uint64_t N, int64_t link_stride,
+                                  int64_t frame_stride, uint64_t S,
+                                  int32_t* out) {
+  relayout_time2_run({frames + kHeaderBytes, link_stride, frame_stride}, L,
+                     N * kRows, kChannels, S, out, 1);
+}
+
+void wibeth_relayout_time2_frames_mt(const uint8_t* frames, uint64_t L,
+                                     uint64_t N, int64_t link_stride,
+                                     int64_t frame_stride, uint64_t S,
+                                     int32_t* out, uint64_t nthreads) {
+  relayout_time2_run({frames + kHeaderBytes, link_stride, frame_stride}, L,
+                     N * kRows, kChannels, S, out, nthreads);
 }
 
 // DAPHNE stream variant: each frame row of link l is 64 ticks x 4

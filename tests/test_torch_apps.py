@@ -42,6 +42,8 @@ def run(app, batches):
     info = app.get_info()
     info["handler"] = {k: v for k, v in info["handler"].items()
                        if k not in TIMING_KEYS}
+    # the port's own counter (the JAX app has none); its tests are below
+    info.pop("words_copy_bytes", None)
     return fetched, info, app.handler.buffer.snapshot(), app.tpset_q.drain()
 
 
@@ -204,6 +206,33 @@ def test_feeds_agree_and_flags_exclusive():
                 dict(fused_unpack=True, time2_feed=True)):
         with pytest.raises(ValueError, match="exclusive"):
             APAReadoutApp(n_links=1, device="cpu", **bad)
+
+
+def test_time2_app_makes_no_words_copy(monkeypatch):
+    """The time2 feed's codec reads the frames in place: with the words
+    copy made impossible the app still fetches the JAX app's hits and
+    emits its TPSets, and counts no bytes copied into a words page."""
+    batches = make_batches(seed=41)
+    ref = run(JaxApp(n_links=L, pallas_interpret=True, **PROD), batches)
+
+    def no_copy(*args, **kwargs):
+        raise AssertionError("the time2 feed copied the frames' words")
+
+    monkeypatch.setattr(wibeth, "frames_bytes_to_u32", no_copy)
+    app = APAReadoutApp(n_links=L, device="cpu", pipelined=True, **PROD)
+    assert_same_run(run(app, batches), ref)
+    assert app.get_info()["words_copy_bytes"] == 0
+
+
+@pytest.mark.parametrize("feed", list(FEEDS))
+def test_packed_word_feeds_count_their_words_copy(feed):
+    """Every other feed ships or relays the words, so it copies them: L x
+    N x 7168 bytes a batch."""
+    app = APAReadoutApp(n_links=L, device="cpu",
+                        **dict(PROD, time2_feed=False, **FEEDS[feed]))
+    for b, frames in enumerate(make_batches(seed=43)):
+        app.process_batch(frames)
+        assert app.get_info()["words_copy_bytes"] == (b + 1) * L * N * 7168
 
 
 def _unported(case):

@@ -200,7 +200,11 @@ def test_tp_path_and_codecs_match_jax():
     rng = np.random.default_rng(1)
     words = rng.integers(0, 2 ** 32, size=(2, 64, 28), dtype=np.uint32)
     w2 = rng.integers(0, 2 ** 32, size=(10, 64, 112), dtype=np.uint32)
+    # the port's own case: the same relayout read from random frames
+    frames = rng.integers(0, 256, size=(2, 1, 7200), dtype=np.uint8)
+    fwords = jax_wibeth.frames_bytes_to_u32(frames).reshape(2, 64, 28)
     want = {"time2": (words, jax_native.relayout_time2(words)),
+            "time2_frames": (fwords, jax_native.relayout_time2(fwords)),
             "words14": (words, jax_native.relayout_words14(words)),
             "time2_wib2": (w2, jax_native.relayout_time2(w2,
                                                          ch_per_link=256))}
