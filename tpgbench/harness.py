@@ -24,13 +24,10 @@ import os
 import sys
 import time
 
-from .reference.frames import CLOCKS_PER_FRAME
-
 WARM_STEPS = 3           # pipeline fill, library loads, lazy tables
 TRACE_STEPS = 48         # steps in the traced segment
 BANNED = ("jax", "jaxlib", "flax", "fdreadoutlibs_tpu")
 CACHE_DIR = ".tpgbench_cache"
-CLOCK_HZ = 62.5e6        # the DAQ timestamp clock
 
 
 def parse(argv):
@@ -81,7 +78,7 @@ class Run:
         self.system = self.mod.System(self.config, self.traffic, self.source,
                                       device)
         self.phases["system"] = self._since_start()
-        self.batch_s = self.source.N * CLOCKS_PER_FRAME / CLOCK_HZ
+        self.batch_s = self.mod.batch_seconds(self.config, self.traffic)
         self.trace = None
 
     def _since_start(self) -> float:
@@ -120,13 +117,16 @@ class Run:
 
     def traced(self, steps: int = TRACE_STEPS) -> None:
         """A segment of ``steps`` steps after the window under the
-        profiler; the hits it fetched go with it, for the least bytes."""
+        profiler; the hits it fetched go with it, and the least bytes the
+        system module counts for a batch of them."""
         from . import trace
         hits0 = self.system.hits_total()
         cap = trace.capture(steps, self.system.step)
         self.trace = trace.reduce(cap)
         self.trace["batches"] = steps
         self.trace["hits"] = self.system.hits_total() - hits0
+        self.trace["least_bytes"] = self.mod.least_bytes(
+            self.config, self.traffic, self.trace["hits"] / steps)
 
     def record(self) -> dict:
         rec = {"config": self.config, "traffic": self.traffic,

@@ -1,5 +1,8 @@
-"""words_ms: the app's host words copy (``wibeth.frames_bytes_to_u32``,
-span ``apa.words``), host ms a batch, mean over the window."""
+"""words_ms: host ms a batch in the app's span ``apa.words``, mean over
+the window.  On the time2 feed the codec reads the batch's frames in
+place, and the span holds only the view of tick 0 that seeds the first
+batch; the packed, fused and words14 feeds copy the frames into a words
+page there (``wibeth.frames_bytes_to_u32``)."""
 
 from ._spans import mean_of
 

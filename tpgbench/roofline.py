@@ -12,14 +12,14 @@ STATE_WORD_BYTES = 2         # int16-range values
 HIT_RECORD_BYTES = 24        # channel, end, charge, tover, peak, peak time
 
 
-def least_bytes(channels: int, ticks: int, hits: float) -> float:
-    """Samples read once at 14 bits, the channel state read and written
-    once, the hit records written once."""
-    return (channels * ticks * SAMPLE_BITS / 8
-            + channels * (STATE_WORDS_READ + STATE_WORDS_WRITTEN)
+def least_bytes(channels: int, ticks: int, hits: float, *,
+                sample_bits: int = SAMPLE_BITS,
+                state_words_read: int = STATE_WORDS_READ,
+                state_words_written: int = STATE_WORDS_WRITTEN) -> float:
+    """Samples read once at their wire width, the channel state read and
+    written once, the hit records written once.  The defaults are a
+    WIBEth AbsRS batch's; a system module states its frontend's."""
+    return (channels * ticks * sample_bits / 8
+            + channels * (state_words_read + state_words_written)
             * STATE_WORD_BYTES
             + hits * HIT_RECORD_BYTES)
-
-
-def least_seconds(channels: int, ticks: int, hits: float) -> float:
-    return least_bytes(channels, ticks, hits) / PEAK_HBM_BYTES_S

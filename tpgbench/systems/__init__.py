@@ -2,8 +2,18 @@
 configuration names under ``system``.
 
 A system module gives ``n_apas(config)``, ``min_ring(config, traffic)``
-(the fewest slabs an APA's ring may hold) and a ``System(config, traffic,
-source, device)`` with:
+(the fewest slabs an APA's ring may hold), the two facts of its frontend
+that the readers need:
+
+* ``batch_seconds(config, traffic)``: the detector seconds one APA-batch
+  holds (``rtf`` multiplies by it);
+* ``least_bytes(config, traffic, hits_per_batch)``: the fewest bytes the
+  configuration's trigger-primitive generation must move for one batch,
+  whatever implements it: samples at their wire width, the channel state
+  read and written once, hit records written once
+  (``tpg_roofline_share`` divides it by the card's peak);
+
+and a ``System(config, traffic, source, device)`` with:
 
 * ``step()``: submit the next batch; returns the APA-batches it delivered;
 * ``start_window(seed)``, ``stop_window()``: bracket the measured window

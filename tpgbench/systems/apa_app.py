@@ -19,8 +19,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .. import judge
+from .. import judge, roofline
 from ..reference import channels, frames, tpg, tps
+
+CLOCK_HZ = 62.5e6        # the DAQ timestamp clock
 
 # a TPSet window reaches back min_latency + one frame clocks; a batch must
 # span more, so that a set holds TPs of two batches at most
@@ -52,6 +54,21 @@ def min_ring(config: dict, traffic: dict) -> int:
     """The raw retention holds up to capacity / frames-per-batch slabs, and
     the pipeline one more; one spare."""
     return config["raw_capacity_frames"] // traffic["frames_per_batch"] + 3
+
+
+def batch_seconds(config: dict, traffic: dict) -> float:
+    """``frames_per_batch`` WIBEth frames of 2048 clocks."""
+    return int(traffic["frames_per_batch"]) * frames.CLOCKS_PER_FRAME \
+        / CLOCK_HZ
+
+
+def least_bytes(config: dict, traffic: dict, hits_per_batch: float) -> float:
+    """64 channels a link, 64 ticks a frame, at the AbsRS count of
+    ``roofline.least_bytes``'s defaults (14-bit samples, 10 state words
+    read and 9 written)."""
+    return roofline.least_bytes(
+        config["links"] * frames.CHANNELS,
+        traffic["frames_per_batch"] * frames.TICKS, hits_per_batch)
 
 
 def max_hits(config: dict, C: int) -> int:

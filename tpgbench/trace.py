@@ -94,8 +94,9 @@ def _label_gaps(busy: list, t0: float, t1: float, host: list) -> dict:
 
 def reduce(cap: dict, top: int = 10) -> dict:
     """Device busy and window seconds, per-category device seconds, the
-    device operations that took most time and the longest idle gaps by
-    the innermost host event under way at the gap's middle."""
+    number of kernel records that start inside the segment, the device
+    operations that took most time and the longest idle gaps by the
+    innermost host event under way at the gap's middle."""
     ev = cap["events"]
     seg = [e for e in ev if e.get("name") == SEGMENT
            and e.get("cat") == "user_annotation"]
@@ -119,5 +120,7 @@ def reduce(cap: dict, top: int = 10) -> dict:
         for e in ev if e.get("cat") in HOST_CATS and e.get("name") != SEGMENT])
     return {"busy_s": busy * 1e-6, "window_s": (t1 - t0) * 1e-6,
             "kernel_s": by_cat["kernel"], "h2d_s": h2d,
+            "kernels": sum(e["cat"] == "kernel" and t0 <= float(e["ts"]) < t1
+                           for e in dev),
             "device_ops": sorted(by_name.items(), key=lambda kv: -kv[1])[:top],
             "idle_gaps": sorted(by_gap.items(), key=lambda kv: -kv[1])[:top]}
