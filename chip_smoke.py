@@ -1255,12 +1255,9 @@ def protowib_stage_split(procs, superchunks, time2: bool, n_rep: int = 5):
                 (hits[plane], _), ms = clock(lambda: unpack_compact(packed))
                 r["fetch"] += ms
             ts = int(protowib.get_timestamp(flat[:1])[0])
-            current = ts + 25 * PW_T
             _, r["TP tail"] = clock(lambda: (
-                p._emit_tps(hits["collection"], p.collection_offlines, ts,
-                            current),
-                p._emit_tps(hits["induction"], p.induction_offlines, ts,
-                            current)))
+                p._emit_tps(hits["collection"], p.collection_offlines, ts),
+                p._emit_tps(hits["induction"], p.induction_offlines, ts)))
             reps.append(r)
         for k in reps[0]:
             stages[k] = stages.get(k, 0.0) + statistics.median(
@@ -1286,12 +1283,12 @@ def protowib_run(label: str, time2: bool, twopass: int, batches, checked,
         fetched = [[None] * PW_LINKS for _ in range(N_CHECKED)]
         batch_idx = [0]
         for l, p in enumerate(procs):
-            def recording(hits, offlines, timestamp, current, p=p, l=l,
+            def recording(hits, offlines, timestamp, p=p, l=l,
                           orig=p._emit_tps):
                 b = batch_idx[0]
                 if b < N_CHECKED:
                     fetched[b][l] = (fetched[b][l] or ()) + (hits,)
-                return orig(hits, offlines, timestamp, current)
+                return orig(hits, offlines, timestamp)
             p._emit_tps = recording
         drops = [[0] * PW_LINKS for _ in range(N_CHECKED + 1)]
         batch_ms = []

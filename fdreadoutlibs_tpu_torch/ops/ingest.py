@@ -253,6 +253,12 @@ def decode_slots(slots, nclose, n_channels: int, tick_offset: int = 0):
     return sort_hits(hits), dropped
 
 
+def default_max_hits(n_channels: int) -> int:
+    """The hits a compaction keeps of one batch when its caller sets no
+    cap: max(2048, 2x the channel count)."""
+    return max(2048, 2 * n_channels)
+
+
 def collect_hits(slots, nclose, n_channels: int, max_hits: int | None = None,
                  tick_offset: int = 0, device: bool = True):
     """Kernel slot outputs -> (canonical hit array, dropped count).
@@ -263,7 +269,7 @@ def collect_hits(slots, nclose, n_channels: int, max_hits: int | None = None,
     agree whenever the valid hits fit ``max_hits`` (None -> max(2048, 2x
     the channel count)); overflow beyond it is counted as dropped."""
     if max_hits is None:
-        max_hits = max(2048, 2 * n_channels)
+        max_hits = default_max_hits(n_channels)
     if device:
         return unpack_compact(compact_on_device(slots, nclose, tick_offset,
                                                 n_channels, max_hits))

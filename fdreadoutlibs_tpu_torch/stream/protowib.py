@@ -25,10 +25,36 @@ induction (10 registers) on a pinned spin-waiting thread (hpp:455-459,
 as two kernel launches only to honour the separate per-plane thresholds.
 
 Hits feed the legacy WIBTPHandler (fixed aligned TPSet windows) rather
-than the TPCTPRequestHandler path (hpp:665-667).
+than the TPCTPRequestHandler path (hpp:665-667).  Upstream hands the
+handler each superchunk's hits with that superchunk's time, so a TP is
+suppressed only when it starts ``tp_timeout`` clocks or more before the end
+of the superchunk its hit closed in; a batch of many superchunks keeps
+that rule, each TP judged at its own superchunk's end.
+
+Each ``process`` call appends one row to ``batch_timings`` (bounded), built
+from its stages' spans (``utils.logging.span``: host milliseconds, and
+``protowib.*`` ranges while a torch profiler records):
+``protowib.checks`` (``checks_ms``, the timestamp and error checks),
+``protowib.codec`` (``codec_ms``, the time2 feed's host codec, or the
+packed feed's words view), ``protowib.h2d`` (``h2d_host_ms``, the pageable
+copy), ``protowib.tpg`` (``tpg_launch_ms``, the kernel launches),
+``protowib.compact`` (``compact_launch_ms``), ``protowib.fetch``
+(``fetch_ms``, the syncs, copies and decodes of the compact hits),
+``protowib.emit`` (``assembly_ms``) and ``protowib.handler``
+(``handler_ms``), and the call's wall (``total_ms``).  On a card a
+CUDA-event pair around each plane's TPG launch (the packed feed: one pair
+around the decode and both launches) gives ``fir_device_ms``, and one pair
+around both planes' compactions ``compact_device_ms``, read after the
+fetch.  ``get_info()`` also reports ``tpg_counts``: ``tpg_launches``,
+``h2d_bytes``, ``tpsets_sent`` and the dropped hits of each plane
+(``num_hits_dropped_collection``, ``num_hits_dropped_induction``), kept
+apart from the counters the JAX processor shares.
 """
 
 from __future__ import annotations
+
+import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -38,16 +64,26 @@ from ..formats import protowib
 from ..formats.trigprim import TP_DTYPE, TPAlgorithm, TPType, ts_to_i64
 from ..ops.chanstate import init_chanstate, seed_chanstate
 from ..ops.config import Algorithm, TPGConfig
-from ..ops.ingest import (collect_hits, process_packed_protowib,
-                          process_time2_feed)
+from ..ops.ingest import (compact_on_device, decode_slots,
+                          default_max_hits, process_packed_protowib,
+                          process_time2_feed, unpack_compact)
 from ..ops.tpg import auto_tc, pack_state
 from ..tp.wib_tp_handler import WIBTPHandler
+from ..utils.logging import span
 from ..utils.tuning import kernel_knobs
 from .errors import ErrorInterval
 from .processor import TaskRawDataProcessor
 
 CLOCKS_PER_TPC_TICK = 25     # 2 MHz @ 50 MHz clock (hpp:586-590)
 BACKENDS = ("pallas", "reference", "scan")
+# the row keys of the host spans every batch_timings row holds
+SPAN_KEYS = ("checks_ms", "codec_ms", "h2d_host_ms", "tpg_launch_ms",
+             "compact_launch_ms", "fetch_ms", "assembly_ms", "handler_ms")
+PLANES = ("collection", "induction")
+# the row keys of the device times, each the number of event pairs it sums
+EVENT_PAIRS = {"fir_device_ms": len(PLANES), "compact_device_ms": 1}
+TPG_COUNTS = ("tpg_launches", "h2d_bytes", "tpsets_sent",
+              "num_hits_dropped_collection", "num_hits_dropped_induction")
 
 
 class WIBFrameProcessor(TaskRawDataProcessor):
@@ -63,6 +99,20 @@ class WIBFrameProcessor(TaskRawDataProcessor):
         self.errored_frame_sink = errored_frame_sink
         self.tpg_enabled = False
         self.backend = "pallas"
+        # per-call stage timings (ms), bounded history; the TPG path's counts
+        self.batch_timings = deque(maxlen=4096)
+        self.tpg_counts = dict.fromkeys(TPG_COUNTS, 0)
+        self._row = {}
+        self._timed = {}
+        # on a card, (start, end) events around each plane's TPG launch and
+        # around the compactions, reused: process() reads them after its
+        # fetch synchronised
+        self._events = None
+        if self.device.type == "cuda":
+            self._events = {
+                key: [tuple(torch.cuda.Event(enable_timing=True)
+                            for _ in range(2)) for _ in range(n)]
+                for key, n in EVENT_PAIRS.items()}
 
     def conf(self, config: dict) -> None:
         super().conf(config)
@@ -92,8 +142,7 @@ class WIBFrameProcessor(TaskRawDataProcessor):
         # device runs the time2 FIR datapath (pallas backend only)
         self._time2_feed = bool(config.get("tpg_time2_feed", False))
 
-        self.add_preprocess_task(self.timestamp_check)
-        self.add_preprocess_task(self.frame_error_check)
+        self.add_preprocess_task(self._checks)
         if config.get("enable_tpg", config.get("enable_software_tpg", False)):
             self.tpg_enabled = True
             self.add_postprocess_task(self.find_hits)
@@ -117,6 +166,33 @@ class WIBFrameProcessor(TaskRawDataProcessor):
         self.induction_offlines = ind_off
         if self.tp_handler is not None:
             self.tp_handler.reset()
+        self.batch_timings.clear()
+        self.tpg_counts = dict.fromkeys(TPG_COUNTS, 0)
+
+    def get_info(self) -> dict:
+        info = super().get_info()
+        info.update(self.tpg_counts)
+        return info
+
+    def process(self, superchunks: np.ndarray):
+        """The pipeline over one batch of superchunks, its stages timed
+        into one ``batch_timings`` row."""
+        self._row = row = dict.fromkeys(SPAN_KEYS, 0.0)
+        self._timed = {}
+        t0 = time.perf_counter()
+        out = super().process(superchunks)
+        # the fetch synchronised the stream past every end event
+        for key, n in self._timed.items():
+            row[key] = sum(start.elapsed_time(end)
+                           for start, end in self._events[key][:n])
+        row["total_ms"] = (time.perf_counter() - t0) * 1e3
+        self.batch_timings.append(row)
+        return out
+
+    def _checks(self, superchunks: np.ndarray) -> None:
+        with span("protowib.checks", self._row):
+            self.timestamp_check(superchunks)
+            self.frame_error_check(superchunks)
 
     # ------------------------------------------------------------ checks
     def timestamp_check(self, superchunks: np.ndarray) -> None:
@@ -222,19 +298,26 @@ class WIBFrameProcessor(TaskRawDataProcessor):
             adcs = protowib.get_adcs(flat).astype(np.int32)
             coll = adcs[:, protowib.COLLECTION_INDEX_TO_CHAN]
             ind = adcs[:, protowib.INDUCTION_INDEX_TO_CHAN]
-            h_coll, self._coll_state = self._run(coll, self._coll_state,
-                                                 self.coll_cfg)
-            h_ind, self._ind_state = self._run(ind, self._ind_state,
-                                               self.ind_cfg)
+            with span("protowib.tpg", self._row, "tpg_launch_ms"):
+                h_coll, self._coll_state = self._run(coll, self._coll_state,
+                                                     self.coll_cfg)
+                h_ind, self._ind_state = self._run(ind, self._ind_state,
+                                                   self.ind_cfg)
         self.metrics.inc("num_hits", len(h_coll) + len(h_ind))
-        current = timestamp + CLOCKS_PER_TPC_TICK * T
-        self._emit_tps(h_coll, self.collection_offlines, timestamp, current)
-        self._emit_tps(h_ind, self.induction_offlines, timestamp, current)
+        self._emit_tps(h_coll, self.collection_offlines, timestamp)
+        self._emit_tps(h_ind, self.induction_offlines, timestamp)
         if self.tp_handler is not None:
             # drain every safely-closed window: one call emits at most one
-            # aligned window (hpp:59-92 semantics); a batch spans several
-            while self.tp_handler.try_sending_tpsets(current) is not None:
-                pass
+            # aligned window (hpp:59-92 semantics); a batch spans several.
+            # A TP that would join a window sent here is one the handler
+            # suppresses at its own superchunk's end, so draining once at
+            # the batch's end sends the sets of one call a superchunk
+            current = timestamp + CLOCKS_PER_TPC_TICK * T
+            with span("protowib.handler", self._row):
+                sent = 0
+                while self.tp_handler.try_sending_tpsets(current) is not None:
+                    sent += 1
+            self.tpg_counts["tpsets_sent"] += sent
 
     def _run(self, adcs, state, cfg):
         """Run one plane's stream through the selected backend
@@ -253,17 +336,40 @@ class WIBFrameProcessor(TaskRawDataProcessor):
                                          protowib.N_INDUCTION,
                                          device=self.device)
 
+    def _record(self, key: str, pair: int, end: int) -> None:
+        """On a card, record the start (``end`` 0) or end event of pair
+        ``pair`` of the device time ``key``."""
+        if self._events is not None:
+            self._events[key][pair][end].record(
+                torch.cuda.current_stream(self.device))
+            self._timed[key] = max(self._timed.get(key, 0), pair + 1)
+
     def _collect(self, c_slots, c_n, i_slots, i_n):
         """Both planes' slot buffers -> (collection hits, induction hits),
-        counting the dropped closes."""
-        h_coll, d_c = collect_hits(c_slots, c_n, protowib.N_COLLECTION,
-                                   max_hits=self._max_hits,
-                                   device=self._device_compact)
-        h_ind, d_i = collect_hits(i_slots, i_n, protowib.N_INDUCTION,
-                                  max_hits=self._max_hits,
-                                  device=self._device_compact)
+        counting the dropped closes: both compactions are launched, then
+        both hit lists fetched (or, without the device compaction, the slot
+        buffers fetched and decoded on the host)."""
+        planes = ((c_slots, c_n, protowib.N_COLLECTION),
+                  (i_slots, i_n, protowib.N_INDUCTION))
+        row = self._row
+        if self._device_compact:
+            with span("protowib.compact", row, "compact_launch_ms"):
+                self._record("compact_device_ms", 0, 0)
+                packed = [compact_on_device(
+                    slots, n, 0, C, default_max_hits(C)
+                    if self._max_hits is None else self._max_hits)
+                    for slots, n, C in planes]
+                self._record("compact_device_ms", 0, 1)
+            with span("protowib.fetch", row):
+                out = [unpack_compact(p) for p in packed]
+        else:
+            with span("protowib.fetch", row):
+                out = [decode_slots(slots, n, C) for slots, n, C in planes]
+        (h_coll, d_c), (h_ind, d_i) = out
         if d_c or d_i:
             self.metrics.inc("num_hits_dropped", d_c + d_i)
+        self.tpg_counts["num_hits_dropped_collection"] += d_c
+        self.tpg_counts["num_hits_dropped_induction"] += d_i
         return h_coll, h_ind
 
     def _run_pallas_time2(self, flat_frames: np.ndarray):
@@ -280,31 +386,44 @@ class WIBFrameProcessor(TaskRawDataProcessor):
         if tc % 2:
             tc = next((d for d in range(tc, 1, -1)
                        if T % d == 0 and d % 2 == 0), T)
+        row = self._row
 
-        def run(chan_idx, buf, stack, cfg):
+        def run(plane, chan_idx, buf, stack, cfg):
             C = len(chan_idx)
             shape = native.time2_feed_shape(1, T, ch_per_link=C, pad8=False)
-            feed = native.relayout_time2_protowib(
-                flat_frames, chan_idx, out=buf.get(shape), pad8=False)
-            return process_time2_feed(
-                torch.from_numpy(feed).to(self.device), stack, cfg, C,
-                tc=tc, k_slots=self.k_slots,
-                fir_twopass=knobs["fir_twopass"],
-                geometry=knobs["geometry"])
+            with span("protowib.codec", row):
+                feed = native.relayout_time2_protowib(
+                    flat_frames, chan_idx, out=buf.get(shape), pad8=False)
+            with span("protowib.h2d", row, "h2d_host_ms"):
+                dev_in = torch.from_numpy(feed).to(self.device)
+            self.tpg_counts["h2d_bytes"] += feed.nbytes
+            with span("protowib.tpg", row, "tpg_launch_ms"):
+                self._record("fir_device_ms", plane, 0)
+                out = process_time2_feed(
+                    dev_in, stack, cfg, C, tc=tc, k_slots=self.k_slots,
+                    fir_twopass=knobs["fir_twopass"],
+                    geometry=knobs["geometry"])
+                self._record("fir_device_ms", plane, 1)
+            self.tpg_counts["tpg_launches"] += 1
+            return out
 
         c_slots, c_n, self._coll_stack = run(
-            protowib.COLLECTION_INDEX_TO_CHAN, self._t2_buf_coll,
+            0, protowib.COLLECTION_INDEX_TO_CHAN, self._t2_buf_coll,
             self._coll_stack, self.coll_cfg)
         i_slots, i_n, self._ind_stack = run(
-            protowib.INDUCTION_INDEX_TO_CHAN, self._t2_buf_ind,
+            1, protowib.INDUCTION_INDEX_TO_CHAN, self._t2_buf_ind,
             self._ind_stack, self.ind_cfg)
         return self._collect(c_slots, c_n, i_slots, i_n)
 
     def _device_words(self, flat_frames: np.ndarray) -> torch.Tensor:
         """(T, 464) frames -> their (T, 116) words as int32 on the device
         (one host->device copy)."""
-        return torch.from_numpy(protowib.frames_bytes_to_u32(flat_frames)
-                                .view(np.int32)).to(self.device)
+        with span("protowib.codec", self._row):
+            words = protowib.frames_bytes_to_u32(flat_frames).view(np.int32)
+        with span("protowib.h2d", self._row, "h2d_host_ms"):
+            dev = torch.from_numpy(words).to(self.device)
+        self.tpg_counts["h2d_bytes"] += words.nbytes
+        return dev
 
     def _run_pallas_packed(self, flat_frames: np.ndarray):
         """Packed device ingest for one link: the (T, 116) frame words
@@ -313,25 +432,54 @@ class WIBFrameProcessor(TaskRawDataProcessor):
         self._ensure_stacks()
         T = flat_frames.shape[0]
         tc = auto_tc(T, cap=knobs["tc"])
-        (c_slots, c_n, self._coll_stack), (i_slots, i_n, self._ind_stack) = \
-            process_packed_protowib(self._device_words(flat_frames),
-                                    self._coll_stack, self._ind_stack,
-                                    self.coll_cfg, self.ind_cfg, tc=tc,
-                                    k_slots=self.k_slots,
-                                    fir_twopass=knobs["fir_twopass"],
-                                    geometry=knobs["geometry"])
+        words = self._device_words(flat_frames)
+        with span("protowib.tpg", self._row, "tpg_launch_ms"):
+            self._record("fir_device_ms", 0, 0)
+            (c_slots, c_n, self._coll_stack), \
+                (i_slots, i_n, self._ind_stack) = process_packed_protowib(
+                    words, self._coll_stack, self._ind_stack,
+                    self.coll_cfg, self.ind_cfg, tc=tc,
+                    k_slots=self.k_slots, fir_twopass=knobs["fir_twopass"],
+                    geometry=knobs["geometry"])
+            self._record("fir_device_ms", 0, 1)
+        self.tpg_counts["tpg_launches"] += len(PLANES)
         return self._collect(c_slots, c_n, i_slots, i_n)
 
     def _emit_tps(self, hits: np.ndarray, offlines: np.ndarray,
-                  timestamp: int, current_time: int) -> None:
+                  timestamp: int) -> None:
         """add_hits_to_tphandler (hpp:586-676): WIB TP variant with
-        clocksPerTPCTick = 25, peak = midpoint, adc_peak = charge/20."""
+        clocksPerTPCTick = 25, peak = midpoint, adc_peak = charge/20.  The
+        handler judges each TP at the end of the superchunk its hit closed
+        in, as upstream's one call a superchunk does."""
+        with span("protowib.emit", self._row, "assembly_ms"):
+            tps = self._assemble_tps(hits, offlines, timestamp)
+        if tps is None:
+            return
+        if self.tp_handler is None:
+            self.metrics.inc("num_tps_sent", len(tps))
+            return
+        with span("protowib.handler", self._row):
+            sc = protowib.SUPERCHUNK_TICK_DIFFERENCE
+            t_end = (tps["time_start"] + tps["time_over_threshold"]).astype(
+                np.int64)
+            ts64 = ts_to_i64(timestamp)
+            closed_at = ts64 + sc * ((t_end - ts64) // sc + 1)
+            accepted = self.tp_handler.add_tps(tps, closed_at)
+        self.metrics.inc("num_tps_sent", accepted)
+        if accepted < len(tps):
+            self.metrics.inc("num_tps_suppressed_too_long",
+                             len(tps) - accepted)
+
+    def _assemble_tps(self, hits: np.ndarray, offlines: np.ndarray,
+                      timestamp: int):
+        """One plane's hits -> TP records, or None when no hit carries
+        charge."""
         # uint16 charge decode + zero-charge skip, like the reference
         # (WIBFrameProcessor.hpp:590, 628, 652-653)
         charge_u16 = hits["charge"].astype(np.int64) & 0xFFFF
         hits, charge_u16 = hits[charge_u16 != 0], charge_u16[charge_u16 != 0]
         if len(hits) == 0:
-            return
+            return None
         end_tick = hits["end_tick"].astype(np.int64)
         tover = hits["tover"].astype(np.int64)
         ts64 = ts_to_i64(timestamp)
@@ -350,11 +498,4 @@ class WIBFrameProcessor(TaskRawDataProcessor):
         tps["algorithm"] = TPAlgorithm.kSimpleThreshold
         tps["version"] = 1
         self.metrics.add_channel_tps(tps["channel"])
-        if self.tp_handler is not None:
-            accepted = self.tp_handler.add_tps(tps, current_time)
-            self.metrics.inc("num_tps_sent", accepted)
-            if accepted < len(tps):
-                self.metrics.inc("num_tps_suppressed_too_long",
-                                 len(tps) - accepted)
-        else:
-            self.metrics.inc("num_tps_sent", len(tps))
+        return tps

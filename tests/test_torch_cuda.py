@@ -518,6 +518,36 @@ def test_protowib_processor_on_card_matches_cpu(card, twopass, tmp_path,
         assert out["cuda"][2]["K5" if twopass else "K3"] == 2 * 2 * 3
 
 
+@pytest.mark.parametrize("time2", [False, True])
+def test_protowib_device_spans_on_card(card, time2):
+    """The ProtoWIB processor's CUDA-event spans: each row's FIR launches
+    and compactions read positive device times, and every event had
+    completed when its time was read (after the fetch, no sync of its
+    own)."""
+    read = []
+
+    class Checked(torch.cuda.Event):
+        def elapsed_time(self, end_event):
+            read.append(self.query() and end_event.query())
+            return super().elapsed_time(end_event)
+
+    p = WIBFrameProcessor(tp_handler=WIBTPHandler(), device="cuda")
+    p.conf({"enable_tpg": True, "tpg_time2_feed": time2})
+    p.start()
+    p._events = {key: [tuple(Checked(enable_timing=True) for _ in range(2))
+                       for _ in pairs]
+                 for key, pairs in p._events.items()}
+    for b in range(3):
+        sc = protowib_superchunks(1, 16, seed=b,
+                                  ts0=0x1000000 + b * 16 * 300)[0]
+        p.process(sc[0].copy())
+    rows = list(p.batch_timings)
+    planes = 2 if time2 else 1
+    assert len(rows) == 3 and len(read) == 3 * (planes + 1) and all(read)
+    for row in rows:
+        assert row["fir_device_ms"] > 0 and row["compact_device_ms"] > 0
+
+
 @pytest.mark.parametrize("twopass", [0, 2])
 def test_run_model_on_card_matches_cpu(card, twopass, tmp_path, monkeypatch):
     _tuned(tmp_path, monkeypatch, twopass)

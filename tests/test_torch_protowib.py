@@ -139,9 +139,12 @@ def _batches():
     return [sc[:8], sc[8:]]
 
 
-def _run(cls, handler_cls, sender_cls, batches, **conf):
+def _run(cls, handler_cls, sender_cls, batches, batch_end=False, **conf):
     """Drive one processor; returns (hits per call, TPs, TPSets, forwarded
-    errored frames, counters)."""
+    errored frames, counters).  The JAX processor hands its handler each
+    superchunk's TPs at that superchunk's end (``per_superchunk``), or,
+    with ``batch_end``, all of a batch's at the batch's end as it does
+    itself."""
     tp_q, set_q, err_q = sender_cls(), sender_cls(), sender_cls()
     handler = handler_cls(tp_sink=tp_q, tpset_sink=set_q, tp_timeout=2_000,
                           tpset_window_size=500, source_id=3)
@@ -154,9 +157,13 @@ def _run(cls, handler_cls, sender_cls, batches, **conf):
     hits = []
     emit = p._emit_tps
 
-    def recording(h, offlines, timestamp, current):
+    def recording(h, offlines, timestamp, *rest):
         hits.append(np.array(h, copy=True))
-        return emit(h, offlines, timestamp, current)
+        if cls is not JWIB:
+            return emit(h, offlines, timestamp)
+        if batch_end:
+            return emit(h, offlines, timestamp, *rest)
+        per_superchunk(emit, h, offlines, timestamp)
     p._emit_tps = recording
     for b in batches:
         p.process(b.copy())
@@ -167,6 +174,16 @@ def _run(cls, handler_cls, sender_cls, batches, **conf):
             for s in set_q.drain()]
     return (hits, np.concatenate(tps) if tps else np.zeros(0), sets,
             err_q.drain(), {k: p.metrics.count(k) for k in COUNTERS})
+
+
+def per_superchunk(emit, hits, offlines, timestamp):
+    """The JAX processor's TP emission as upstream calls the handler, once
+    a superchunk: each superchunk's hits (those whose end tick it holds),
+    at that superchunk's end."""
+    sc = hits["end_tick"] // protowib.FRAMES_PER_SUPERCHUNK
+    for k in np.unique(sc):
+        emit(hits[sc == k], offlines, timestamp,
+             timestamp + protowib.SUPERCHUNK_TICK_DIFFERENCE * (int(k) + 1))
 
 
 CASES = [("reference", False, 0), ("scan", False, 0)] + [
@@ -216,6 +233,63 @@ def test_processor_matches_jax(backend, time2, twopass, tmp_path,
     if backend == "pallas":
         assert counts["num_hits_dropped"] > 0
     assert seen == ([twopass] * 4 if backend == "pallas" and twopass else [])
+
+
+@pytest.mark.parametrize("backend", ["reference", "pallas"])
+def test_processor_matches_jax_fed_one_superchunk_a_call(backend):
+    """Batches of 16 superchunks give the TPs, TPSets and suppressed count
+    of the JAX processor fed one superchunk a call, whose handler sees
+    each superchunk's end as upstream's does.  The handler's timeout (80
+    ticks) is shorter than a batch: a pulse of 120 ticks is suppressed,
+    one of 60 ticks that closes early in a batch is not."""
+    sc, adcs = protowib_superchunks(1, 48, seed=29)
+    adcs = adcs[0]
+    c, i = (int(protowib.COLLECTION_INDEX_TO_CHAN[5]),
+            int(protowib.INDUCTION_INDEX_TO_CHAN[70]))
+    adcs[200:320, c] += 2500               # 120 ticks: suppressed
+    adcs[196:256, i] += 2500               # 60 ticks, closes at ~tick 60
+    adcs = np.clip(adcs, 0, (1 << protowib.ADC_BITS) - 1)
+    sc = sc[0]
+    protowib.set_adcs(protowib.superchunk_frames(sc),
+                      adcs.reshape(48, 12, 256))
+    got = _run(WIBFrameProcessor, WIBTPHandler, QueueSender,
+               [sc[k:k + 16] for k in range(0, 48, 16)],
+               tpg_backend=backend, tpg_k_slots=8)
+    jproc = {}
+
+    def jax_run(batches):
+        tp_q, set_q = JQueueSender(), JQueueSender()
+        h = JHandler(tp_sink=tp_q, tpset_sink=set_q, tp_timeout=2_000,
+                     tpset_window_size=500, source_id=3)
+        p = JWIB(tp_handler=h)
+        p.conf({"crate_id": 1, "slot_id": 0, "link_id": 3,
+                "enable_tpg": True, "tpg_backend": "reference",
+                "tpg_induction_threshold": 4})
+        p.start()
+        for b in batches:
+            p.process(b.copy())
+        while h.try_sending_tpsets(10**12) is not None:
+            pass
+        jproc["p"] = p
+        return tp_q.drain(), set_q.drain()
+    j_tps, j_sets = jax_run([sc[k:k + 1] for k in range(48)])
+    _, tps, sets, _, counts = got
+    j_counts = {k: jproc["p"].metrics.count(k) for k in COUNTERS}
+    np.testing.assert_array_equal(
+        np.sort(tps, order=["time_start", "channel"]),
+        np.sort(np.concatenate(j_tps), order=["time_start", "channel"]))
+    assert [s[:4] for s in sets] == [
+        (s.start_time, s.end_time, s.seqno, s.origin) for s in j_sets]
+    assert counts["num_tps_suppressed_too_long"] == \
+        j_counts["num_tps_suppressed_too_long"] == 1
+    assert counts["num_tps_sent"] == j_counts["num_tps_sent"] > 0
+    # the JAX processor fed these batches judges at each batch's end and
+    # suppresses more
+    _, _, _, _, batch_end = _run(JWIB, JHandler, JQueueSender,
+                                 [sc[k:k + 16] for k in range(0, 48, 16)],
+                                 tpg_backend="reference", tpg_k_slots=8,
+                                 batch_end=True)
+    assert batch_end["num_tps_suppressed_too_long"] > 1
 
 
 def test_processor_backends_agree_and_refuse_unknown():
